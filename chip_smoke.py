@@ -3,7 +3,10 @@
 mode-0 path from the sources in this checkout, hold each against its plain
 PyTorch version at the main path's shapes, drive full-width mode-0 restore
 through ``VoiceFixer`` in parity and production precision, and check the
-output.
+output. The kernels: stft_mel, gru_bidir, upsample, and the vocoder's
+ResStack kernels res_chain, res_shift_single and up_res_stream, each also
+timed against the library call (cuFFT, cuDNN) that computes the same
+function and that the port does not use.
 
     python3 chip_smoke.py
 
@@ -35,14 +38,21 @@ REPLACES = {
     "stft_mel": "voicefixer_tpu/kernels/stft.py:65",
     "gru_bidir": "voicefixer_tpu/kernels/gru.py:134",
     "upsample": "voicefixer_tpu/kernels/upsample.py:151",
+    "res_chain": "voicefixer_tpu/kernels/resstack.py:293",
+    "res_shift_single": "voicefixer_tpu/kernels/resstack.py:464",
+    "up_res_stream": "voicefixer_tpu/kernels/resstream.py:552",
 }
 SOURCES = {
     "stft_mel": "voicefixer_tpu_torch/csrc/stft_mel.cu",
     "gru_bidir": "voicefixer_tpu_torch/csrc/gru_bidir.cu",
     "upsample": "voicefixer_tpu_torch/csrc/upsample.cu",
+    "res_chain": "voicefixer_tpu_torch/csrc/resstack.cu",
+    "res_shift_single": "voicefixer_tpu_torch/csrc/resstack.cu",
+    "up_res_stream": "voicefixer_tpu_torch/csrc/resstream.cu",
 }
-# launches of each kernel per batch of the mode-0 path
-PER_BATCH = {"stft_mel": 1, "gru_bidir": 4, "upsample": 4}
+KERNELS = tuple(SOURCES)
+# slopes of the vocoder's LeakyReLUs: inside a ResStack, after a stage
+SLOPE_RES, SLOPE_ACT = 0.01, 0.2
 # Production against parity. bench.py's end-to-end floor (SNR_FLOOR_E2E,
 # bench.py:149) was met by the JAX package's own weight draw. The same
 # precision policy gives from about 30 to 41 dB over other random draws, in
@@ -85,7 +95,8 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float):
 
 
 # The least work of each kernel's function, (FLOPs, bytes), each input read
-# once and each output written once. tools/kernel_work.py uses them too.
+# once and each output written once. tools/kernel_work.py uses them for the
+# kernels that are not ported yet.
 
 def stft_work(n: int, t: int, n_fft: int, n_freqs: int, n_mels: int):
     """STFT -> magnitude -> mel of an n-sample float32 wave into t frames, as
@@ -97,12 +108,13 @@ def stft_work(n: int, t: int, n_fft: int, n_freqs: int, n_mels: int):
     return flops, 4 * (n + n_freqs * n_mels + t * n_mels)
 
 
-def gru_work(t: int, h: int, w_size: int):
-    """Both directions of one GRU layer over t steps: float32 projections
-    in, h·W_hh and the gates per step, float32 states out."""
-    flops = 2 * t * (2 * h * 3 * h + 12 * h)
-    return flops, 4 * (2 * t * 3 * h + 2 * 3 * h + 2 * t * h) \
-        + 2 * h * 3 * h * w_size
+def gru_work(t: int, h: int, w_size: int, directions: int = 2):
+    """One GRU layer over t steps, both directions unless told otherwise:
+    float32 projections in, h·W_hh and the gates per step, float32 states
+    out."""
+    flops = directions * t * (2 * h * 3 * h + 12 * h)
+    return flops, directions * (4 * (t * 3 * h + 3 * h + t * h)
+                                + h * 3 * h * w_size)
 
 
 def upsample_work(t: int, s: int, cin: int, cout: int, size: int):
@@ -112,13 +124,69 @@ def upsample_work(t: int, s: int, cin: int, cout: int, size: int):
             size * (t * cin + 2 * s * cin * cout + cout + t * s * cout))
 
 
-def compare(name, got, ref, rtol, atol):
-    """Max abs error; raises when |got - ref| > atol + rtol*|ref| anywhere."""
+def res_work(ch: int, t: int, n_blocks: int, size: int):
+    """n consecutive ResStack blocks (two k=3 convs of C x C each) on
+    [t, C]: the signal read once and written once, the weights read once."""
+    return (n_blocks * 12 * ch * ch * t,
+            size * (2 * t * ch + n_blocks * 2 * (3 * ch * ch + ch)))
+
+
+def up_res_work(t: int, s: int, cin: int, cout: int, n_blocks: int,
+                size: int):
+    """The upsample fused with n blocks: the upsampled signal is neither
+    written by the one nor read by the other."""
+    fl, by = res_work(cout, t * s, n_blocks, size)
+    up_fl, up_by = upsample_work(t, s, cin, cout, size)
+    return fl + up_fl, by + up_by - 2 * size * t * s * cout
+
+
+def expected_launches(size: int) -> dict:
+    """Launches of each kernel per batch of full-width mode-0 restore at an
+    activation size of ``size`` bytes, from the vocoder's dispatch rule and
+    the ResStack planner. Checks that the ResStack kernels cover every
+    block."""
+    from voicefixer_tpu_torch.config import DEFAULT_CONFIG as C
+    from voicefixer_tpu_torch.kernels.resstack import (plan_stack,
+                                                       stack_dilations)
+    from voicefixer_tpu_torch.models.vocoder import FUSE_MAX_CHANNELS
+    v = C.vocoder
+    want = dict.fromkeys(KERNELS, 0)
+    want["stft_mel"], want["gru_bidir"] = 1, 4
+    blocks = 0
+    for i, depth in enumerate(v.resstack_depth):
+        cout = v.channels // 2 ** (i + 1)
+        if cout <= FUSE_MAX_CHANNELS:
+            want["up_res_stream"] += 1
+            blocks += depth
+            continue
+        want["upsample"] += 1
+        for i0, i1, tm in plan_stack(cout, stack_dilations(depth), size):
+            want["res_chain" if tm is not None else "res_shift_single"] += 1
+            blocks += i1 - i0
+    if blocks != sum(v.resstack_depth) or not all(want.values()):
+        raise AssertionError(f"the plan leaves a kernel or a block out: "
+                             f"{want}, {blocks} blocks")
+    return want
+
+
+def compare(name, got, ref, rtol, atol, chained=0):
+    """Max abs error; raises when |got - ref| > atol + rtol*|ref| anywhere.
+    ``chained``: bfloat16 through that many ResStack blocks in one call,
+    where one ulp of an intermediate (of magnitude up to max|ref|) travels
+    along the residual path into outputs of any magnitude: at most 0.5 % of
+    the elements per block may miss atol + rtol*|ref|, and none
+    2^-7*max|ref| + rtol*|ref|."""
     import torch
     got, ref = got.float(), ref.float()
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{name}: non-finite kernel output")
     err = (got - ref).abs()
+    if chained:
+        share = float((err > atol + rtol * ref.abs()).float().mean())
+        if share > 0.005 * chained:
+            raise AssertionError(f"{name}: {share:.4f} of the elements miss "
+                                 f"{atol:.1e} + {rtol:.1e}*|ref|")
+        atol = 2 ** -7 * float(ref.abs().max())
     worst = float((err - rtol * ref.abs()).max())
     max_err = float(err.max())
     ok = worst <= atol
@@ -269,6 +337,115 @@ def _upsample_case(gen, device, dtype, stage, t):
             "peak": PEAK_FP32 if dtype == "float32" else PEAK_BF16}
 
 
+def _bank(gen, n, ch, device, dt):
+    """(w1s, b1s, w2s, b2s) of n random ResStack blocks at width ch."""
+    import torch
+    bound = (1 / (3 * ch)) ** 0.5
+    w = lambda: ((torch.rand((n, 3, ch, ch), generator=gen) * 2 - 1)  # noqa: E731
+                 * bound).to(device, dt)
+    b = lambda: (0.01 * torch.randn((n, ch), generator=gen)  # noqa: E731
+                 ).to(device, dt)
+    return w(), b(), w(), b()
+
+
+def _cudnn_blocks(x, bank, dils, final_slope):
+    """The ResStack blocks as the port ran them before it had kernels for
+    them: leaky_relu, a dilated cuDNN convolution, leaky_relu, a cuDNN
+    convolution, add. The yardstick only."""
+    import torch.nn.functional as F
+    from voicefixer_tpu_torch.ops.conv import conv1d
+    w1s, b1s, w2s, b2s = bank
+    for i, d in enumerate(dils):
+        h = conv1d(F.leaky_relu(x, SLOPE_RES), w1s[i], b1s[i], padding=d,
+                   dilation=d)
+        x = x + conv1d(F.leaky_relu(h, SLOPE_RES), w2s[i], b2s[i], padding=1)
+    return x if final_slope is None else F.leaky_relu(x, final_slope)
+
+
+def _res_tol(dtype, chained):
+    """float32: sums in another order over up to eight chained blocks.
+    bfloat16: one ulp (2^-8 relative) where the float32 sums straddle a
+    rounding boundary; see compare() for chained blocks."""
+    if dtype == "float32":
+        return {"rtol": 1e-4, "atol": 1e-4}
+    return {"rtol": 2 ** -7, "atol": 1e-3, "chained": chained}
+
+
+def _res_cases(gen, device, dtype, ch, t, main_path=True):
+    """One case per launch that ``res_stack`` makes on a [1, t, ch] stage."""
+    import torch
+    from voicefixer_tpu_torch.kernels import resstack
+    dt = getattr(torch, dtype)
+    dils = resstack.stack_dilations(8)
+    x = torch.randn((1, t, ch), generator=gen).to(device, dt)
+    bank = _bank(gen, 8, ch, device, dt)
+    cases = []
+    for i0, i1, tm in resstack.plan_stack(ch, dils, x.element_size()):
+        fs = SLOPE_ACT if i1 == 8 else None
+        sub, d = tuple(v[i0:i1] for v in bank), dils[i0:i1]
+        if tm is None:
+            one = tuple(v[0] for v in sub)
+            name = "res_shift_single"
+            fn = lambda one=one, d=d, fs=fs: resstack.res_shift_single(  # noqa: E731
+                x, *one, d[0], SLOPE_RES, fs)
+            plain = lambda one=one, d=d, fs=fs: (  # noqa: E731
+                resstack.res_shift_single_reference(x, *one, d[0], SLOPE_RES,
+                                                    fs))
+        else:
+            name = "res_chain"
+            fn = lambda sub=sub, d=d, fs=fs, tm=tm: resstack.res_chain(  # noqa: E731
+                x, *sub, d, SLOPE_RES, fs, tm=tm)
+            plain = lambda sub=sub, d=d, fs=fs: resstack.res_chain_reference(  # noqa: E731
+                x, *sub, d, SLOPE_RES, fs)
+        library = lambda sub=sub, d=d, fs=fs: _cudnn_blocks(x, sub, d, fs)  # noqa: E731
+        flops, work_bytes = res_work(ch, t, i1 - i0, x.element_size())
+        cases.append({
+            "name": name, "dtype": dtype, "main_path": main_path,
+            "shape": f"[1, {t}, {ch}] dilations {d}", "fn": fn,
+            "plain": plain, "library": library, "reps": 3, "per_chunk": 1,
+            **_res_tol(dtype, i1 - i0 if i1 - i0 > 1 else 0), "bytes": work_bytes,
+            "flops": flops,
+            "peak": PEAK_FP32 if dtype == "float32" else PEAK_BF16})
+    return cases
+
+
+def _up_res_case(gen, device, dtype, cin, cout, s, t, main_path=True):
+    import torch
+    import torch.nn.functional as F
+    from voicefixer_tpu_torch.kernels import resstack, resstream
+    dt = getattr(torch, dtype)
+    dils = resstack.stack_dilations(8)
+    x = torch.randn((1, t, cin), generator=gen).to(device, dt)
+    bound = (1 / (cin * 2 * s)) ** 0.5
+    w = ((torch.rand((2 * s, cin, cout), generator=gen) * 2 - 1) * bound
+         ).to(device, dt)
+    b = (0.01 * torch.randn((cout,), generator=gen)).to(device, dt)
+    bank = _bank(gen, 8, cout, device, dt)
+    args = (x, w, b, *bank, dils, s, SLOPE_RES, SLOPE_ACT)
+    w_t = w.permute(1, 2, 0).contiguous()  # torch [Cin, Cout, K]
+    pad = s // 2 + s % 2
+
+    def library():
+        x_ncw = x.transpose(1, 2)
+        u = F.conv_transpose1d(x_ncw + torch.sin(x_ncw), w_t, b, stride=s,
+                               padding=pad, output_padding=s % 2)
+        return _cudnn_blocks(u.transpose(1, 2), bank, dils, SLOPE_ACT)
+
+    groups = resstack.plan_stack(cout, dils, x.element_size(),
+                                 first_chain=True)
+    writes, reads = resstream.passes(groups)
+    flops, work_bytes = up_res_work(t, s, cin, cout, 8, x.element_size())
+    return {"name": "up_res_stream", "dtype": dtype, "main_path": main_path,
+            "shape": f"[1, {t}, {cin}] -> [1, {t * s}, {cout}], groups "
+                     f"{[g[:2] for g in groups]}: the full-rate signal is "
+                     f"written {writes}x and read {reads}x",
+            "fn": lambda: resstream.up_res_stream(*args),
+            "plain": lambda: resstream.up_res_stream_reference(*args),
+            "library": library, "reps": 3, "per_chunk": 1,
+            **_res_tol(dtype, 8), "bytes": work_bytes, "flops": flops,
+            "peak": PEAK_FP32 if dtype == "float32" else PEAK_BF16}
+
+
 def phase_kernels(device):
     """Each kernel against its plain version at the main path's shapes."""
     import torch
@@ -279,8 +456,17 @@ def phase_kernels(device):
     for dtype in ("float32", "bfloat16"):
         cases.append(_gru_case(gen, device, dtype))
         # frames after the tail pad: 3001 + 1 + 4, then x7, x7, x3
-        for stage, t in enumerate((3006, 21042, 147294, 441882)):
+        for stage, t in enumerate((3006, 21042)):
             cases.append(_upsample_case(gen, device, dtype, stage, t))
+        for ch, t in ((512, 21042), (256, 147294)):
+            cases += _res_cases(gen, device, dtype, ch, t)
+        cases.append(_up_res_case(gen, device, dtype, 256, 128, 3, 147294))
+        cases.append(_up_res_case(gen, device, dtype, 128, 64, 3, 441882))
+        # signals shorter than the dilations: every outer tap falls outside
+        # the signal and the result is the bias-only one
+        cases += _res_cases(gen, device, dtype, 64, 20, main_path=False)
+        cases.append(_up_res_case(gen, device, dtype, 32, 16, 3, 7,
+                                  main_path=False))
     rows = []
     with tf32_off(), torch.inference_mode():
         for c in cases:
@@ -293,7 +479,11 @@ def phase_kernels(device):
                 err = max(errs)
             else:
                 err = compare(f"{c['name']} {c['dtype']} {c['shape']}", got,
-                              ref, c["rtol"], c["atol"])
+                              ref, c["rtol"], c["atol"],
+                              c.get("chained", 0))
+            del got, ref
+            if not c.get("main_path", True):
+                continue  # checked, not a shape of the main path: not timed
             ms = cuda_ms(c["fn"], c["reps"])
             plain_ms = cuda_ms(c["plain"], max(1, c["reps"] // 5), warmup=0)
             try:  # a yardstick only: the port never calls it
@@ -355,7 +545,8 @@ def phase_main_path(device):
                         f"{mode} {name}: bad output shape {out.shape} / "
                         f"finite {np.isfinite(out).all()} / peak "
                         f"{float(np.abs(out).max())}")
-                want = dict(PER_BATCH)  # both inputs are one batch
+                # both inputs are one batch
+                want = expected_launches(4 if mode == "parity" else 2)
                 if counts[mode, name] != want:
                     raise AssertionError(f"{mode} {name}: launches "
                                          f"{counts[mode, name]} != {want}")
@@ -394,6 +585,8 @@ def phase_main_path(device):
             log(f"  {mode} stage device ms (30 s): "
                 + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
             _profile(mode, lambda: vf.restore_inmem(wavs["30s"]), min(walls))
+            with tf32_off(), torch.inference_mode():
+                _vocoder_convs(mode, stages["vocoder"])
     for name in wavs:
         snr = _snr_db(outs["production", name], outs["parity", name])
         log(f"  SNR production vs parity, {name}: {snr:.2f} dB (regression "
@@ -406,9 +599,15 @@ def phase_main_path(device):
 
 
 def _kernel_group(name: str) -> str:
+    # chain_kernel<T, BN, UP>: UP is the fused upsample front of K4; K4's
+    # later groups launch the kernels that K2 and K3 launch
     for key, group in (("stft_mel", "K5 stft_mel"),
                        ("gru_bidir", "K6 gru_bidir"),
-                       ("upsample", "K1 upsample"), ("conv", "cuDNN conv"),
+                       ("sin_residual", "x+sin(x) pre-pass of K1 and K4"),
+                       ("upsample", "K1 upsample"),
+                       ("chain_kernel", "K2/K4 chain_kernel"),
+                       ("shift_kernel", "K3/K4 shift_kernel"),
+                       ("conv", "cuDNN conv"),
                        ("xmma", "cuDNN conv"), ("cutlass", "cuDNN conv"),
                        ("nchwToNhwc", "layout copies"),
                        ("nhwcToNchw", "layout copies")):
@@ -417,9 +616,9 @@ def _kernel_group(name: str) -> str:
     return "elementwise and copies"
 
 
-def _profile(mode: str, fn, wall_ms: float):
-    """Device time by kernel over one 30 s restore (torch.profiler), and the
-    device's idle share of the unprofiled wall time."""
+def _device_kernels(fn):
+    """[(kernel name, device ms, launches)] of one call of fn
+    (torch.profiler)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -427,10 +626,31 @@ def _profile(mode: str, fn, wall_ms: float):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    rows = [(e.key, getattr(e, "self_device_time_total",
+    return [(e.key, getattr(e, "self_device_time_total",
                             getattr(e, "self_cuda_time_total", 0)) / 1e3,
              e.count)
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+def _vocoder_convs(mode: str, fn):
+    """The vocoder stage alone: its ResStacks run through K2-K4, so the only
+    library convolutions left are the condnet's five, the pre-conv and the
+    post-conv. The 64 convolutions of the ResStacks would show here."""
+    rows = [r for r in _device_kernels(fn)
+            if _kernel_group(r[0]) == "cuDNN conv"]
+    n = sum(r[2] for r in rows)
+    log(f"  {mode} vocoder stage: {n} library convolution kernels, "
+        f"{sum(r[1] for r in rows):.2f} ms (7 convolutions outside the "
+        "ResStacks)")
+    if n >= 32:
+        raise AssertionError(f"{mode}: {n} convolution kernels in the "
+                             "vocoder: a ResStack still runs on the library")
+
+
+def _profile(mode: str, fn, wall_ms: float):
+    """Device time by kernel over one 30 s restore (torch.profiler), and the
+    device's idle share of the unprofiled wall time."""
+    rows = _device_kernels(fn)
     busy = sum(ms for _, ms, _ in rows)
     if busy <= 0:
         raise AssertionError("the profiler saw no device time")
@@ -443,7 +663,7 @@ def _profile(mode: str, fn, wall_ms: float):
                     sorted(groups.items(), key=lambda kv: -kv[1]))
         + f"; busy {busy:.1f} ms of {wall_ms:.1f} ms wall, idle share "
         f"{max(0.0, 1 - busy / wall_ms):.3f}")
-    for name, ms, n in sorted(rows, key=lambda r: -r[1])[:6]:
+    for name, ms, n in sorted(rows, key=lambda r: -r[1])[:8]:
         log(f"    {ms:8.2f} ms {n:4d}x {name[:90]}")
 
 
@@ -524,7 +744,7 @@ def main() -> int:
     phase_small_reference(device)
 
     record = []
-    for name in ("stft_mel", "gru_bidir", "upsample"):
+    for name in KERNELS:
         for dtype in ("float32", "bfloat16"):
             rs = [r for r in rows if r["name"] == name and r["dtype"] == dtype]
             if not rs:

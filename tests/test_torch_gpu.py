@@ -9,7 +9,10 @@ conftest:
 
 Tolerances: float32 results against the plain float32 version summed in
 another order; bfloat16 outputs may differ by one bfloat16 ulp (2^-8
-relative) where the two float32 sums straddle a rounding boundary.
+relative) where the two float32 sums straddle a rounding boundary. Through
+chained ResStack blocks such an ulp of an intermediate travels along the
+residual path into outputs of any magnitude: those cases allow
+2^-7*max|ref| + 2^-7*|ref|.
 """
 
 import pytest
@@ -17,6 +20,13 @@ import torch
 
 from voicefixer_tpu_torch import kernels
 from voicefixer_tpu_torch.kernels.gru import gru_bidir, gru_bidir_reference
+from voicefixer_tpu_torch.kernels.resstack import (plan_stack, res_chain,
+                                                   res_chain_reference,
+                                                   res_shift_single,
+                                                   res_shift_single_reference,
+                                                   res_stack)
+from voicefixer_tpu_torch.kernels.resstream import (up_res_stream,
+                                                    up_res_stream_reference)
 from voicefixer_tpu_torch.kernels.stft import stft_mel, stft_mel_reference
 from voicefixer_tpu_torch.kernels.upsample import (upsample,
                                                    upsample_reference)
@@ -95,3 +105,132 @@ def test_stft_mel_kernel(cuda, n, b):
     ref = stft_mel_reference(wav, fb, DEFAULT_CONFIG.stft)
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
 
+
+
+def _bank(gen, n, ch, cuda, dt):
+    """(w1s, b1s, w2s, b2s) of n blocks at width ch."""
+    scale = 0.5 / (3 * ch) ** 0.5
+    return tuple(_randn(gen, shape, sc).to(cuda, dt)
+                 for shape, sc in (((n, 3, ch, ch), scale), ((n, ch), 0.05),
+                                   ((n, 3, ch, ch), scale), ((n, ch), 0.05)))
+
+
+def _close_chained(got, ref, dtype):
+    got, ref = got.float(), ref.float()
+    if dtype == "float32":
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=2e-5)
+    else:
+        torch.testing.assert_close(
+            got, ref, rtol=2 ** -7, atol=2 ** -7 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("ch,t,b,dils,tm,dtype", [
+    (24, 333, 2, (1, 3, 9), None, "float32"),
+    (2, 77, 1, (1, 3), 5, "float32"),          # tiles far smaller than the halo
+    (16, 50, 2, (27, 81), None, "float32"),    # dilations beyond the signal
+    (128, 701, 2, (1, 3, 9), None, "bfloat16"),
+    (24, 333, 1, (1, 3), 17, "bfloat16"),
+    (512, 300, 1, (1, 3), None, "bfloat16"),
+])
+def test_res_chain_kernel(cuda, ch, t, b, dils, tm, dtype):
+    gen = torch.Generator().manual_seed(3)
+    dt = getattr(torch, dtype)
+    x = _randn(gen, (b, t, ch)).to(cuda, dt)
+    bank = _bank(gen, len(dils), ch, cuda, dt)
+    for final_slope in (None, 0.3):
+        n0 = kernels.launches["res_chain"]
+        got = res_chain(x, *bank, dils, 0.2, final_slope, tm=tm)
+        assert kernels.launches["res_chain"] == n0 + 1
+        ref = res_chain_reference(x, *bank, dils, 0.2, final_slope)
+        _close_chained(got, ref, dtype)
+
+
+@pytest.mark.parametrize("ch,t,b,dil,dtype", [
+    (24, 333, 2, 9, "float32"),
+    (2, 1001, 1, 729, "float32"),
+    (16, 100, 2, 729, "float32"),      # T < d: the bias-only result
+    (128, 2000, 2, 729, "bfloat16"),
+    (40, 63, 1, 2187, "bfloat16"),
+    (512, 500, 1, 81, "bfloat16"),
+])
+def test_res_shift_single_kernel(cuda, ch, t, b, dil, dtype):
+    gen = torch.Generator().manual_seed(4)
+    dt = getattr(torch, dtype)
+    x = _randn(gen, (b, t, ch)).to(cuda, dt)
+    w1, b1, w2, b2 = (v[0] for v in _bank(gen, 1, ch, cuda, dt))
+    n0 = kernels.launches["res_shift_single"]
+    got = res_shift_single(x, w1, b1, w2, b2, dil, 0.2, 0.3)
+    assert kernels.launches["res_shift_single"] == n0 + 1
+    ref = res_shift_single_reference(x, w1, b1, w2, b2, dil, 0.2, 0.3)
+    tol = (1e-4, 2e-5) if dtype == "float32" else (2 ** -7, 1e-3)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=tol[0],
+                               atol=tol[1])
+
+
+@pytest.mark.parametrize("cin,cout,scale,t,b,dtype", [
+    (32, 24, 3, 333, 2, "float32"),
+    (4, 2, 7, 1500, 1, "float32"),
+    (8, 16, 3, 11, 2, "float32"),       # every dilation beyond the signal
+    (128, 64, 3, 3001, 2, "bfloat16"),
+    (256, 128, 3, 1000, 1, "bfloat16"),
+    (40, 24, 7, 97, 1, "bfloat16"),
+])
+def test_up_res_stream_kernel(cuda, cin, cout, scale, t, b, dtype):
+    gen = torch.Generator().manual_seed(5)
+    dt = getattr(torch, dtype)
+    dils = tuple(3 ** i for i in range(8))
+    x = _randn(gen, (b, t, cin)).to(cuda, dt)
+    w_up = _randn(gen, (2 * scale, cin, cout), 0.7 / (2 * cin) ** 0.5
+                  ).to(cuda, dt)
+    b_up = _randn(gen, (cout,), 0.05).to(cuda, dt)
+    bank = _bank(gen, 8, cout, cuda, dt)
+    n0 = dict(kernels.launches)
+    got = up_res_stream(x, w_up, b_up, *bank, dils, scale, 0.01, 0.2)
+    assert kernels.launches["up_res_stream"] == n0["up_res_stream"] + 1
+    assert kernels.launches["res_chain"] == n0["res_chain"]
+    assert kernels.launches["res_shift_single"] == n0["res_shift_single"]
+    ref = up_res_stream_reference(x, w_up, b_up, *bank, dils, scale, 0.01,
+                                  0.2)
+    assert got.shape == ref.shape == (b, t * scale, cout)
+    _close_chained(got, ref, dtype)
+
+
+def test_res_stack_kernels(cuda):
+    """The dispatcher: chains and shifted-tap blocks cover all eight blocks,
+    the stage activation is in the last launch."""
+    gen = torch.Generator().manual_seed(6)
+    ch, t = 256, 3000
+    dils = tuple(3 ** i for i in range(8))
+    x = _randn(gen, (1, t, ch)).to(cuda)
+    w1s, b1s, w2s, b2s = _bank(gen, 8, ch, cuda, torch.float32)
+    params = [{"c1": {"w": w1s[i], "b": b1s[i]},
+               "c2": {"w": w2s[i], "b": b2s[i]}} for i in range(8)]
+    groups = plan_stack(ch, dils, 4)
+    chains = sum(1 for g in groups if g[2] is not None)
+    kernels.reset_launches()
+    got = res_stack(params, x, 3, 0.01, final_slope=0.2)
+    assert kernels.launches["res_chain"] == chains >= 1
+    assert kernels.launches["res_shift_single"] == len(groups) - chains >= 1
+    ref = res_chain_reference(x, w1s, b1s, w2s, b2s, dils, 0.01, 0.2)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("fn", ["res_chain", "res_shift_single",
+                                "up_res_stream"])
+def test_resstack_bfloat16_refuses_ragged_channels(cuda, fn):
+    dt = torch.bfloat16
+    gen = torch.Generator().manual_seed(7)
+    ch = 20
+    x = torch.zeros((1, 50, ch), device=cuda, dtype=dt)
+    w1s, b1s, w2s, b2s = _bank(gen, 8, ch, cuda, dt)
+    with pytest.raises(ValueError):
+        if fn == "res_chain":
+            res_chain(x, w1s[:2], b1s[:2], w2s[:2], b2s[:2], (1, 3))
+        elif fn == "res_shift_single":
+            res_shift_single(x, w1s[0], b1s[0], w2s[0], b2s[0], 9)
+        else:
+            up_res_stream(torch.zeros((1, 50, 16), device=cuda, dtype=dt),
+                          torch.zeros((6, 16, ch), device=cuda, dtype=dt),
+                          torch.zeros(ch, device=cuda, dtype=dt),
+                          w1s, b1s, w2s, b2s,
+                          tuple(3 ** i for i in range(8)), 3)

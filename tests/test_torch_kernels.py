@@ -7,6 +7,16 @@ the float32 GRU recurrence, 2e-5 for the upsample, 1e-4 relative for the
 STFT->mel (a 2048-tap float32 DFT summed in another order). The bfloat16 GRU
 case allows 2e-3: h is rounded to bfloat16 before each product, and a last-
 bit difference in the float32 state can flip one rounding.
+
+The ResStack kernels (res_chain, res_shift_single, up_res_stack) take the JAX
+tests' rtol 1e-4, atol 2e-5 in float32. Their bfloat16 cases, with bfloat16
+inputs, weights and biases on both sides, round at the same places, so one
+block's outputs differ by one bfloat16 ulp (2^-8 relative) where float32
+sums taken in another order straddle a rounding boundary: 1e-3 + 2^-7*|ref|.
+A chain carries such an ulp of an intermediate of magnitude up to max|ref|
+through the residual path into later outputs of any magnitude, so a chained
+case allows 2^-7*max|ref| + 2^-7*|ref| everywhere, and 1e-3 + 2^-7*|ref| on
+all but 0.5 % of the elements per chained block.
 """
 
 import jax.numpy as jnp
@@ -15,6 +25,10 @@ import pytest
 import torch
 
 from voicefixer_tpu_torch.kernels.gru import gru_bidir
+from voicefixer_tpu_torch.kernels import resstack
+from voicefixer_tpu_torch.kernels.resstack import (res_chain,
+                                                   res_shift_single,
+                                                   up_res_stack)
 from voicefixer_tpu_torch.kernels.stft import stft_mel
 from voicefixer_tpu_torch.kernels.upsample import upsample
 
@@ -85,6 +99,189 @@ def test_stft_mel_matches_pallas():
     assert got.shape == ref.shape == (2, 20000 // 441 + 1, 128)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref),
                                rtol=1e-4, atol=1e-5)
+
+
+def _bf16_exact(a):
+    """float32 array rounded to bfloat16 values."""
+    return torch.from_numpy(a).bfloat16().float().numpy()
+
+
+def _res_params(rng, ch, depth, bf16=False):
+    """Blocks as numpy: [{"c1": {"w", "b"}, "c2": {"w", "b"}}]."""
+    fix = _bf16_exact if bf16 else (lambda a: a)
+    return [{c: {"w": fix(_rand(rng, (3, ch, ch), 0.05)),
+                 "b": fix(_rand(rng, (ch,), 0.05))} for c in ("c1", "c2")}
+            for _ in range(depth)]
+
+
+def _tree(params, conv):
+    if isinstance(params, dict):
+        return {k: _tree(v, conv) for k, v in params.items()}
+    if isinstance(params, list):
+        return [_tree(v, conv) for v in params]
+    return conv(params)
+
+
+def _sides(dtype):
+    """(to jax, to torch, back to float32 numpy, rtol, atol) for a type."""
+    if dtype == "bfloat16":
+        return (lambda a: jnp.asarray(a).astype(jnp.bfloat16),
+                lambda a: torch.from_numpy(a).bfloat16(), 2 ** -7, 1e-3)
+    return jnp.asarray, torch.from_numpy, 1e-4, 2e-5
+
+
+def _assert_close(got, ref, rtol, atol, chained=0):
+    got, ref = got.float().numpy(), np.asarray(ref.astype(jnp.float32))
+    if chained and rtol == 2 ** -7:  # bfloat16 through several blocks
+        off = np.abs(got - ref) > atol + rtol * np.abs(ref)
+        assert off.mean() <= 0.005 * chained, off.mean()
+        atol = 2 ** -7 * float(np.abs(ref).max())
+    np.testing.assert_allclose(got, ref, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype,final_slope", [("float32", None),
+                                               ("float32", 0.3),
+                                               ("bfloat16", 0.3)])
+def test_res_chain_matches_pallas(dtype, final_slope):
+    """Three chained blocks, T not a multiple of the JAX tile: the halo, the
+    zero padding between chained blocks and the folded stage activation."""
+    from voicefixer_tpu.kernels import resstack as jax_resstack
+
+    ch, t, dils = 128, 700, (1, 3, 9)
+    rng = np.random.default_rng(7)
+    bf16 = dtype == "bfloat16"
+    params = _res_params(rng, ch, len(dils), bf16)
+    x = _rand(rng, (1, t, ch))
+    to_j, to_t, rtol, atol = _sides(dtype)
+
+    def banks(conv):
+        return [conv(np.stack([p[c][k] for p in params]))
+                for c, k in (("c1", "w"), ("c1", "b"), ("c2", "w"),
+                             ("c2", "b"))]
+
+    ref = jax_resstack.res_chain(
+        to_j(x), *banks(to_j), dils=dils, slope=0.2, final_slope=final_slope,
+        t_tile=256, matmul_dtype=getattr(jnp, dtype), interpret=True)
+    got = res_chain(to_t(x), *banks(to_t), dils, 0.2, final_slope)
+    assert got.dtype == getattr(torch, dtype)
+    _assert_close(got, ref, rtol, atol, chained=3)
+
+
+@pytest.mark.parametrize("dtype,dil,t", [("float32", 729, 2000),
+                                         ("float32", 729, 500),
+                                         ("bfloat16", 729, 2000)])
+def test_res_shift_single_matches_pallas(dtype, dil, t):
+    """One block at dilation 729, on a signal longer than the dilation and on
+    one shorter (every outer tap falls outside the signal: the bias-only
+    result)."""
+    from voicefixer_tpu.kernels.resstack import (
+        res_shift_single as jax_shift)
+
+    ch = 128
+    rng = np.random.default_rng(11)
+    p = _res_params(rng, ch, 1, dtype == "bfloat16")[0]
+    x = _rand(rng, (2, t, ch))
+    to_j, to_t, rtol, atol = _sides(dtype)
+    args = (p["c1"]["w"], p["c1"]["b"], p["c2"]["w"], p["c2"]["b"])
+    ref = jax_shift(to_j(x), *map(to_j, args), dil=dil, slope=0.2,
+                    final_slope=0.3, t_tile=512,
+                    matmul_dtype=getattr(jnp, dtype), interpret=True)
+    got = res_shift_single(to_t(x), *map(to_t, args), dil, 0.2, 0.3)
+    _assert_close(got, ref, rtol, atol)
+
+
+@pytest.mark.parametrize("dtype,cout,depth,t_in", [
+    ("float32", 128, 3, 70),     # the JAX kernel's plain layout
+    ("float32", 64, 2, 160),     # its two-halves lane fold: the port has none
+    ("bfloat16", 128, 3, 70),
+])
+def test_up_res_stack_matches_pallas(dtype, cout, depth, t_in):
+    """Upsample x3, ResStack and stage LeakyReLU fused, against the JAX
+    package's fused streaming kernel."""
+    from voicefixer_tpu.kernels.resstack import up_res_stack as jax_up
+
+    cin, scale = 128, 3
+    rng = np.random.default_rng(21)
+    bf16 = dtype == "bfloat16"
+    fix = _bf16_exact if bf16 else (lambda a: a)
+    up = {"w": fix(_rand(rng, (2 * scale, cin, cout), 0.05)),
+          "b": fix(_rand(rng, (cout,), 0.05))}
+    res = _res_params(rng, cout, depth, bf16)
+    x = _rand(rng, (2 if cout == 128 else 1, t_in, cin))
+    to_j, to_t, rtol, atol = _sides(dtype)
+
+    ref = jax_up(_tree(up, to_j), _tree(res, to_j), to_j(x), scale, 3, 0.2,
+                 final_slope=0.3, matmul_dtype=getattr(jnp, dtype),
+                 interpret=True)
+    assert ref is not None  # the JAX dispatch took its fused kernel
+    got = up_res_stack(_tree(up, to_t), _tree(res, to_t), to_t(x), scale, 3,
+                       0.2, final_slope=0.3)
+    assert tuple(got.shape) == ref.shape == (x.shape[0], t_in * scale, cout)
+    _assert_close(got, ref, rtol, atol, chained=depth)
+
+
+@pytest.mark.parametrize("ch,itemsize", [(512, 4), (512, 2), (256, 4),
+                                         (256, 2), (128, 2), (64, 2),
+                                         (16, 4), (2, 4)])
+def test_plan_stack(ch, itemsize):
+    """The planner covers every block once, in order; a chain fits one
+    thread block's shared memory at the efficiency it promises; a fused
+    stage starts with a chain."""
+    dils = resstack.stack_dilations(8)
+    for first_chain in (False, True):
+        if first_chain and (ch, itemsize) == (512, 4):
+            # not even one block's slab and h fit: such a stage cannot fuse
+            with pytest.raises(ValueError):
+                resstack.plan_stack(ch, dils, itemsize, first_chain)
+            continue
+        groups = resstack.plan_stack(ch, dils, itemsize, first_chain)
+        assert [g[0] for g in groups] == [0] + [g[1] for g in groups[:-1]]
+        assert groups[-1][1] == 8
+        for i0, i1, tm in groups:
+            if tm is None:
+                assert i1 == i0 + 1
+                continue
+            assert resstack.chain_smem_bytes(ch, dils[i0:i1], tm,
+                                             itemsize) <= resstack.SMEM_LIMIT
+            if i1 - i0 > 1:
+                best = resstack.chain_tile(ch, dils[i0:i1], itemsize)
+                assert best[1] >= resstack.MIN_EFFICIENCY
+        if first_chain:
+            assert groups[0][2] is not None
+
+
+def test_plan_stack_full_width_runs_every_kernel():
+    """At the vocoder's full widths both unfused stages together launch
+    res_chain and res_shift_single in either precision."""
+    dils = resstack.stack_dilations(8)
+    for itemsize in (4, 2):
+        groups = [g for ch in (512, 256)
+                  for g in resstack.plan_stack(ch, dils, itemsize)]
+        assert any(g[2] is not None for g in groups)
+        assert any(g[2] is None for g in groups)
+
+
+@pytest.mark.parametrize("fn", ["res_chain", "res_shift_single"])
+def test_res_blocks_short_signal_is_bias_only(fn):
+    """Dilation beyond the signal: every outer tap falls outside [0, T), so
+    h is the centre tap's product plus the bias, never a read out of
+    bounds."""
+    rng = np.random.default_rng(5)
+    ch, t, d = 8, 20, 27
+    p = _res_params(rng, ch, 1)[0]
+    x = torch.from_numpy(_rand(rng, (1, t, ch)))
+    w1, b1, w2, b2 = (torch.from_numpy(p[c][k]) for c, k in
+                      (("c1", "w"), ("c1", "b"), ("c2", "w"), ("c2", "b")))
+    if fn == "res_chain":
+        got = res_chain(x, w1[None], b1[None], w2[None], b2[None], (d,), 0.2)
+    else:
+        got = res_shift_single(x, w1, b1, w2, b2, d, 0.2)
+    lrelu = torch.nn.functional.leaky_relu
+    hb = torch.nn.functional.pad(lrelu(lrelu(x, 0.2) @ w1[1] + b1, 0.2),
+                                 (0, 0, 1, 1))
+    want = x + b2 + sum(hb[:, j:j + t] @ w2[j] for j in range(3))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-6)
 
 
 def test_wrappers_refuse_mixed_devices():

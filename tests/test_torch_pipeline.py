@@ -61,18 +61,37 @@ def _snr_db(prod, ref):
     return 10 * np.log10(np.sum(ref * ref) / np.sum((prod - ref) ** 2))
 
 
-def test_production_precision_matches_jax(params):
+def test_production_precision_matches_jax(params, monkeypatch):
     """Production precision stores the same tensors in bfloat16 as the JAX
     package does: its SNR against parity is the JAX package's within 1.5 dB
     (a cast added or dropped moves it by far more; the JAX package's CPU path
     keeps the GRU product in float32, the port rounds it as the TPU kernel
     does), and the two production outputs share most of their rounding error
     (an unrelated error of the same size would put them 3 dB below the JAX
-    package's SNR)."""
+    package's SNR).
+
+    The port's ResStack kernels keep h in float32 up to its bias and
+    LeakyReLU, as the JAX package's Pallas kernels do; the JAX package's
+    plain path on the CPU (XLA convolutions) rounds every convolution's
+    output to bfloat16 and loses about 2 dB more. So the JAX side here runs
+    its ResStacks through its own kernels in interpret mode
+    (``kernels.resstack.res_stack``, which pads these narrow widths to 128
+    lanes), in both precisions."""
+    from voicefixer_tpu import kernels as jax_kernels
+    from voicefixer_tpu.kernels import resstack as jax_resstack
+    from voicefixer_tpu.models import vocoder as jax_vocoder
     from voicefixer_tpu.ops.precision import precision as jax_precision
 
     from voicefixer_tpu_torch.ops.precision import precision
 
+    def res_stack_interpret(p, x, kernel, slope, final_slope=None,
+                            mask_bounds=None):
+        return jax_resstack.res_stack(
+            p, x, kernel, slope, final_slope=final_slope,
+            matmul_dtype=jax_kernels.matmul_dtype(), interpret=True), \
+            final_slope is not None
+
+    monkeypatch.setattr(jax_vocoder, "_res_stack", res_stack_interpret)
     ja, jv, pa, pv = params
     wav = np.stack([_wav(CFG.pipeline.seg_length, s) for s in (4, 5)])
     out = {}
@@ -89,6 +108,8 @@ def test_production_precision_matches_jax(params):
     assert abs(snr_port - snr_jax) <= 1.5, (snr_port, snr_jax)
     assert _snr_db(out["port", "production"],
                    out["jax", "production"]) >= snr_jax - 3.0
+    np.testing.assert_allclose(out["port", "parity"], out["jax", "parity"],
+                               rtol=TOL, atol=TOL)
 
 
 def test_restore_inmem_mode0_padded_tail(params):

@@ -6,11 +6,13 @@ port, at the shapes of a 30 s chunk (B=1), on one CUDA card:
 
 For each stage (C, T), type (float32, bfloat16) and dilation 3^i (i < 8), it
 times cuDNN's dilated convolution as such ("direct") and the same
-convolution folded into an undilated one over [T/d, d]
-(``ops.conv._conv1d_folded``, "folded"), by CUDA events over a few launches
-after a warm-up, with TF32 off. Prints one line per (stage, type) with both
-rows of milliseconds, and the card's name and power limit. ``ops.conv.conv1d``
-folds where these timings favour it.
+convolution folded into an undilated one over [T/d, d] ("folded"), by CUDA
+events over a few launches after a warm-up, with TF32 off. Prints one line
+per (stage, type) with both rows of milliseconds, and the card's name and
+power limit. It is the record of why ``ops.conv.conv1d`` once folded the
+bfloat16 convolutions at C >= 512 and dilation >= 27 (cuDNN runs them some
+300x slower there), and of why the ResStack left cuDNN for the kernels of
+``kernels.resstack``; the port no longer folds.
 """
 
 from __future__ import annotations
@@ -24,7 +26,6 @@ import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from voicefixer_tpu_torch.ops.conv import _conv1d_folded  # noqa: E402
 from voicefixer_tpu_torch.ops.precision import tf32_off  # noqa: E402
 
 STAGES = ((512, 21042), (256, 147294), (128, 441882), (64, 1325646))
@@ -51,6 +52,18 @@ def direct(x, w, b, d):
     return y.permute(0, 2, 3, 1)[:, 0]
 
 
+def folded(x, w, b, d):
+    """The same convolution, padding d, as an undilated one over the signal
+    folded to [W/d, d]: output q*d + r reads input rows q - 1 + k of column
+    r."""
+    bsz, width, cin = x.shape
+    rows = -(-width // d)
+    xf = F.pad(x, (0, 0, 0, rows * d - width)).view(bsz, rows, d, cin)
+    y = F.conv2d(xf.permute(0, 3, 1, 2), w.permute(2, 1, 0).unsqueeze(3), b,
+                 padding=(1, 0))
+    return y.permute(0, 2, 3, 1).reshape(bsz, -1, y.shape[1])[:, :width]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_dilated_conv: no CUDA device", file=sys.stderr)
@@ -69,7 +82,7 @@ def main() -> int:
                 dils = [3 ** i for i in range(8)]
                 rows = {
                     "direct": [cuda_ms(lambda: direct(x, w, b, d)) for d in dils],
-                    "folded": [cuda_ms(lambda: _conv1d_folded(x, w, b, d, d))
+                    "folded": [cuda_ms(lambda: folded(x, w, b, d))
                                for d in dils],
                 }
                 for name, ms in rows.items():

@@ -34,4 +34,25 @@ __device__ __forceinline__ float round_to(float v) {
   return to_float(from_float<T>(v));
 }
 
+// a = x + sin(x), taken in float32 and rounded to the storage type: the
+// pre-pass of every kernel that runs the vocoder's polyphase upsample
+template <typename T>
+__global__ void sin_residual_kernel(const T* __restrict__ x, T* __restrict__ a,
+                                    long long n) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const float v = to_float(x[i]);
+    a[i] = from_float<T>(v + sinf(v));
+  }
+}
+
+template <typename T>
+inline void launch_sin_residual(const T* x, T* a, long long n,
+                                cudaStream_t stream) {
+  const long long blocks = (n + 255) / 256;
+  sin_residual_kernel<T><<<static_cast<int>(blocks < 4096 ? blocks : 4096),
+                           256, 0, stream>>>(x, a, n);
+}
+
 }  // namespace vf

@@ -25,8 +25,6 @@
 
 #include <mma.h>
 
-#include <algorithm>
-
 #include "common.cuh"
 
 namespace {
@@ -35,17 +33,6 @@ constexpr int BM = 64;   // polyphase groups q per block
 constexpr int BN = 64;   // output channels per block
 constexpr int BK = 16;   // reduction step
 constexpr int THREADS = 256;
-
-template <typename T>
-__global__ void sin_residual_kernel(const T* __restrict__ x, T* __restrict__ a,
-                                    long long n) {
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       i < n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const float v = vf::to_float(x[i]);
-    a[i] = vf::from_float<T>(v + sinf(v));
-  }
-}
 
 // thread (ty, tx) in 16 x 16 owns rows ty + 16*i and columns tx + 16*j,
 // i, j < 4
@@ -236,22 +223,20 @@ int launch(const void* x, const void* w, const void* bias, void* a, void* y,
            cudaStream_t stream) {
   const int pad = scale / 2 + scale % 2;
   const long long n_x = static_cast<long long>(batch) * n_in * cin;
-  const int pre_blocks =
-      static_cast<int>(std::min<long long>((n_x + 255) / 256, 4096));
   // groups q = 0 .. n_in: the p-shift makes the last outputs reach q = n_in
   dim3 grid((n_in + 1 + BM - 1) / BM, (cout + BN - 1) / BN, batch * scale);
   if (bf16) {
     using T = __nv_bfloat16;
     if (cin % 8 || cout % 8) return cudaErrorInvalidValue;
-    sin_residual_kernel<T><<<pre_blocks, 256, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<T*>(a), n_x);
+    vf::launch_sin_residual(static_cast<const T*>(x), static_cast<T*>(a), n_x,
+                            stream);
     upsample_wmma_kernel<<<grid, TC_THREADS, 0, stream>>>(
         static_cast<const T*>(a), static_cast<const T*>(w),
         static_cast<const T*>(bias), static_cast<T*>(y), n_in, cin, cout,
         scale, pad);
   } else {
-    sin_residual_kernel<float><<<pre_blocks, 256, 0, stream>>>(
-        static_cast<const float*>(x), static_cast<float*>(a), n_x);
+    vf::launch_sin_residual(static_cast<const float*>(x),
+                            static_cast<float*>(a), n_x, stream);
     upsample_kernel<<<grid, THREADS, 0, stream>>>(
         static_cast<const float*>(a), static_cast<const float*>(w),
         static_cast<const float*>(bias), static_cast<float*>(y), n_in, cin,

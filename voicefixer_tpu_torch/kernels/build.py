@@ -21,7 +21,7 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
-SOURCES = ("stft_mel", "gru_bidir", "upsample")
+SOURCES = ("stft_mel", "gru_bidir", "upsample", "resstack", "resstream")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,0 +1,107 @@
+"""One fused vocoder stage (csrc/resstream.cu), the port of
+``voicefixer_tpu/kernels/resstream.py::up_res_stream``: the polyphase
+upsample of a = x + sin(x), the stage's ResStack blocks and the stage's
+LeakyReLU behind one entry point.
+
+    a    = (x + sin(x)) in float32, cast to x's type
+    z[q*s + rho] = a[q] @ W[rho] + a[q-1] @ W[rho+s] + b_up   float32
+    u[n] = z[n + p] cast to x's type, p = s//2 + s%2, n in [0, T*s)
+    out  = the blocks of ``kernels.resstack`` on u, then lrelu(final_slope)
+
+The launch is cut into groups of blocks by ``resstack.plan_stack``: the
+first group runs in one kernel with the upsample, on a tile of u that only
+ever exists in shared memory; each later group reads the full-rate signal
+once and writes it once. ``passes`` says how many times a plan writes and
+reads it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from voicefixer_tpu_torch import kernels
+from voicefixer_tpu_torch.kernels import build
+from voicefixer_tpu_torch.kernels.resstack import (check_stack_args,
+                                                   int_array, plan_stack,
+                                                   res_chain_reference,
+                                                   slope_args)
+from voicefixer_tpu_torch.kernels.upsample import upsample_reference
+from voicefixer_tpu_torch.utils.weights import pack_up_weights
+
+
+def passes(groups) -> tuple:
+    """(writes, reads) of the full-rate signal by a plan's launches: every
+    group writes it once, every group after the first reads it once."""
+    return len(groups), len(groups) - 1
+
+
+def up_res_stream_reference(x_src, w_up, b_up, w1s, b1s, w2s, b2s, dils,
+                            scale: int, slope: float = 0.2,
+                            final_slope=None):
+    """Plain version of ``up_res_stream``."""
+    u = upsample_reference(x_src, w_up, b_up, scale)
+    return res_chain_reference(u, w1s, b1s, w2s, b2s, dils, slope,
+                               final_slope)
+
+
+def up_res_stream(x_src: torch.Tensor, w_up, b_up, w1s, b1s, w2s, b2s,
+                  dils, scale: int, slope: float = 0.2,
+                  final_slope=None) -> torch.Tensor:
+    """x_src: [B, T, Cin], the stage's input before x + sin(x); w_up:
+    [2s, Cin, Cout] in torch tap order; b_up: [Cout]; w1s, w2s:
+    [n, 3, Cout, Cout]; b1s, b2s: [n, Cout]. Returns [B, T*s, Cout] in
+    x_src's type."""
+    dils = tuple(int(d) for d in dils)
+    if kernels.on_cpu(x_src, w_up, b_up, w1s, b1s, w2s, b2s):
+        return up_res_stream_reference(x_src, w_up, b_up, w1s, b1s, w2s, b2s,
+                                       dils, scale, slope, final_slope)
+    bsz, t_in, cin = x_src.shape
+    k, wcin, cout = w_up.shape
+    n = len(dils)
+    if k != 2 * scale or wcin != cin or b_up.shape != (cout,):
+        raise ValueError(f"up_res_stream: x {tuple(x_src.shape)}, w_up "
+                         f"{tuple(w_up.shape)}, b_up {tuple(b_up.shape)}, "
+                         f"scale {scale}")
+    t_out = t_in * scale
+    y = torch.empty((bsz, t_out, cout), dtype=x_src.dtype,
+                    device=x_src.device)
+    check_stack_args("up_res_stream", y, (w1s, w2s), (b1s, b2s), n)
+    if x_src.dtype == torch.bfloat16 and cin % 8:
+        raise ValueError(f"up_res_stream: bfloat16 needs Cin in multiples "
+                         f"of 8, got {cin}")
+    if n < 1 or min(dils) < 1:
+        raise ValueError(f"up_res_stream: dilations {dils}")
+    groups = plan_stack(cout, dils, x_src.element_size(), first_chain=True)
+    x_src = x_src.contiguous()
+    dt = x_src.dtype
+    wp = pack_up_weights(w_up.to(dt), scale)
+    b_up, w1s, b1s, w2s, b2s = (v.to(dt).contiguous()
+                                for v in (b_up, w1s, b1s, w2s, b2s))
+    a = torch.empty_like(x_src)  # x + sin(x), the kernel's pre-pass
+    scratch = [torch.empty_like(y) for _ in range(min(2, len(groups) - 1))]
+    ptr = [s.data_ptr() for s in scratch] + [None, None]
+    lib = _lib()
+    rc = lib.vf_up_res_stream(
+        x_src.data_ptr(), a.data_ptr(), wp.data_ptr(), b_up.data_ptr(),
+        w1s.data_ptr(), b1s.data_ptr(), w2s.data_ptr(), b2s.data_ptr(),
+        y.data_ptr(), ptr[0], ptr[1], bsz, t_in, cin, cout, scale, n,
+        int_array(dils), len(groups), int_array([g[1] for g in groups]),
+        int_array([g[2] or 0 for g in groups]),
+        *slope_args(slope, final_slope), int(dt == torch.bfloat16),
+        torch.cuda.current_stream(x_src.device).cuda_stream)
+    build.check(lib, rc, "up_res_stream")
+    kernels.launches["up_res_stream"] += 1
+    return y
+
+
+def _lib():
+    lib = build.load("resstream")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ip = ctypes.POINTER(ctypes.c_int)
+    lib.vf_up_res_stream.argtypes = [p, p, p, p, p, p, p, p, p, p, p,
+                                     i, i, i, i, i, i, ip, i, ip, ip,
+                                     f, f, i, i, p]
+    lib.vf_up_res_stream.restype = i
+    return lib

@@ -4,11 +4,17 @@ reflect-pad-3 pre-conv k7, four stages of (upsample -> depth-8 dilated
 ResStack -> LeakyReLU 0.2) with scales (7, 7, 3, 3), then reflect-pad-3
 post-conv k7 to one channel and tanh.
 
-Layout [B, T, C]. The upsample of every stage is the kernel
-``kernels.upsample.upsample``. The ResStack convolutions are cuDNN
-convolutions (dilation 3^i, zero 'same' padding); their TPU kernels are the
-next slice of the port. Production precision stores activations and weights
-in bfloat16; the post-conv accumulates and returns float32 either way.
+Layout [B, T, C]. Every stage runs through the port's kernels, by one
+static rule on the stage's width: a stage of at most FUSE_MAX_CHANNELS
+output channels is one ``up_res_stack`` (upsample, ResStack and LeakyReLU
+fused, ``kernels.resstream``: at those widths the stage is bound by the
+bytes it moves, so the upsampled signal stays out of global memory); a
+wider one is ``upsample`` then ``res_stack`` (chains and shifted-tap
+blocks, ``kernels.resstack``) with the stage's LeakyReLU folded into its
+last launch. At full width stages 0-1 (C = 512, 256) take the second form
+and stages 2-3 (C = 128, 64) the first. Production precision stores
+activations and weights in bfloat16; the post-conv accumulates and returns
+float32 either way.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import math
 import torch
 
 from voicefixer_tpu_torch.config import VocoderConfig
+from voicefixer_tpu_torch.kernels.resstack import res_stack, up_res_stack
 from voicefixer_tpu_torch.kernels.upsample import upsample
 from voicefixer_tpu_torch.ops.conv import (conv1d, elu, leaky_relu,
                                           reflection_pad1d)
@@ -25,17 +32,8 @@ from voicefixer_tpu_torch.ops.precision import activation_dtype
 from voicefixer_tpu_torch.utils.weights import tree_map, uniform
 
 
-def _res_stack(params: list, x: torch.Tensor, kernel: int,
-               slope: float) -> torch.Tensor:
-    """ResStack: blocks x + C2(lrelu(C1(lrelu(x)))), C1 dilated 3^(i%10)."""
-    for i, layer in enumerate(params):
-        dil = 3 ** (i % 10)
-        h = conv1d(leaky_relu(x, slope), layer["c1"]["w"], layer["c1"]["b"],
-                   padding=(kernel * dil - dil) // 2, dilation=dil)
-        h = conv1d(leaky_relu(h, slope), layer["c2"]["w"], layer["c2"]["b"],
-                   padding=(kernel - 1) // 2)
-        x = x + h
-    return x
+# widest stage (output channels) that runs fused with its upsample
+FUSE_MAX_CHANNELS = 128
 
 
 def _post_conv(params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -60,11 +58,15 @@ def apply(params: dict, mel: torch.Tensor, cfg: VocoderConfig) -> torch.Tensor:
     x = conv1d(reflection_pad1d(x, 3), params["pre"]["w"], params["pre"]["b"])
     x = leaky_relu(x, cfg.leaky_slope_act)
     for i, stage in enumerate(params["stages"]):
-        x = upsample(x, stage["up"]["w"], stage["up"]["b"],
-                     cfg.upsample_scales[i])
-        x = _res_stack(stage["res"], x, cfg.resstack_kernel[i],
-                       cfg.leaky_slope_res)
-        x = leaky_relu(x, cfg.leaky_slope_act)
+        scale, kernel = cfg.upsample_scales[i], cfg.resstack_kernel[i]
+        if stage["up"]["w"].shape[2] <= FUSE_MAX_CHANNELS:
+            x = up_res_stack(stage["up"], stage["res"], x, scale, kernel,
+                             cfg.leaky_slope_res,
+                             final_slope=cfg.leaky_slope_act)
+        else:
+            x = upsample(x, stage["up"]["w"], stage["up"]["b"], scale)
+            x = res_stack(stage["res"], x, kernel, cfg.leaky_slope_res,
+                          final_slope=cfg.leaky_slope_act)
     return _post_conv(params["post"], x).to(mel.dtype)
 
 

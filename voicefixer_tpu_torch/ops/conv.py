@@ -14,11 +14,6 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-# conv1d folds a bfloat16 dilated convolution from this dilation and this
-# input width up (see _conv1d_folded)
-FOLD_MIN_DILATION = 27
-FOLD_MIN_CHANNELS = 512
-
 
 def _nwc_as_nchw(x: torch.Tensor) -> torch.Tensor:
     """[B, W, C] -> [B, C, 1, W] view."""
@@ -34,34 +29,10 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
            stride: int = 1, padding: int = 0,
            dilation: int = 1) -> torch.Tensor:
     """x: [B, W, Cin]; w: [K, Cin, Cout]; symmetric zero padding."""
-    if (x.dtype == torch.bfloat16 and dilation >= FOLD_MIN_DILATION
-            and x.shape[-1] >= FOLD_MIN_CHANNELS and stride == 1
-            and padding % dilation == 0):
-        return _conv1d_folded(x, w, b, padding, dilation)
     y = F.conv2d(_nwc_as_nchw(x), w.permute(2, 1, 0).unsqueeze(2), b,
                  stride=(1, stride), padding=(0, padding),
                  dilation=(1, dilation))
     return _nchw_as_nwc(y)
-
-
-def _conv1d_folded(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
-                   padding: int, dilation: int) -> torch.Tensor:
-    """A stride-1 dilated conv1d as an undilated conv over the signal folded
-    to [W/d, d]: output q*d + r reads input rows q - padding/d + k of column
-    r. The same products and sums. conv1d takes it only where it wins on an
-    H100 (tools/torch_dilated_conv.py): in bfloat16 at C >= 512 and
-    dilation >= 27, where cuDNN runs the dilated form on a direct kernel
-    some 300x slower. Everywhere else cuDNN's dilated convolution is as fast
-    or faster."""
-    bsz, width, cin = x.shape
-    k = w.shape[0]
-    d = dilation
-    rows = -(-width // d)
-    out_width = width + 2 * padding - (k - 1) * d
-    xf = F.pad(x, (0, 0, 0, rows * d - width)).view(bsz, rows, d, cin)
-    y = F.conv2d(xf.permute(0, 3, 1, 2), w.permute(2, 1, 0).unsqueeze(3), b,
-                 padding=(padding // d, 0))
-    return y.permute(0, 2, 3, 1).reshape(bsz, -1, y.shape[1])[:, :out_width]
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,

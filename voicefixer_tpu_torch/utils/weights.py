@@ -36,6 +36,31 @@ def uniform(shape, bound: float, generator: torch.Generator,
                                        generator=generator).to(device)
 
 
+# ------------------------------------- layouts the ResStack kernels read
+
+def res_bank(params: list):
+    """A list of ResStack blocks {"c1": {"w", "b"}, "c2": {"w", "b"}} ->
+    (w1s [n, 3, C, C], b1s [n, C], w2s, b2s), block-major. Contiguous, so
+    w1s.reshape(n, 3*C, C) is the [tap*in, out] matrix of each block that
+    the kernels multiply by."""
+    return (torch.stack([p["c1"]["w"] for p in params]),
+            torch.stack([p["c1"]["b"] for p in params]),
+            torch.stack([p["c2"]["w"] for p in params]),
+            torch.stack([p["c2"]["b"] for p in params]))
+
+
+def pack_up_weights(w_up: torch.Tensor, scale: int) -> torch.Tensor:
+    """[2s, Cin, Cout] transposed-conv weights in torch tap order -> the
+    polyphase matrix [2*Cin, s*Cout]: rows 0:Cin multiply a[q] (taps
+    0..s-1), rows Cin:2Cin multiply a[q-1] (taps s..2s-1); columns are
+    (phase, channel)."""
+    k, cin, cout = w_up.shape
+    if k != 2 * scale:
+        raise ValueError(f"pack_up_weights: {k} taps for scale {scale}")
+    return (w_up.reshape(2, scale, cin, cout).permute(0, 2, 1, 3)
+            .reshape(2 * cin, scale * cout).contiguous())
+
+
 # ------------------------------------------------------------ the bridge
 
 _BN = ("gamma", "beta", "mean", "var")
