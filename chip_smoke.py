@@ -1,14 +1,24 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one CUDA card: build every kernel of the
-mode-0 path from the sources in this checkout, hold each against its plain
-PyTorch version at the main path's shapes, drive full-width mode-0 restore
-through ``VoiceFixer`` in parity and production precision, and check the
-output. The kernels: stft_mel, gru_bidir, upsample, and the vocoder's
-ResStack kernels res_chain, res_shift_single and up_res_stream, each also
-timed against the library call (cuFFT, cuDNN) that computes the same
-function and that the port does not use.
+"""Smoke run of the PyTorch port on one CUDA card: build every kernel from
+the sources in this checkout, hold each against its plain PyTorch version at
+the shapes its path gives it, drive full-width mode-0 restore through
+``VoiceFixer`` in parity and production precision, and check the output. The
+nine kernels: stft_mel, gru_bidir, upsample, the vocoder's ResStack kernels
+res_chain, res_shift_single and up_res_stream, and res_stream, gru_seq and
+conv_block_res, each also timed against the library call (cuFFT, cuDNN) that
+computes the same function and that the port does not use.
+
+Four paths are driven, each with the launch counts set to 0 just before and
+read and asserted just after: the default main path; the same restore with
+the vocoder time-sharded four ways on the one card (res_stream, and
+res_chain and res_shift_single under a signal window); the same restore with
+the fused ConvBlockRes kernel opted in (conv_block_res); and a two-layer
+unidirectional GRU (gru_seq).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --cards N    # N >= 2 cards: only the sharded
+                                       # path, shard i on card i, against
+                                       # the unsharded restore on card 0
 
 Needs one CUDA card and nvcc. Exits non-zero, printing no result, when there
 is no card or a phase fails. The last line of standard output is
@@ -41,6 +51,9 @@ REPLACES = {
     "res_chain": "voicefixer_tpu/kernels/resstack.py:293",
     "res_shift_single": "voicefixer_tpu/kernels/resstack.py:464",
     "up_res_stream": "voicefixer_tpu/kernels/resstream.py:552",
+    "res_stream": "voicefixer_tpu/kernels/resstream.py:416",
+    "gru_seq": "voicefixer_tpu/kernels/gru.py:193",
+    "conv_block_res": "voicefixer_tpu/kernels/convblock.py:132",
 }
 SOURCES = {
     "stft_mel": "voicefixer_tpu_torch/csrc/stft_mel.cu",
@@ -49,10 +62,26 @@ SOURCES = {
     "res_chain": "voicefixer_tpu_torch/csrc/resstack.cu",
     "res_shift_single": "voicefixer_tpu_torch/csrc/resstack.cu",
     "up_res_stream": "voicefixer_tpu_torch/csrc/resstream.cu",
+    "res_stream": "voicefixer_tpu_torch/csrc/resstream.cu",
+    "gru_seq": "voicefixer_tpu_torch/csrc/gru_bidir.cu",
+    "conv_block_res": "voicefixer_tpu_torch/csrc/convblock.cu",
 }
 KERNELS = tuple(SOURCES)
 # slopes of the vocoder's LeakyReLUs: inside a ResStack, after a stage
 SLOPE_RES, SLOPE_ACT = 0.01, 0.2
+SHARDS = 4          # time shards of the sharded vocoder path, on the one card
+GRU_FRAMES = 3001   # STFT frames of a 30 s chunk
+# The sharded path against the unsharded one on the same weights. float32:
+# a shard's kernels sum every element in the unsharded kernels' order (a
+# tile's position does not change a K loop), but the shards' upsamples are
+# float32 matrix products where the unsharded path runs its own kernels,
+# so sums differ in their order (about 1e-7 relative) and travel through
+# four stages of 8 blocks; the JAX package's tests hold 2e-5 at 32 channels
+# and 4 blocks. On a waveform in [-1, 1]:
+SHARD_ATOL = 1e-3
+# The fused ConvBlockRes path against the library convolutions, float32:
+# 24 blocks summed in another order, then the whole vocoder.
+CONVBLOCK_ATOL = 1e-3
 # Production against parity. bench.py's end-to-end floor (SNR_FLOOR_E2E,
 # bench.py:149) was met by the JAX package's own weight draw. The same
 # precision policy gives from about 30 to 41 dB over other random draws, in
@@ -95,8 +124,7 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float):
 
 
 # The least work of each kernel's function, (FLOPs, bytes), each input read
-# once and each output written once. tools/kernel_work.py uses them for the
-# kernels that are not ported yet.
+# once and each output written once.
 
 def stft_work(n: int, t: int, n_fft: int, n_freqs: int, n_mels: int):
     """STFT -> magnitude -> mel of an n-sample float32 wave into t frames, as
@@ -140,11 +168,53 @@ def up_res_work(t: int, s: int, cin: int, cout: int, n_blocks: int,
     return fl + up_fl, by + up_by - 2 * size * t * s * cout
 
 
-def expected_launches(size: int) -> dict:
+def conv_block_work(t: int, f: int, ci: int, co: int, size: int):
+    """One ConvBlockRes on [t, f, ci]: two folded batch norms with
+    LeakyReLU, a 3x3 convolution ci -> co and one co -> co, and the 1x1
+    shortcut where ci != co; x read once, the output written once."""
+    sc = ci != co
+    return (t * f * (2 * 9 * co * (ci + co) + (2 * ci * co if sc else 0)
+                     + 4 * (ci + co)),
+            size * (t * f * (ci + co) + 9 * co * (ci + co)
+                    + ((ci + 1) * co if sc else 0)) + 8 * (ci + co))
+
+
+def conv_block_shapes() -> dict:
+    """{(t, f, ci, co): blocks} of the ResUNet blocks of one full-width 30 s
+    chunk that the fused kernel takes, from the model's channel plan and
+    ``kernels.convblock.MAX_CHANNELS``."""
+    from voicefixer_tpu_torch.config import DEFAULT_CONFIG as C
+    from voicefixer_tpu_torch.kernels.convblock import MAX_CHANNELS
+    from voicefixer_tpu_torch.models.resunet import _channel_plan
+    u = C.unet
+    enc, dec = _channel_plan(u)
+    t0 = -(-GRU_FRAMES // u.downsample_ratio) * u.downsample_ratio
+    f0 = C.mel.n_mels - 1
+    blocks = []  # (level, ci, co)
+    for lvl, (ci, co) in enumerate(enc):
+        blocks += [(lvl, ci, co)] + [(lvl, co, co)] * (u.blocks_per_stage - 1)
+    for i, (ci, co) in enumerate(dec):
+        lvl = u.levels - 1 - i
+        blocks += [(lvl, 2 * co, co)] + [(lvl, co, co)] * (u.blocks_per_stage
+                                                           - 1)
+    blocks.append((0, enc[0][1], enc[0][1]))  # after1
+    shapes: dict = {}
+    for lvl, ci, co in blocks:
+        if ci <= MAX_CHANNELS and co <= MAX_CHANNELS:
+            key = (t0 >> lvl, f0 >> lvl, ci, co)
+            shapes[key] = shapes.get(key, 0) + 1
+    return shapes
+
+
+def expected_launches(size: int, shards: int = 1,
+                      conv_blocks: bool = False) -> dict:
     """Launches of each kernel per batch of full-width mode-0 restore at an
     activation size of ``size`` bytes, from the vocoder's dispatch rule and
-    the ResStack planner. Checks that the ResStack kernels cover every
-    block."""
+    the ResStack planner. With ``shards`` > 1 the vocoder runs time-sharded:
+    no upsample kernel (the shards' upsamples are matrix products), the
+    narrow stages one res_stream a shard, the wide ones the planner's
+    launches a shard. With ``conv_blocks`` the ResUNet's eligible blocks go
+    to conv_block_res. Checks that the ResStack kernels cover every block."""
     from voicefixer_tpu_torch.config import DEFAULT_CONFIG as C
     from voicefixer_tpu_torch.kernels.resstack import (plan_stack,
                                                        stack_dilations)
@@ -152,21 +222,42 @@ def expected_launches(size: int) -> dict:
     v = C.vocoder
     want = dict.fromkeys(KERNELS, 0)
     want["stft_mel"], want["gru_bidir"] = 1, 4
+    if conv_blocks:
+        want["conv_block_res"] = sum(conv_block_shapes().values())
     blocks = 0
     for i, depth in enumerate(v.resstack_depth):
         cout = v.channels // 2 ** (i + 1)
         if cout <= FUSE_MAX_CHANNELS:
-            want["up_res_stream"] += 1
+            want["res_stream" if shards > 1 else "up_res_stream"] += shards
             blocks += depth
             continue
-        want["upsample"] += 1
+        if shards == 1:
+            want["upsample"] += 1
         for i0, i1, tm in plan_stack(cout, stack_dilations(depth), size):
-            want["res_chain" if tm is not None else "res_shift_single"] += 1
+            want["res_chain" if tm is not None
+                 else "res_shift_single"] += shards
             blocks += i1 - i0
-    if blocks != sum(v.resstack_depth) or not all(want.values()):
-        raise AssertionError(f"the plan leaves a kernel or a block out: "
-                             f"{want}, {blocks} blocks")
+    if blocks != sum(v.resstack_depth):
+        raise AssertionError(f"the plan leaves a block out: {want}, "
+                             f"{blocks} blocks")
     return want
+
+
+def shard_shape(stage: int):
+    """(rows, (lo, hi)) of the last shard's [halo | samples | halo] array
+    after stage ``stage`` of the SHARDS-way vocoder on a 30 s chunk, as
+    ``parallel.sp.apply_sp`` forms it: its window ends inside the array."""
+    from voicefixer_tpu_torch.config import DEFAULT_CONFIG as C
+    from voicefixer_tpu_torch.kernels.resstack import stack_dilations
+    v = C.vocoder
+    t0 = GRU_FRAMES + GRU_FRAMES % 2 + 4   # frames after the tail pad
+    t_loc, rate = -(-t0 // SHARDS), 1
+    for s in v.upsample_scales[:stage + 1]:
+        t_loc, rate = t_loc * s, rate * s
+    h = -(-sum(d + 1 for d in stack_dilations(v.resstack_depth[stage]))
+          // 8) * 8
+    lo = h - (SHARDS - 1) * t_loc
+    return t_loc + 2 * h, (lo, lo + t0 * rate)
 
 
 def compare(name, got, ref, rtol, atol, chained=0):
@@ -300,6 +391,42 @@ def _gru_case(gen, device, dtype):
             "peak": PEAK_FP32 if dtype == "float32" else PEAK_BF16}
 
 
+def _gru_seq_case(gen, device, reverse, batch, per_chunk):
+    """One direction at the denoiser's width; per_chunk 0: checked and
+    timed, not a launch of the unidirectional path."""
+    import torch
+    from voicefixer_tpu_torch.config import DEFAULT_CONFIG as C
+    from voicefixer_tpu_torch.kernels import gru
+    h, t, cin = C.denoiser.base_width, GRU_FRAMES, 128
+    bound = 1 / h ** 0.5
+    u = lambda *s: ((torch.rand(s, generator=gen) * 2 - 1) * bound  # noqa: E731
+                    ).to(device)
+    x = torch.randn((batch, t, cin), generator=gen).to(device)
+    w_ih, w_hh, b_ih, b_hh = u(3 * h, cin), u(3 * h, h), u(3 * h), u(3 * h)
+    xp = x @ w_ih.T + b_ih
+    w_t = w_hh.T.contiguous()
+    lib_gru = torch.nn.GRU(cin, h, batch_first=True).to(device)
+    with torch.no_grad():
+        for p, v in ((lib_gru.weight_ih_l0, w_ih), (lib_gru.weight_hh_l0, w_hh),
+                     (lib_gru.bias_ih_l0, b_ih), (lib_gru.bias_hh_l0, b_hh)):
+            p.copy_(v)
+    x_lib = x.flip(1) if reverse else x
+
+    def library():
+        with torch.no_grad():
+            return lib_gru(x_lib)[0]
+
+    flops, work_bytes = gru_work(t, h, 4, directions=1)
+    return {"name": "gru_seq", "dtype": "float32",
+            "shape": f"x [{batch}, {t}, {3 * h}] reverse={reverse}",
+            "fn": lambda: gru.gru_seq(xp, w_t, b_hh, reverse),
+            "plain": lambda: gru.gru_seq_reference(xp, w_t, b_hh, reverse),
+            "library": library, "reps": 3, "rtol": 1e-4, "atol": 1e-4,
+            "per_chunk": per_chunk, "main_path": batch == 1,
+            "bytes": batch * work_bytes, "flops": batch * flops,
+            "peak": PEAK_FP32}
+
+
 def _upsample_case(gen, device, dtype, stage, t):
     import torch
     import torch.nn.functional as F
@@ -371,8 +498,9 @@ def _res_tol(dtype, chained):
     return {"rtol": 2 ** -7, "atol": 1e-3, "chained": chained}
 
 
-def _res_cases(gen, device, dtype, ch, t, main_path=True):
-    """One case per launch that ``res_stack`` makes on a [1, t, ch] stage."""
+def _res_cases(gen, device, dtype, ch, t, main_path=True, bounds=None):
+    """One case per launch that ``res_stack`` makes on a [1, t, ch] stage;
+    with ``bounds`` under that signal window, as a time shard runs them."""
     import torch
     from voicefixer_tpu_torch.kernels import resstack
     dt = getattr(torch, dtype)
@@ -387,21 +515,22 @@ def _res_cases(gen, device, dtype, ch, t, main_path=True):
             one = tuple(v[0] for v in sub)
             name = "res_shift_single"
             fn = lambda one=one, d=d, fs=fs: resstack.res_shift_single(  # noqa: E731
-                x, *one, d[0], SLOPE_RES, fs)
+                x, *one, d[0], SLOPE_RES, fs, bounds)
             plain = lambda one=one, d=d, fs=fs: (  # noqa: E731
                 resstack.res_shift_single_reference(x, *one, d[0], SLOPE_RES,
-                                                    fs))
+                                                    fs, bounds))
         else:
             name = "res_chain"
             fn = lambda sub=sub, d=d, fs=fs, tm=tm: resstack.res_chain(  # noqa: E731
-                x, *sub, d, SLOPE_RES, fs, tm=tm)
+                x, *sub, d, SLOPE_RES, fs, tm=tm, mask_bounds=bounds)
             plain = lambda sub=sub, d=d, fs=fs: resstack.res_chain_reference(  # noqa: E731
-                x, *sub, d, SLOPE_RES, fs)
+                x, *sub, d, SLOPE_RES, fs, bounds)
         library = lambda sub=sub, d=d, fs=fs: _cudnn_blocks(x, sub, d, fs)  # noqa: E731
         flops, work_bytes = res_work(ch, t, i1 - i0, x.element_size())
         cases.append({
             "name": name, "dtype": dtype, "main_path": main_path,
-            "shape": f"[1, {t}, {ch}] dilations {d}", "fn": fn,
+            "shape": f"[1, {t}, {ch}] dilations {d}"
+                     + (f" window {bounds}" if bounds else ""), "fn": fn,
             "plain": plain, "library": library, "reps": 3, "per_chunk": 1,
             **_res_tol(dtype, i1 - i0 if i1 - i0 > 1 else 0), "bytes": work_bytes,
             "flops": flops,
@@ -446,13 +575,99 @@ def _up_res_case(gen, device, dtype, cin, cout, s, t, main_path=True):
             "peak": PEAK_FP32 if dtype == "float32" else PEAK_BF16}
 
 
+def _res_stream_case(gen, device, dtype, ch, t, bounds=None, per_chunk=0,
+                     main_path=True):
+    """The whole eight-block stack in one call; per_chunk: launches at this
+    shape on the sharded path (0: timed, not in the kernel record)."""
+    import torch
+    from voicefixer_tpu_torch.kernels import resstack, resstream
+    dt = getattr(torch, dtype)
+    dils = resstack.stack_dilations(8)
+    x = torch.randn((1, t, ch), generator=gen).to(device, dt)
+    bank = _bank(gen, 8, ch, device, dt)
+    args = (x, *bank, dils, SLOPE_RES, SLOPE_ACT, bounds)
+
+    def library():
+        y = x
+        if bounds is not None:
+            y = torch.zeros_like(x)
+            y[:, max(bounds[0], 0):bounds[1]] = x[:, max(bounds[0], 0):bounds[1]]
+        return _cudnn_blocks(y, bank, dils, SLOPE_ACT)
+
+    groups = resstack.plan_stack(ch, dils, x.element_size())
+    # the window's rows only are work: the rest is written as zeros
+    t_work = t if bounds is None else min(bounds[1], t) - max(bounds[0], 0)
+    flops, work_bytes = res_work(ch, t_work, 8, x.element_size())
+    work_bytes += x.element_size() * (t - t_work) * ch
+    return {"name": "res_stream", "dtype": dtype, "main_path": main_path,
+            "shape": f"[1, {t}, {ch}] window {bounds}, groups "
+                     f"{[g[:2] for g in groups]}",
+            "fn": lambda: resstream.res_stream(*args),
+            "plain": lambda: resstream.res_stream_reference(*args),
+            "library": library, "reps": 3, "per_chunk": per_chunk,
+            **_res_tol(dtype, 8), "bytes": work_bytes, "flops": flops,
+            "peak": PEAK_FP32 if dtype == "float32" else PEAK_BF16}
+
+
+def _conv_block_case(gen, device, dtype, t, f, ci, co, per_chunk):
+    import torch
+    from voicefixer_tpu_torch.config import DEFAULT_CONFIG as C
+    from voicefixer_tpu_torch.kernels import convblock
+    from voicefixer_tpu_torch.models import resunet
+    from voicefixer_tpu_torch.ops.conv import fold_bn_eval
+    from voicefixer_tpu_torch.utils.weights import tree_map
+    dt = getattr(torch, dtype)
+    rnd = lambda shape, sc=1.0: sc * torch.randn(shape, generator=gen)  # noqa: E731
+
+    def bn(c):
+        return {"gamma": 1 + 0.1 * rnd((c,)), "beta": 0.1 * rnd((c,)),
+                "mean": 0.05 * rnd((c,)), "var": (1 + 0.1 * rnd((c,))).abs()}
+
+    p = {"bn1": bn(ci), "conv1": {"w": rnd((3, 3, ci, co),
+                                           (2 / (9 * ci)) ** 0.5)},
+         "bn2": bn(co), "conv2": {"w": rnd((3, 3, co, co),
+                                           (2 / (9 * co)) ** 0.5)}}
+    if ci != co:
+        p["shortcut"] = {"w": rnd((1, 1, ci, co), ci ** -0.5),
+                         "b": 0.1 * rnd((co,))}
+    p = tree_map(lambda v: v.to(device, dt), fold_bn_eval(p))
+    x = rnd((1, t, f, ci)).to(device, dt)
+    slope = C.unet.leaky_slope
+    if not convblock.eligible(p, x):
+        raise AssertionError(f"conv_block_res does not take [{t}, {f}] "
+                             f"{ci}->{co} {dtype}")
+    flops, work_bytes = conv_block_work(t, f, ci, co, x.element_size())
+    # bfloat16: the output is rounded once; a2 is rounded where the plain
+    # version rounds it, so one ulp of a2 (2^-8 relative) where the float32
+    # sums straddle a boundary reaches the output through conv2
+    return {"name": "conv_block_res", "dtype": dtype,
+            "shape": f"[1, {t}, {f}, {ci}] -> {co}, "
+                     f"{'1x1 shortcut' if ci != co else 'identity'}, tile "
+                     f"{convblock.plan_tile(f, co, x.element_size(), ci != co)}",
+            "fn": lambda: convblock.conv_block_res(x, p, slope),
+            "plain": lambda: convblock.conv_block_res_reference(x, p, slope),
+            "library": lambda: resunet._conv_block_res(p, x, slope),
+            "reps": 5, "per_chunk": per_chunk,
+            "rtol": 1e-4 if dtype == "float32" else 2 ** -7,
+            "atol": 1e-4 if dtype == "float32" else 2 ** -6,
+            "bytes": work_bytes, "flops": flops,
+            "peak": PEAK_FP32 if dtype == "float32" else PEAK_BF16}
+
+
 def phase_kernels(device):
-    """Each kernel against its plain version at the main path's shapes."""
+    """Each kernel against its plain version at the shapes its path gives
+    it."""
     import torch
     from voicefixer_tpu_torch.ops.precision import tf32_off
-    log("== kernels against their plain versions (main-path shapes, B=1)")
+    log("== kernels against their plain versions (their paths' shapes)")
     gen = torch.Generator().manual_seed(SEED)
     cases = [_stft_case(gen, device)]
+    # the unidirectional path launches the forward direction twice a call
+    cases += [_gru_seq_case(gen, device, False, 1, 2),
+              _gru_seq_case(gen, device, True, 1, 0),
+              _gru_seq_case(gen, device, True, 2, 0)]
+    t2, w2 = shard_shape(2)
+    t3, w3 = shard_shape(3)
     for dtype in ("float32", "bfloat16"):
         cases.append(_gru_case(gen, device, dtype))
         # frames after the tail pad: 3001 + 1 + 4, then x7, x7, x3
@@ -467,6 +682,21 @@ def phase_kernels(device):
         cases += _res_cases(gen, device, dtype, 64, 20, main_path=False)
         cases.append(_up_res_case(gen, device, dtype, 32, 16, 3, 7,
                                   main_path=False))
+        # res_stream: a whole stage's signal, then the last shard's arrays
+        # of the sharded path (its window ends inside the array), then a
+        # signal shorter than the dilations
+        cases.append(_res_stream_case(gen, device, dtype, 128, 441882))
+        cases.append(_res_stream_case(gen, device, dtype, 128, t2, w2, SHARDS))
+        cases.append(_res_stream_case(gen, device, dtype, 64, t3, w3, SHARDS))
+        cases.append(_res_stream_case(gen, device, dtype, 64, 20, (3, 15),
+                                      main_path=False))
+        # the wide stages' launches under a shard's window
+        for stage, ch in ((0, 512), (1, 256)):
+            t_s, w_s = shard_shape(stage)
+            cases += _res_cases(gen, device, dtype, ch, t_s, main_path=False,
+                                bounds=w_s)
+        for (t, f, ci, co), k in conv_block_shapes().items():
+            cases.append(_conv_block_case(gen, device, dtype, t, f, ci, co, k))
     rows = []
     with tf32_off(), torch.inference_mode():
         for c in cases:
@@ -529,42 +759,16 @@ def phase_main_path(device):
     seg = DEFAULT_CONFIG.pipeline.seg_length
     wavs = {"30s": (0.1 * rng.standard_normal(seg)).astype(np.float32),
             "45s": (0.1 * rng.standard_normal(seg * 3 // 2)).astype(np.float32)}
-    outs, counts, timing = {}, {}, {}
+    outs, counts = {}, {}
     for mode in ("parity", "production"):
         with precision(mode):
-            vf.restore_inmem(wavs["30s"])  # warm-up: cuDNN plans, kernel load
-            torch.cuda.synchronize()
             for name, wav in wavs.items():
-                kernels.reset_launches()
-                out = vf.restore_inmem(wav)
-                counts[mode, name] = dict(kernels.launches)
-                outs[mode, name] = out
-                if out.shape != wav.shape or not np.isfinite(out).all() \
-                        or float(np.abs(out).max()) > 1.0:
-                    raise AssertionError(
-                        f"{mode} {name}: bad output shape {out.shape} / "
-                        f"finite {np.isfinite(out).all()} / peak "
-                        f"{float(np.abs(out).max())}")
                 # both inputs are one batch
-                want = expected_launches(4 if mode == "parity" else 2)
-                if counts[mode, name] != want:
-                    raise AssertionError(f"{mode} {name}: launches "
-                                         f"{counts[mode, name]} != {want}")
-                log(f"  {mode} {name}: {len(out)} samples, peak "
-                    f"{float(np.abs(out).max()):.4f}, launches "
-                    f"{counts[mode, name]}")
-            walls = []
-            for _ in range(3):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                vf.restore_inmem(wavs["30s"])
-                torch.cuda.synchronize()
-                walls.append((time.perf_counter() - t0) * 1e3)
-            timing[mode] = walls
-            log(f"  {mode}: ms per 30 s chunk (host clock, wav in to wav out) "
-                f"{['%.1f' % w for w in walls]}; min {min(walls):.1f} ms = "
-                f"{30.0 / (min(walls) / 1e3):.1f} audio-s/s on "
-                f"{torch.cuda.get_device_name(device)}")
+                outs[mode, name], counts[mode, name] = _counted_restore(
+                    mode, name, vf, wav,
+                    expected_launches(4 if mode == "parity" else 2))
+            wall = _timed_restore(mode, "default path", vf, wavs["30s"],
+                                  device)
             # stage breakdown on device time, one 30 s batch
             wav = torch.from_numpy(wavs["30s"][None]).to(device)
             p, vp, cfg = vf.params, vf.vocoder_params, vf.config
@@ -584,7 +788,7 @@ def phase_main_path(device):
                 parts = {k: cuda_ms(f, 2) for k, f in stages.items()}
             log(f"  {mode} stage device ms (30 s): "
                 + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
-            _profile(mode, lambda: vf.restore_inmem(wavs["30s"]), min(walls))
+            _profile(mode, lambda: vf.restore_inmem(wavs["30s"]), wall)
             with tf32_off(), torch.inference_mode():
                 _vocoder_convs(mode, stages["vocoder"])
     for name in wavs:
@@ -595,22 +799,266 @@ def phase_main_path(device):
         if snr < SNR_FLOOR_DB:
             raise AssertionError(f"{name}: SNR {snr:.2f} dB < {SNR_FLOOR_DB}")
     phase_snr_vs_plain(vf, device)
-    return counts, timing
+    return vf, wavs["30s"], outs, counts
+
+
+def _timed_restore(mode: str, what: str, vf, wav, device):
+    """Best-of-3 host-clock ms of vf.restore_inmem(wav)."""
+    import torch
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vf.restore_inmem(wav)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    log(f"  {mode} {what}: ms per 30 s chunk (host clock, wav in to wav out) "
+        f"{['%.1f' % w for w in walls]}; min {min(walls):.1f} ms = "
+        f"{30.0 / (min(walls) / 1e3):.1f} audio-s/s on "
+        f"{torch.cuda.get_device_name(device)}")
+    return min(walls)
+
+
+def _counted_restore(mode: str, what: str, vf, wav, want: dict):
+    """One restore, after a warm-up (cuDNN plans, kernel load), with the
+    launch counts set to 0 just before and read just after; the counts must
+    be ``want`` and the output sound."""
+    import numpy as np
+    import torch
+    from voicefixer_tpu_torch import kernels
+    vf.restore_inmem(wav)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out = vf.restore_inmem(wav)
+    counts = dict(kernels.launches)
+    if out.shape != wav.shape or not np.isfinite(out).all() \
+            or float(np.abs(out).max()) > 1.0:
+        raise AssertionError(f"{mode} {what}: bad output shape {out.shape} / "
+                             f"finite {np.isfinite(out).all()} / peak "
+                             f"{float(np.abs(out).max())}")
+    if counts != want:
+        raise AssertionError(f"{mode} {what}: launches {counts} != {want}")
+    log(f"  {mode} {what}: {len(out)} samples, peak "
+        f"{float(np.abs(out).max()):.4f}, launches {counts}")
+    return out, counts
+
+
+def _held_to_default(mode: str, what: str, out, outs, atol: float,
+                     margin_db: float = 0.0):
+    """A path's output against the default path's on the same weights and
+    input. Parity: max abs difference within atol. Production: bfloat16
+    roundings flip where float32 sums in another order straddle a boundary,
+    so the path must stand to the parity output as the default production
+    path does (SNR within SNR_MATCH_DB), and differ from the default
+    production output by no more than production differs from parity, less
+    ``margin_db``: 0 for a path that rounds at the same places, 3 for one
+    that rounds elsewhere (two unrelated errors of that size add up to 3 dB
+    more)."""
+    import numpy as np
+    ref = outs[mode, "30s"]
+    err = float(np.abs(out - ref).max())
+    if mode == "parity":
+        log(f"  {mode} {what} against the default path: max abs diff "
+            f"{err:.3e} (tol {atol:.0e})")
+        if not err <= atol:
+            raise AssertionError(f"{what}: parity output differs from the "
+                                 "default path's")
+        return
+    snr_default = _snr_db(ref, outs["parity", "30s"])
+    snr_path = _snr_db(out, outs["parity", "30s"])
+    direct = _snr_db(out, ref)
+    log(f"  {mode} {what}: SNR against parity {snr_path:.2f} dB (default "
+        f"path {snr_default:.2f} dB, must agree within {SNR_MATCH_DB} dB); "
+        f"against the default production output {direct:.2f} dB (must "
+        f"reach {snr_default - margin_db:.2f}); max abs diff {err:.3e}")
+    if abs(snr_path - snr_default) > SNR_MATCH_DB \
+            or direct < snr_default - margin_db:
+        raise AssertionError(f"{what}: production output strays from the "
+                             "default path's")
+
+
+def _denoised_mel(vf, wav, device):
+    """(unet input, denoised linear mel) of one 30 s batch, for stage
+    timings."""
+    import torch
+    from voicefixer_tpu_torch.models import analysis, denoiser
+    from voicefixer_tpu_torch.ops.norm import from_log, to_log
+    w = torch.from_numpy(wav[None]).to(device)
+    mel = analysis.wav_to_mel(w, vf.config)
+    mask = denoiser.apply(vf.params["denoiser"], mel, vf.config.denoiser)
+    x = torch.stack([to_log(mel), to_log(mask * mel)], -1)
+    den = from_log(analysis.apply(vf.params, mel, vf.config)["mel"])
+    return x, den
+
+
+def phase_sharded_path(vf, wav, outs, device):
+    """The same restore with the vocoder cut into SHARDS time shards, all on
+    this card, one after the other: res_stream on the narrow stages,
+    res_chain and res_shift_single under a signal window on the wide ones,
+    no upsample kernel and no library convolution inside the four stages."""
+    import torch
+    from voicefixer_tpu_torch.ops.precision import precision, tf32_off
+    from voicefixer_tpu_torch.parallel.sp import synthesize_sp
+    from voicefixer_tpu_torch.pipeline.restore import VoiceFixer
+    log(f"== sharded path: VoiceFixer(model_devices=({str(device)!r},) * "
+        f"{SHARDS}).restore_inmem, mode 0")
+    sp = VoiceFixer(vf.params, vf.vocoder_params, vf.config, device=device,
+                    model_devices=(device,) * SHARDS)
+    counts = {}
+    for mode in ("parity", "production"):
+        with precision(mode):
+            want = expected_launches(4 if mode == "parity" else 2,
+                                     shards=SHARDS)
+            out, counts[mode] = _counted_restore(
+                mode, f"{SHARDS} shards", sp, wav, want)
+            _held_to_default(mode, f"{SHARDS} shards", out, outs, SHARD_ATOL)
+            wall = _timed_restore(mode, f"{SHARDS} shards", sp, wav, device)
+            with tf32_off(), torch.inference_mode():
+                _, den = _denoised_mel(vf, wav, device)
+                voc = lambda: synthesize_sp(  # noqa: E731
+                    sp.vocoder_params, den, sp.config.vocoder,
+                    sp.model_devices)
+                log(f"  {mode} sharded vocoder stage device ms (30 s): "
+                    f"{cuda_ms(voc, 2):.2f} by CUDA events, "
+                    f"{sum(r[1] for r in _device_kernels(voc)):.2f} summed "
+                    "kernel time (profiler)")
+            _profile(mode, lambda: sp.restore_inmem(wav), wall)
+            with tf32_off(), torch.inference_mode():
+                # condnet 5, pre-conv, a post-conv a shard, two edge patches
+                _vocoder_convs(mode, voc, 8 + SHARDS)
+    return counts
+
+
+def phase_cards(n: int):
+    """The sharded path on n real cards (one process, shard i on card i)
+    against the unsharded restore on card 0, same weights and input: launch
+    counts, agreement and best-of-3 ms per chunk of both."""
+    import numpy as np
+    import torch
+    from voicefixer_tpu_torch.config import DEFAULT_CONFIG
+    from voicefixer_tpu_torch.ops.precision import precision
+    from voicefixer_tpu_torch.pipeline.restore import VoiceFixer
+    log(f"== sharded path on {n} cards against one card")
+    devices = tuple(torch.device("cuda", i) for i in range(n))
+    vf = VoiceFixer.random(SEED, DEFAULT_CONFIG, device=devices[0])
+    sp = VoiceFixer(vf.params, vf.vocoder_params, DEFAULT_CONFIG,
+                    device=devices[0], model_devices=devices)
+    wav = (0.1 * np.random.default_rng(SEED).standard_normal(
+        DEFAULT_CONFIG.pipeline.seg_length)).astype(np.float32)
+    outs = {}
+    for mode in ("parity", "production"):
+        size = 4 if mode == "parity" else 2
+        with precision(mode):
+            outs[mode, "30s"], _ = _counted_restore(
+                mode, "1 card", vf, wav, expected_launches(size))
+            _timed_restore(mode, "1 card", vf, wav, devices[0])
+            out, _ = _counted_restore(mode, f"{n} cards", sp, wav,
+                                      expected_launches(size, shards=n))
+            _held_to_default(mode, f"{n} cards", out, outs, SHARD_ATOL)
+            _timed_restore(mode, f"{n} cards", sp, wav, devices[0])
+
+
+def phase_conv_block_path(vf, wav, outs, device):
+    """The same restore with the fused ConvBlockRes kernel opted in."""
+    import torch
+    from voicefixer_tpu_torch.models import resunet
+    from voicefixer_tpu_torch.ops.precision import (conv_block_kernel,
+                                                    precision, tf32_off)
+    from voicefixer_tpu_torch.pipeline.restore import VoiceFixer
+    log("== conv-block path: VoiceFixer(conv_block_kernel=True)"
+        ".restore_inmem, mode 0")
+    cb = VoiceFixer(vf.params, vf.vocoder_params, vf.config, device=device,
+                    conv_block_kernel=True)
+    counts = {}
+    for mode in ("parity", "production"):
+        with precision(mode):
+            want = expected_launches(4 if mode == "parity" else 2,
+                                     conv_blocks=True)
+            out, counts[mode] = _counted_restore(mode, "fused conv blocks",
+                                                 cb, wav, want)
+            # the kernel keeps h1 in float32 where the library path rounds
+            # every convolution's output to bfloat16
+            _held_to_default(mode, "fused conv blocks", out, outs,
+                             CONVBLOCK_ATOL, margin_db=3.0)
+            _timed_restore(mode, "fused conv blocks", cb, wav, device)
+            with tf32_off(), torch.inference_mode():
+                x, _ = _denoised_mel(vf, wav, device)
+                unet = lambda: resunet.apply(  # noqa: E731
+                    vf.params["unet"], x, vf.config.unet)
+                # summed kernel time: CUDA events around this stage's many
+                # small launches also time the host
+                busy = lambda: sum(r[1] for r in _device_kernels(unet))  # noqa: E731
+                lib_ms = busy()
+                with conv_block_kernel():
+                    k_ms = busy()
+                    k9 = sum(r[1] for r in _device_kernels(unet)
+                             if "conv_block_kernel" in r[0])
+            log(f"  {mode} resunet stage, summed kernel ms (profiler, 30 s): "
+                f"{k_ms:.2f} with {want['conv_block_res']} blocks through "
+                f"conv_block_res ({k9:.2f} ms in the kernel), {lib_ms:.2f} on "
+                "the library convolutions")
+    return counts
+
+
+def phase_gru_path(device):
+    """A two-layer unidirectional GRU through ``ops.gru.gru``: one gru_seq
+    launch a layer, against cuDNN's GRU on the same weights."""
+    import torch
+    from voicefixer_tpu_torch import kernels
+    from voicefixer_tpu_torch.ops.gru import gru, init_gru_params
+    from voicefixer_tpu_torch.ops.precision import tf32_off
+    cin, h, layers = 128, 256, 2
+    log(f"== unidirectional GRU path: ops.gru.gru, {layers} layers, In={cin}, "
+        f"H={h}, T={GRU_FRAMES}")
+    gen = torch.Generator().manual_seed(SEED + 2)
+    params = init_gru_params(gen, cin, h, layers, device, bidirectional=False)
+    x = torch.randn((1, GRU_FRAMES, cin), generator=gen).to(device)
+    lib = torch.nn.GRU(cin, h, num_layers=layers, batch_first=True).to(device)
+    with torch.no_grad():
+        for layer in range(layers):
+            for k in ("w_ih", "w_hh", "b_ih", "b_hh"):
+                getattr(lib, k.replace("w_", "weight_").replace("b_", "bias_")
+                        + f"_l{layer}").copy_(params[f"l{layer}"][k])
+    with tf32_off(), torch.inference_mode():
+        kernels.reset_launches()
+        out = gru(x, params, layers, bidirectional=False)
+        counts = dict(kernels.launches)
+        torch.cuda.synchronize()
+        want = dict.fromkeys(KERNELS, 0)
+        want["gru_seq"] = layers
+        if counts != want:
+            raise AssertionError(f"gru path: launches {counts} != {want}")
+        ref = lib(x)[0]
+        if out.shape != (1, GRU_FRAMES, h) or not bool(
+                torch.isfinite(out).all()):
+            raise AssertionError(f"gru path: bad output {tuple(out.shape)}")
+        # float32 on both sides; cuDNN sums in another order over 3001 steps
+        compare("gru path against nn.GRU", out, ref, 1e-4, 1e-4)
+        ms = cuda_ms(lambda: gru(x, params, layers, False), 3)
+        lib_ms = cuda_ms(lambda: lib(x), 3)
+    log(f"  launches {counts}; {ms:.3f} ms a call (projections and "
+        f"{layers} gru_seq launches), nn.GRU {lib_ms:.3f} ms")
+    return counts
 
 
 def _kernel_group(name: str) -> str:
     # chain_kernel<T, BN, UP>: UP is the fused upsample front of K4; K4's
-    # later groups launch the kernels that K2 and K3 launch
+    # later groups and all of K7's launch the kernels that K2 and K3 launch
     for key, group in (("stft_mel", "K5 stft_mel"),
                        ("gru_bidir", "K6 gru_bidir"),
+                       ("gru_seq", "K8 gru_seq"),
+                       ("conv_block_kernel", "K9 conv_block_res"),
                        ("sin_residual", "x+sin(x) pre-pass of K1 and K4"),
                        ("upsample", "K1 upsample"),
-                       ("chain_kernel", "K2/K4 chain_kernel"),
-                       ("shift_kernel", "K3/K4 shift_kernel"),
-                       ("conv", "cuDNN conv"),
-                       ("xmma", "cuDNN conv"), ("cutlass", "cuDNN conv"),
+                       ("chain_kernel", "K2/K4/K7 chain_kernel"),
+                       ("shift_kernel", "K3/K4/K7 shift_kernel"),
                        ("nchwToNhwc", "layout copies"),
-                       ("nhwcToNchw", "layout copies")):
+                       ("nhwcToNchw", "layout copies"),
+                       ("fprop", "cuDNN conv"), ("implicit", "cuDNN conv"),
+                       ("cudnn", "cuDNN conv"), ("conv", "cuDNN conv"),
+                       ("gemm", "matrix products"),
+                       ("xmma", "matrix products"),
+                       ("cutlass", "matrix products")):
         if key in name:
             return group
     return "elementwise and copies"
@@ -632,16 +1080,17 @@ def _device_kernels(fn):
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
 
 
-def _vocoder_convs(mode: str, fn):
-    """The vocoder stage alone: its ResStacks run through K2-K4, so the only
-    library convolutions left are the condnet's five, the pre-conv and the
-    post-conv. The 64 convolutions of the ResStacks would show here."""
+def _vocoder_convs(mode: str, fn, outside: int = 7):
+    """The vocoder stage alone: its ResStacks run through the port's
+    kernels, so the only library convolutions left are the ``outside`` ones
+    (the condnet's five, the pre-conv and the post-conv). The 64
+    convolutions of the ResStacks would show here."""
     rows = [r for r in _device_kernels(fn)
             if _kernel_group(r[0]) == "cuDNN conv"]
     n = sum(r[2] for r in rows)
     log(f"  {mode} vocoder stage: {n} library convolution kernels, "
-        f"{sum(r[1] for r in rows):.2f} ms (7 convolutions outside the "
-        "ResStacks)")
+        f"{sum(r[1] for r in rows):.2f} ms ({outside} convolutions outside "
+        "the ResStacks)")
     if n >= 32:
         raise AssertionError(f"{mode}: {n} convolution kernels in the "
                              "vocoder: a ResStack still runs on the library")
@@ -739,35 +1188,60 @@ def main() -> int:
     t_start = time.perf_counter()
     card = phase_card()
     phase_build()
+    if len(sys.argv) > 1:
+        if len(sys.argv) != 3 or sys.argv[1] != "--cards" \
+                or not 2 <= int(sys.argv[2]) <= torch.cuda.device_count():
+            print("chip_smoke: usage: chip_smoke.py [--cards N], 2 <= N <= "
+                  f"{torch.cuda.device_count()} cards", file=sys.stderr)
+            return 2
+        phase_cards(int(sys.argv[2]))
+        print(card)
+        return 0
     rows = phase_kernels(device)
-    counts, _ = phase_main_path(device)
+    vf, wav, outs, counts = phase_main_path(device)
+    sp_counts = phase_sharded_path(vf, wav, outs, device)
+    cb_counts = phase_conv_block_path(vf, wav, outs, device)
+    gru_counts = phase_gru_path(device)
+    del vf
     phase_small_reference(device)
+
+    def launches(name, mode):
+        """From the run of the path that launches the kernel."""
+        if name == "res_stream":
+            return sp_counts[mode][name]
+        if name == "conv_block_res":
+            return cb_counts[mode][name]
+        if name == "gru_seq":
+            return gru_counts[name]
+        return counts[mode, "30s"][name]
 
     record = []
     for name in KERNELS:
         for dtype in ("float32", "bfloat16"):
-            rs = [r for r in rows if r["name"] == name and r["dtype"] == dtype]
+            rs = [r for r in rows if r["name"] == name and r["dtype"] == dtype
+                  and r["per_chunk"]]
             if not rs:
                 continue
             mode = "production" if dtype == "bfloat16" else "parity"
-            k = rs[0]["per_chunk"]
-            by_bytes = sum(r["bound_ms"] for r in rs if r["bound_by"] == "bytes")
-            lib = [r["lib_ms"] for r in rs]
+            total = lambda key: sum(r["per_chunk"] * r[key] for r in rs)  # noqa: E731
+            by_bytes = sum(r["per_chunk"] * r["bound_ms"] for r in rs
+                           if r["bound_by"] == "bytes")
             record.append({
                 "name": f"{name}:{dtype}", "route": "cuda",
                 "source": SOURCES[name], "replaces": REPLACES[name],
-                "launches": counts[mode, "30s"][name],
+                "launches": launches(name, mode),
                 "max_abs_err": max(r["err"] for r in rs),
-                "ms": k * sum(r["ms"] for r in rs),
-                "plain_ms": k * sum(r["plain_ms"] for r in rs),
-                "bound_ms": k * sum(r["bound_ms"] for r in rs),
-                "bound_by": ("bytes" if 2 * by_bytes
-                             > sum(r["bound_ms"] for r in rs)
+                "ms": total("ms"), "plain_ms": total("plain_ms"),
+                "bound_ms": total("bound_ms"),
+                "bound_by": ("bytes" if 2 * by_bytes > total("bound_ms")
                              else "operations"),
-                "library_ms": None if None in lib else k * sum(lib),
+                "library_ms": (None if None in [r["lib_ms"] for r in rs]
+                               else total("lib_ms")),
             })
     log(f"== done in {time.perf_counter() - t_start:.1f} s; times are per "
-        "30 s chunk (B=1), summed over the launches the main path makes")
+        "30 s chunk (B=1), summed over the launches that the kernel's path "
+        "makes (the default path; res_stream: the sharded path; "
+        "conv_block_res: the conv-block path; gru_seq: the GRU path)")
     print(json.dumps({"kernels": record}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -19,14 +19,19 @@ import pytest
 import torch
 
 from voicefixer_tpu_torch import kernels
-from voicefixer_tpu_torch.kernels.gru import gru_bidir, gru_bidir_reference
+from voicefixer_tpu_torch.kernels import convblock
+from voicefixer_tpu_torch.kernels.gru import (gru_bidir, gru_bidir_reference,
+                                              gru_seq, gru_seq_reference)
 from voicefixer_tpu_torch.kernels.resstack import (plan_stack, res_chain,
                                                    res_chain_reference,
                                                    res_shift_single,
                                                    res_shift_single_reference,
                                                    res_stack)
-from voicefixer_tpu_torch.kernels.resstream import (up_res_stream,
+from voicefixer_tpu_torch.kernels.resstream import (res_stream,
+                                                    res_stream_reference,
+                                                    up_res_stream,
                                                     up_res_stream_reference)
+from voicefixer_tpu_torch.ops.conv import fold_bn_eval
 from voicefixer_tpu_torch.kernels.stft import stft_mel, stft_mel_reference
 from voicefixer_tpu_torch.kernels.upsample import (upsample,
                                                    upsample_reference)
@@ -234,3 +239,175 @@ def test_resstack_bfloat16_refuses_ragged_channels(cuda, fn):
                           torch.zeros(ch, device=cuda, dtype=dt),
                           w1s, b1s, w2s, b2s,
                           tuple(3 ** i for i in range(8)), 3)
+
+
+# ------------------------------------------- gru_seq, res_stream, convblock
+
+@pytest.mark.parametrize("hidden,t,b,reverse", [(128, 7, 2, False),
+                                                (100, 50, 3, True),
+                                                (256, 301, 2, False),
+                                                (256, 301, 1, True)])
+def test_gru_seq_kernel(cuda, hidden, t, b, reverse):
+    gen = torch.Generator().manual_seed(8)
+    g = 3 * hidden
+    x = _randn(gen, (b, t, g)).to(cuda)
+    w = _randn(gen, (hidden, g), 0.1).to(cuda)
+    bias = _randn(gen, (g,), 0.1).to(cuda)
+    n0 = dict(kernels.launches)
+    got = gru_seq(x, w, bias, reverse=reverse)
+    assert kernels.launches["gru_seq"] == n0["gru_seq"] + 1
+    assert kernels.launches["gru_bidir"] == n0["gru_bidir"]
+    ref = gru_seq_reference(x, w, bias, reverse=reverse)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+def test_gru_seq_refuses(cuda):
+    """Wider than the kernel holds, or not float32: raises, no plain
+    version on the card."""
+    x = torch.zeros((1, 4, 3 * 300), device=cuda)
+    with pytest.raises(ValueError):
+        gru_seq(x, torch.zeros((300, 900), device=cuda),
+                torch.zeros(900, device=cuda))
+    x = torch.zeros((1, 4, 96), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        gru_seq(x, torch.zeros((32, 96), device=cuda, dtype=torch.bfloat16),
+                torch.zeros(96, device=cuda, dtype=torch.bfloat16))
+
+
+BOUNDS = [(100, 250), (-5, 120), (200, 10 ** 6), (40, 41)]
+
+
+@pytest.mark.parametrize("ch,dtype", [(24, "float32"), (256, "float32"),
+                                      (128, "bfloat16")])
+def test_res_chain_and_shift_kernels_with_bounds(cuda, ch, dtype):
+    """The signal window: rows outside it are zero padding at every block
+    and come out as zeros, also where the window leaves the array."""
+    gen = torch.Generator().manual_seed(9)
+    dt = getattr(torch, dtype)
+    t = 333
+    x = _randn(gen, (2, t, ch)).to(cuda, dt)
+    bank = _bank(gen, 3, ch, cuda, dt)
+    one = tuple(v[0] for v in bank)
+    for bounds in BOUNDS:
+        got = res_chain(x, *bank, (1, 3, 9), 0.2, 0.3, mask_bounds=bounds)
+        ref = res_chain_reference(x, *bank, (1, 3, 9), 0.2, 0.3, bounds)
+        _close_chained(got, ref, dtype)
+        lo, hi = max(bounds[0], 0), min(bounds[1], t)
+        assert float(got[:, :lo].float().abs().sum()) == 0.0
+        assert float(got[:, hi:].float().abs().sum()) == 0.0
+        for dil in (9, 729):
+            got = res_shift_single(x, *one, dil, 0.2, 0.3, bounds)
+            ref = res_shift_single_reference(x, *one, dil, 0.2, 0.3, bounds)
+            _close_chained(got, ref, dtype)
+
+
+@pytest.mark.parametrize("ch,t,b,dtype,bounds", [
+    (128, 4001, 1, "float32", None),
+    (128, 4001, 2, "float32", (700, 3500)),
+    (64, 9000, 1, "float32", (-50, 8000)),
+    (24, 333, 2, "float32", (30, 10 ** 6)),
+    (16, 20, 1, "float32", None),            # T < d for most blocks
+    (128, 4001, 1, "bfloat16", (700, 3500)),
+    (64, 9000, 2, "bfloat16", None),
+    (40, 50, 1, "bfloat16", (10, 30)),       # a window inside one dilation
+])
+def test_res_stream_kernel(cuda, ch, t, b, dtype, bounds):
+    """The whole eight-block stack behind one entry point and one count."""
+    gen = torch.Generator().manual_seed(10)
+    dt = getattr(torch, dtype)
+    dils = tuple(3 ** i for i in range(8))
+    x = _randn(gen, (b, t, ch)).to(cuda, dt)
+    bank = _bank(gen, 8, ch, cuda, dt)
+    n0 = dict(kernels.launches)
+    got = res_stream(x, *bank, dils, 0.01, 0.2, bounds)
+    assert kernels.launches["res_stream"] == n0["res_stream"] + 1
+    assert kernels.launches["res_chain"] == n0["res_chain"]
+    assert kernels.launches["res_shift_single"] == n0["res_shift_single"]
+    ref = res_stream_reference(x, *bank, dils, 0.01, 0.2, bounds)
+    _close_chained(got, ref, dtype)
+
+
+def test_res_stack_with_bounds_dispatch(cuda):
+    """Under a window a narrow stack is one res_stream launch; a wide one
+    goes through the planner's chains and shifted-tap blocks."""
+    gen = torch.Generator().manual_seed(11)
+    dils = tuple(3 ** i for i in range(8))
+    for ch, t in ((64, 3000), (256, 3000)):
+        x = _randn(gen, (1, t, ch)).to(cuda)
+        w1s, b1s, w2s, b2s = _bank(gen, 8, ch, cuda, torch.float32)
+        params = [{"c1": {"w": w1s[i], "b": b1s[i]},
+                   "c2": {"w": w2s[i], "b": b2s[i]}} for i in range(8)]
+        kernels.reset_launches()
+        got = res_stack(params, x, 3, 0.01, final_slope=0.2,
+                        mask_bounds=(100, 2500))
+        if ch == 64:
+            assert kernels.launches["res_stream"] == 1
+            assert kernels.launches["res_chain"] == 0
+        else:
+            groups = plan_stack(ch, dils, 4)
+            assert kernels.launches["res_stream"] == 0
+            assert (kernels.launches["res_chain"]
+                    + kernels.launches["res_shift_single"]) == len(groups)
+        ref = res_chain_reference(x, w1s, b1s, w2s, b2s, dils, 0.01, 0.2,
+                                  (100, 2500))
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=2e-5)
+
+
+def _conv_block_params(gen, ci, co, cuda, dt):
+    def bn(c):
+        return {"gamma": 1 + 0.1 * _randn(gen, (c,)),
+                "beta": 0.1 * _randn(gen, (c,)),
+                "mean": 0.05 * _randn(gen, (c,)),
+                "var": (1 + 0.1 * _randn(gen, (c,))).abs()}
+    p = {"bn1": bn(ci), "conv1": {"w": _randn(gen, (3, 3, ci, co),
+                                              1 / (9 * ci) ** 0.5)},
+         "bn2": bn(co), "conv2": {"w": _randn(gen, (3, 3, co, co),
+                                              1 / (9 * co) ** 0.5)}}
+    if ci != co:
+        p["shortcut"] = {"w": _randn(gen, (1, 1, ci, co), 1 / ci ** 0.5),
+                         "b": 0.1 * _randn(gen, (co,))}
+    p = fold_bn_eval(p)
+
+    def to(v):
+        return ({k: to(u) for k, u in v.items()} if isinstance(v, dict)
+                else v.to(cuda, dt))
+    return to(p)
+
+
+@pytest.mark.parametrize("t,f,ci,co,b,dtype", [
+    (40, 15, 32, 32, 2, "float32"),
+    (48, 31, 16, 32, 1, "float32"),
+    (40, 7, 64, 64, 1, "float32"),
+    (64, 127, 2, 32, 1, "float32"),     # the first block: two channels in
+    (33, 9, 6, 10, 2, "float32"),       # widths that are no multiple of 4
+    (30, 31, 128, 128, 1, "float32"),
+    (40, 15, 32, 32, 2, "bfloat16"),
+    (64, 127, 2, 32, 1, "bfloat16"),
+    (48, 31, 64, 128, 1, "bfloat16"),
+    (40, 63, 128, 64, 1, "bfloat16"),
+    (3, 5, 8, 8, 1, "bfloat16"),        # a signal smaller than one tile
+])
+def test_conv_block_res_kernel(cuda, t, f, ci, co, b, dtype):
+    gen = torch.Generator().manual_seed(12)
+    dt = getattr(torch, dtype)
+    p = _conv_block_params(gen, ci, co, cuda, dt)
+    x = _randn(gen, (b, t, f, ci), 0.5).to(cuda, dt)
+    assert convblock.eligible(p, x)
+    n0 = kernels.launches["conv_block_res"]
+    got = convblock.conv_block_res(x, p, 0.01)
+    assert kernels.launches["conv_block_res"] == n0 + 1
+    ref = convblock.conv_block_res_reference(x, p, 0.01)
+    assert got.shape == ref.shape == (b, t, f, co)
+    tol = (1e-4, 2e-5) if dtype == "float32" else (2 ** -7, 2e-3)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=tol[0],
+                               atol=tol[1])
+
+
+def test_conv_block_res_refuses(cuda):
+    """A block the kernel does not take raises on the card."""
+    gen = torch.Generator().manual_seed(13)
+    p = _conv_block_params(gen, 256, 256, cuda, torch.float32)
+    x = torch.zeros((1, 8, 7, 256), device=cuda)
+    assert not convblock.eligible(p, x)
+    with pytest.raises(ValueError):
+        convblock.conv_block_res(x, p, 0.01)

@@ -196,3 +196,65 @@ def test_synthesize_dispatch(params, monkeypatch, fuse_max):
     ref = _jit(jax_facade.synthesize, cfg=JCFG.vocoder)(jv, _J(mel))
     got = vocoder_facade.synthesize(pv, _T(mel), CFG.vocoder)
     _close(got, ref, 2e-5)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_gru_single_direction(reverse):
+    """One direction of one layer (``kernels.gru.gru_seq`` behind the hoisted
+    projection) against the JAX package's scan, T no multiple of 8, B = 2."""
+    from voicefixer_tpu.ops import gru as jax_gru
+
+    from voicefixer_tpu_torch.ops import gru
+    cin, h, t = 24, 16, 61
+    p = {"w_ih": _x((3 * h, cin), 20, 0.2), "w_hh": _x((3 * h, h), 21, 0.2),
+         "b_ih": _x((3 * h,), 22, 0.1), "b_hh": _x((3 * h,), 23, 0.1)}
+    x = _x((2, t, cin), 24)
+    ref = jax_gru.gru_single_direction(
+        _J(x), {k: _J(v) for k, v in p.items()}, reverse=reverse)
+    got = gru.gru_single_direction(
+        _T(x), {k: _T(v) for k, v in p.items()}, reverse=reverse)
+    assert tuple(got.shape) == ref.shape == (2, t, h)
+    _close(got, ref, 1e-5)
+
+
+def test_gru_unidirectional_two_layers():
+    """``gru(..., bidirectional=False)``: layer 1 takes H inputs, not 2H."""
+    from voicefixer_tpu.ops import gru as jax_gru
+
+    from voicefixer_tpu_torch.ops import gru
+    cin, h, t = 24, 16, 45
+    p = {}
+    for layer, width in enumerate((cin, h)):
+        p[f"l{layer}"] = {"w_ih": _x((3 * h, width), 30 + layer, 0.2),
+                          "w_hh": _x((3 * h, h), 32 + layer, 0.2),
+                          "b_ih": _x((3 * h,), 34 + layer, 0.1),
+                          "b_hh": _x((3 * h,), 36 + layer, 0.1)}
+    x = _x((2, t, cin), 38)
+    conv_tree = lambda f: {k: {n: f(v) for n, v in d.items()}  # noqa: E731
+                           for k, d in p.items()}
+    ref = jax_gru.gru(_J(x), conv_tree(_J), 2, bidirectional=False)
+    got = gru.gru(_T(x), conv_tree(_T), 2, bidirectional=False)
+    assert tuple(got.shape) == ref.shape == (2, t, h)
+    _close(got, ref, 1e-5)
+    shapes = gru.init_gru_params(torch.Generator().manual_seed(0), cin, h, 2,
+                                 "cpu", bidirectional=False)
+    assert sorted(shapes) == ["l0", "l1"]
+    assert {k: tuple(v.shape) for k, v in shapes["l1"].items()} == {
+        k: v.shape for k, v in p["l1"].items()}
+
+
+def test_vocoder_res_stack_contract(params):
+    """``vocoder._res_stack`` returns (out, activated) as the JAX package's
+    does, and passes the signal window on."""
+    _, _, _, pv = params
+    ch = CFG.vocoder.channels // 2
+    x = _T(_x((1, 300, ch), 40))
+    res = pv["stages"][0]["res"]
+    out, activated = vocoder._res_stack(res, x, 3, 0.01, final_slope=0.2,
+                                        mask_bounds=(20, 250))
+    assert activated
+    assert float(out[:, :20].abs().sum() + out[:, 250:].abs().sum()) == 0.0
+    inner, _ = vocoder._res_stack(res, x[:, 20:250], 3, 0.01, final_slope=0.2)
+    _close(out[:, 20:250], inner.numpy(), 1e-6)
+    out, activated = vocoder._res_stack(res, x, 3, 0.01)
+    assert not activated

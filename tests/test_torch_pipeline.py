@@ -141,3 +141,74 @@ def test_trim_center_matches_jax(est_len, ref_len):
     est = np.arange(est_len, dtype=np.float32)
     np.testing.assert_array_equal(restore._trim_center(est, ref_len),
                                   jax_restore._trim_center(est, ref_len))
+
+
+def test_restore_inmem_sharded_vocoder(params):
+    """``model_devices`` with two entries routes the vocoder through
+    ``parallel.sp``; the result is the default path's (and so the JAX
+    package's) within the pipeline's tolerance."""
+    _, _, pa, pv = params
+    wav = _wav(int(CFG.pipeline.seg_length * 1.5), 8)
+    ref = restore.VoiceFixer(pa, pv, config=CFG, device="cpu").restore_inmem(wav)
+    vf = restore.VoiceFixer(pa, pv, config=CFG, device="cpu",
+                            model_devices=("cpu",) * 2)
+    assert vf.model_devices == (torch.device("cpu"),) * 2
+    assert isinstance(vf.vocoder_params, list) and len(vf.vocoder_params) == 2
+    got = vf.restore_inmem(wav)
+    assert got.shape == wav.shape
+    np.testing.assert_allclose(got, ref, rtol=TOL, atol=TOL)
+
+
+def test_restore_batch_routes_to_synthesize_sp(params, monkeypatch):
+    from voicefixer_tpu_torch.parallel import sp
+    _, _, pa, pv = params
+    calls = []
+    real = sp.synthesize_sp
+    monkeypatch.setattr(sp, "synthesize_sp", lambda *a: (calls.append(a[3]),
+                                                         real(*a))[1])
+    wav = torch.from_numpy(_wav(CFG.pipeline.seg_length, 9)[None])
+    restore.restore_batch(fold_bn_eval(pa), pv, wav, CFG)
+    restore.restore_batch(fold_bn_eval(pa), pv, wav, CFG,
+                          model_devices=("cpu",))
+    assert calls == []          # one model device: the unsharded vocoder
+    restore.restore_batch(fold_bn_eval(pa), pv, wav, CFG,
+                          model_devices=("cpu",) * 4)
+    assert calls == [("cpu",) * 4]
+
+
+def test_model_devices_cuda_without_card_raises(params, monkeypatch):
+    _, _, pa, pv = params
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        restore.VoiceFixer(pa, pv, config=CFG, device="cpu",
+                           model_devices=("cuda:0",) * 4)
+
+
+def test_conv_block_kernel_opt_in(params, monkeypatch):
+    """The fused ConvBlockRes is off by default and leaves the default
+    path's output as it was; opted in (the constructor's argument or the
+    context manager), every eligible block goes through
+    ``kernels.convblock.conv_block_res`` and the output agrees."""
+    from voicefixer_tpu_torch.kernels import convblock
+    from voicefixer_tpu_torch.ops.precision import (conv_block_kernel,
+                                                    use_conv_block_kernel)
+    _, _, pa, pv = params
+    calls = []
+    real = convblock.conv_block_res
+    monkeypatch.setattr(convblock, "conv_block_res",
+                        lambda x, p, slope: (calls.append(tuple(x.shape)),
+                                             real(x, p, slope))[1])
+    wav = _wav(CFG.pipeline.seg_length, 10)
+    assert not use_conv_block_kernel()
+    ref = restore.VoiceFixer(pa, pv, config=CFG, device="cpu").restore_inmem(wav)
+    assert calls == []
+    got = restore.VoiceFixer(pa, pv, config=CFG, device="cpu",
+                             conv_block_kernel=True).restore_inmem(wav)
+    # tiny config: enc1, enc2, center, dec1, dec2, after1, one block each
+    assert len(calls) == 6 and not use_conv_block_kernel()
+    np.testing.assert_allclose(got, ref, rtol=TOL, atol=TOL)
+    with conv_block_kernel():
+        got = restore.VoiceFixer(pa, pv, config=CFG,
+                                 device="cpu").restore_inmem(wav)
+    assert len(calls) == 12
+    np.testing.assert_allclose(got, ref, rtol=TOL, atol=TOL)

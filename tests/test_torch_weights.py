@@ -27,7 +27,8 @@ from voicefixer_tpu_torch.config import DEFAULT_CONFIG
 from voicefixer_tpu_torch.models import analysis, vocoder
 from voicefixer_tpu_torch.utils.weights import (count_leaves,
                                                from_jax_params,
-                                               load_pytree_npz,
+                                               load_pytree_npz, pack_bn,
+                                               pack_conv3x3, pack_shortcut,
                                                pack_up_weights, res_bank)
 
 
@@ -195,6 +196,8 @@ def test_port_imports_no_jax():
         "import voicefixer_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "assert 'voicefixer_tpu_torch.parallel.sp' in sys.modules\n"
+        "assert 'voicefixer_tpu_torch.kernels.convblock' in sys.modules\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "       or k == 'voicefixer_tpu' or k.startswith('voicefixer_tpu.')]\n"
         "assert not bad, bad\n"
@@ -210,3 +213,31 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         VoiceFixer.random(0)
+
+
+@pytest.mark.parametrize("dtype,ci,ci_p", [(torch.float32, 2, 2),
+                                           (torch.bfloat16, 2, 8),
+                                           (torch.bfloat16, 16, 16)])
+def test_conv_block_packing(dtype, ci, ci_p):
+    """The layouts csrc/convblock.cu reads: [9*Ci_p, Co] tap-major with zero
+    rows up to a multiple of 8 in bfloat16, the shortcut's bias as its last
+    row, float32 (scale, shift)."""
+    co = 8
+    g = torch.Generator().manual_seed(0)
+    w = torch.randn((3, 3, ci, co), generator=g)
+    packed = pack_conv3x3(w, dtype)
+    assert packed.shape == (9 * ci_p, co) and packed.dtype == dtype
+    assert packed.is_contiguous()
+    view = packed.reshape(3, 3, ci_p, co)
+    assert torch.equal(view[:, :, :ci], w.to(dtype))
+    assert float(view[:, :, ci:].float().abs().sum()) == 0.0
+    sc = {"w": torch.randn((1, 1, ci, co), generator=g),
+          "b": torch.randn((co,), generator=g)}
+    ps = pack_shortcut(sc, dtype)
+    assert ps.shape == (ci_p + 1, co) and ps.dtype == dtype
+    assert torch.equal(ps[:ci], sc["w"][0, 0].to(dtype))
+    assert torch.equal(ps[-1], sc["b"].to(dtype))
+    assert float(ps[ci:-1].float().abs().sum()) == 0.0
+    scale, shift = pack_bn({"scale": torch.ones(ci, dtype=dtype),
+                            "shift": torch.zeros(ci, dtype=dtype)})
+    assert scale.dtype == shift.dtype == torch.float32

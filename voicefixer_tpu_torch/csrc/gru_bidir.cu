@@ -1,7 +1,9 @@
-// Both directions of one bidirectional GRU layer over hoisted input
-// projections.
+// The GRU recurrence over hoisted input projections: both directions of one
+// bidirectional layer in one launch (vf_gru_bidir), or one direction, forward
+// or reverse (vf_gru_seq).
 //
-// Replaces voicefixer_tpu/kernels/gru.py::gru_seq_bidir (Pallas, TPU).
+// Replace voicefixer_tpu/kernels/gru.py::gru_seq_bidir and ::gru_seq (Pallas,
+// TPU).
 // Torch gate math, gate order (r, z, n), b_hh inside the n gate:
 //   hp = h @ W_hh^T + b_hh
 //   r = sigmoid(x_r + hp_r), z = sigmoid(x_z + hp_z)
@@ -23,7 +25,9 @@
 // buffer of every block of the cluster (distributed shared memory). One
 // cluster barrier per step orders those writes before the next step's reads;
 // the h buffer is double-buffered so that no block overwrites what another
-// still reads.
+// still reads. vf_gru_bidir launches two clusters per batch row, one per
+// direction (blockIdx.z); vf_gru_seq launches one, and is float32 only, as
+// the TPU kernel is.
 
 #include <cooperative_groups.h>
 
@@ -44,13 +48,13 @@ __device__ __forceinline__ float sigmoid(float v) {
   return 1.f / (1.f + expf(-v));
 }
 
+// One direction of one batch row, run by the CLUSTER blocks of a cluster.
+// x: [n_steps, 3H]; w: [H, 3H]; bias: [3H]; out: [n_steps, H].
 template <typename W>
-__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS)
-gru_bidir_kernel(const float* __restrict__ xf, const float* __restrict__ xb,
-                 const W* __restrict__ wf, const W* __restrict__ wb,
-                 const float* __restrict__ bf, const float* __restrict__ bb,
-                 float* __restrict__ outf, float* __restrict__ outb,
-                 int n_steps, int hidden) {
+__device__ __forceinline__ void gru_direction(
+    const float* __restrict__ x, const W* __restrict__ w,
+    const float* __restrict__ bias, float* __restrict__ out, int n_steps,
+    int hidden, bool fwd) {
   // h as the product sees it (rounded to W's type), two step buffers; the
   // tail past `hidden` stays zero
   __shared__ float hq[2][MAX_HIDDEN + SLICES];
@@ -61,12 +65,6 @@ gru_bidir_kernel(const float* __restrict__ xf, const float* __restrict__ xb,
   const int H = hidden, G = 3 * hidden;
   const int U = (H + CLUSTER - 1) / CLUSTER;
   const int u0 = rank * U;
-  const int b = blockIdx.y;
-  const bool fwd = blockIdx.z == 0;
-  const float* x = (fwd ? xf : xb) + static_cast<long long>(b) * n_steps * G;
-  const W* w = fwd ? wf : wb;
-  const float* bias = fwd ? bf : bb;
-  float* out = (fwd ? outf : outb) + static_cast<long long>(b) * n_steps * H;
 
   const int tid = threadIdx.x;
   const int slice = tid % SLICES;
@@ -140,6 +138,29 @@ gru_bidir_kernel(const float* __restrict__ xf, const float* __restrict__ xb,
 }
 
 template <typename W>
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS)
+gru_bidir_kernel(const float* __restrict__ xf, const float* __restrict__ xb,
+                 const W* __restrict__ wf, const W* __restrict__ wb,
+                 const float* __restrict__ bf, const float* __restrict__ bb,
+                 float* __restrict__ outf, float* __restrict__ outb,
+                 int n_steps, int hidden) {
+  const bool fwd = blockIdx.z == 0;
+  const long long row = static_cast<long long>(blockIdx.y) * n_steps;
+  gru_direction<W>((fwd ? xf : xb) + row * 3 * hidden, fwd ? wf : wb,
+                   fwd ? bf : bb, (fwd ? outf : outb) + row * hidden, n_steps,
+                   hidden, fwd);
+}
+
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS)
+gru_seq_kernel(const float* __restrict__ x, const float* __restrict__ w,
+               const float* __restrict__ bias, float* __restrict__ out,
+               int n_steps, int hidden, int reverse) {
+  const long long row = static_cast<long long>(blockIdx.y) * n_steps;
+  gru_direction<float>(x + row * 3 * hidden, w, bias, out + row * hidden,
+                       n_steps, hidden, reverse == 0);
+}
+
+template <typename W>
 int launch(const float* xf, const float* xb, const void* wf, const void* wb,
            const float* bf, const float* bb, float* outf, float* outb,
            int batch, int n_steps, int hidden, cudaStream_t stream) {
@@ -166,4 +187,18 @@ extern "C" int vf_gru_bidir(const float* xf, const float* xb, const void* wf,
                                  n_steps, hidden, s);
   return launch<float>(xf, xb, wf, wb, bf, bb, outf, outb, batch, n_steps,
                        hidden, s);
+}
+
+// x: [batch, n_steps, 3H] float32; w: [H, 3H] (W_hh^T) float32; bias: [3H];
+// out: [batch, n_steps, H]. reverse walks t from n_steps - 1 down to 0.
+// H <= 256.
+extern "C" int vf_gru_seq(const float* x, const float* w, const float* bias,
+                          float* out, int batch, int n_steps, int hidden,
+                          int reverse, void* stream) {
+  if (hidden < 1 || hidden > MAX_HIDDEN || batch < 1 || n_steps < 1)
+    return cudaErrorInvalidValue;
+  dim3 grid(CLUSTER, batch, 1);
+  gru_seq_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, w, bias, out, n_steps, hidden, reverse);
+  return cudaGetLastError();
 }

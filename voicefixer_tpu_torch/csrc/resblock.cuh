@@ -6,7 +6,10 @@
 //   hb = lrelu(h, slope), 0 outside [0, T), cast to T
 //   y  = sum_j hb[t + j - 1] @ W2[j] + b2 + x     float32, then cast to T
 //
-// with zero 'same' padding of both convolutions' inputs. T is float (FMA
+// with zero 'same' padding of both convolutions' inputs. A caller may narrow
+// the signal to a window [lo, hi) of the rows (a time shard's own samples
+// inside its halo): x reads as zero outside it, and so do hb and every
+// block's y, as if the array ended there. T is float (FMA
 // units, true float32) or __nv_bfloat16 (tensor cores through WMMA
 // 16x16x16 fragments, float32 accumulation).
 //
@@ -62,7 +65,8 @@ __device__ __forceinline__ int floor_div(int a, int b) {
 }
 
 // The A rows of a tap product: tile row r of tap j is source row
-// row0 + r + off0 + j*step; rows outside [0, rows) read as zero.
+// row0 + r + off0 + j*step; rows outside [lo, rows) read as zero. Gemm::run
+// takes any source with these load members (csrc/convblock.cu has two more).
 template <typename T>
 struct RowSrc {
   const T* base;
@@ -71,35 +75,54 @@ struct RowSrc {
   int row0;
   int off0, step;
   float slope;
-  bool act;  // LeakyReLU in float32 as the row is staged
-};
+  bool act;    // LeakyReLU in float32 as the row is staged
+  int lo = 0;  // first row that is not zero padding
 
-__device__ __forceinline__ float load_a(const RowSrc<float>& s, int r, int tap,
-                                        int c) {
-  const int p = s.row0 + r + s.off0 + tap * s.step;
-  if (p < 0 || p >= s.rows) return 0.f;
-  const float v = s.base[p * s.ld + c];
-  return s.act ? lrelu(v, s.slope) : v;
-}
-
-// eight consecutive channels (16 bytes)
-__device__ __forceinline__ uint4 load_a(const RowSrc<__nv_bfloat16>& s, int r,
-                                        int tap, int c) {
-  const int p = s.row0 + r + s.off0 + tap * s.step;
-  if (p < 0 || p >= s.rows) return make_uint4(0, 0, 0, 0);
-  uint4 v = *reinterpret_cast<const uint4*>(s.base + p * s.ld + c);
-  if (s.act) {
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float2 f = __bfloat1622float2(h[i]);
-      f.x = lrelu(f.x, s.slope);
-      f.y = lrelu(f.y, s.slope);
-      h[i] = __floats2bfloat162_rn(f.x, f.y);
-    }
+  __device__ __forceinline__ bool row_of(int r, int tap, int& p) const {
+    p = row0 + r + off0 + tap * step;
+    return p >= lo && p < rows;
   }
-  return v;
-}
+
+  // float32: one value
+  __device__ __forceinline__ float load1(int r, int tap, int c) const {
+    int p;
+    if (!row_of(r, tap, p)) return 0.f;
+    const float v = base[p * ld + c];
+    return act ? lrelu(v, slope) : v;
+  }
+
+  // float32: four consecutive channels (16 bytes)
+  __device__ __forceinline__ float4 load4(int r, int tap, int c) const {
+    int p;
+    if (!row_of(r, tap, p)) return make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 v = *reinterpret_cast<const float4*>(base + p * ld + c);
+    if (act) {
+      v.x = lrelu(v.x, slope);
+      v.y = lrelu(v.y, slope);
+      v.z = lrelu(v.z, slope);
+      v.w = lrelu(v.w, slope);
+    }
+    return v;
+  }
+
+  // bfloat16: eight consecutive channels (16 bytes)
+  __device__ __forceinline__ uint4 load8(int r, int tap, int c) const {
+    int p;
+    if (!row_of(r, tap, p)) return make_uint4(0, 0, 0, 0);
+    uint4 v = *reinterpret_cast<const uint4*>(base + p * ld + c);
+    if (act) {
+      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float2 f = __bfloat1622float2(h[i]);
+        f.x = lrelu(f.x, slope);
+        f.y = lrelu(f.y, slope);
+        h[i] = __floats2bfloat162_rn(f.x, f.y);
+      }
+    }
+    return v;
+  }
+};
 
 // W values of neighbouring columns, as the epilogues take them: W = 8 for
 // bfloat16 and 4 for float32 (one 16-byte vector), 1 for float32 at widths
@@ -165,9 +188,9 @@ struct Gemm<float, BN> {
 
   // w: [ntaps*cin, ldw]; columns [n0, n0 + BN) below ncols. vec: cin, ldw,
   // ncols and the epilogue's row strides are multiples of 4.
-  template <typename Epi>
+  template <typename Src, typename Epi>
   static __device__ __forceinline__ void run(unsigned char* stage,
-                                             const RowSrc<float>& src,
+                                             const Src& src,
                                              const float* __restrict__ w,
                                              int ntaps, int cin, int ldw,
                                              int n0, int ncols, bool vec,
@@ -187,19 +210,8 @@ struct Gemm<float, BN> {
 
     auto load_regs = [&](int k0) {
       if (vec) {
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (a_tap < ntaps) {
-          const int p = src.row0 + ar + src.off0 + a_tap * src.step;
-          if (p >= 0 && p < src.rows) {
-            v = *reinterpret_cast<const float4*>(src.base + p * src.ld + a_c);
-            if (src.act) {
-              v.x = lrelu(v.x, src.slope);
-              v.y = lrelu(v.y, src.slope);
-              v.z = lrelu(v.z, src.slope);
-              v.w = lrelu(v.w, src.slope);
-            }
-          }
-        }
+        const float4 v = a_tap < ntaps ? src.load4(ar, a_tap, a_c)
+                                       : make_float4(0.f, 0.f, 0.f, 0.f);
         a_reg[0] = v.x, a_reg[1] = v.y, a_reg[2] = v.z, a_reg[3] = v.w;
         a_c += BK;
         while (a_c >= cin) a_c -= cin, ++a_tap;
@@ -208,7 +220,7 @@ struct Gemm<float, BN> {
 #pragma unroll
         for (int i = 0; i < 4; ++i)
           a_reg[i] = k + i < k_total
-                         ? load_a(src, ar, (k + i) / cin, (k + i) % cin)
+                         ? src.load1(ar, (k + i) / cin, (k + i) % cin)
                          : 0.f;
       }
 #pragma unroll
@@ -306,9 +318,9 @@ struct Gemm<__nv_bfloat16, BN> {
   static_assert(BM * LDA * 2 + BK * LDB * 2 + (THREADS / 32) * 16 * LDC * 4
                     <= STAGE_BYTES, "staging tiles exceed STAGE_BYTES");
 
-  template <typename Epi>
+  template <typename Src, typename Epi>
   static __device__ __forceinline__ void run(unsigned char* stage,
-                                             const RowSrc<T>& src,
+                                             const Src& src,
                                              const T* __restrict__ w,
                                              int ntaps, int cin, int ldw,
                                              int n0, int ncols, bool /*vec*/,
@@ -329,7 +341,7 @@ struct Gemm<__nv_bfloat16, BN> {
     uint4 a_reg, b_reg[NB];
 
     auto load_regs = [&](int k0) {
-      a_reg = a_tap < ntaps ? load_a(src, ar, a_tap, a_c) : zero;
+      a_reg = a_tap < ntaps ? src.load8(ar, a_tap, a_c) : zero;
       a_c += BK;
       while (a_c >= cin) a_c -= cin, ++a_tap;
 #pragma unroll
@@ -414,7 +426,8 @@ __global__ void __launch_bounds__(THREADS, 2)
 shift_kernel(const T* __restrict__ x, const T* __restrict__ w1,
              const T* __restrict__ b1, const T* __restrict__ w2,
              const T* __restrict__ b2, T* __restrict__ y, int t_len, int ch,
-             int d, float slope, float final_slope, int has_final) {
+             int d, float slope, float final_slope, int has_final, int lo,
+             int hi) {
   using G = Gemm<T, BN>;
   extern __shared__ __align__(128) unsigned char smem[];
   const int ld = ch + row_pad<T>();
@@ -425,13 +438,13 @@ shift_kernel(const T* __restrict__ x, const T* __restrict__ w1,
   const T* xb = x + boff;
   T* yb = y + boff;
 
-  const RowSrc<T> taps{xb, ch, t_len, t0 - 1, -d, d, slope, true};
+  const RowSrc<T> taps{xb, ch, hi, t0 - 1, -d, d, slope, true, lo};
   for (int n0 = 0; n0 < ch; n0 += G::kBN)
     G::run(smem, taps, w1, 3, ch, ch, n0, ch, vec,
            [=](int r, int n, auto& v) {
              constexpr int W = sizeof(v) / sizeof(float);
              const int pos = t0 - 1 + r;
-             const bool inside = pos >= 0 && pos < t_len;
+             const bool inside = pos >= lo && pos < hi;
              float b[W];
              load_vals<T, W>(b1 + n, b);
 #pragma unroll
@@ -451,9 +464,10 @@ shift_kernel(const T* __restrict__ x, const T* __restrict__ w1,
              float b[W], res[W];
              load_vals<T, W>(b2 + n, b);
              load_vals<T, W>(xb + at, res);
+             const bool inside = pos >= lo && pos < hi;
 #pragma unroll
              for (int u = 0; u < W; ++u) {
-               v[u] += b[u] + res[u];
+               v[u] = inside ? v[u] + b[u] + res[u] : 0.f;
                if (has_final) v[u] = lrelu(v[u], final_slope);
              }
              store_vals<T, W>(yb + at, v);
@@ -481,13 +495,16 @@ template <typename T>
 cudaError_t launch_shift(const T* x, const T* w1, const T* b1, const T* w2,
                          const T* b2, T* y, int batch, int t_len, int ch,
                          int d, float slope, float final_slope, int has_final,
-                         cudaStream_t stream) {
+                         int lo, int hi, cudaStream_t stream) {
   if (batch < 1 || t_len < 1 || ch < 1 || d < 1) return cudaErrorInvalidValue;
+  lo = lo < 0 ? 0 : lo;
+  hi = hi > t_len ? t_len : hi;
   const dim3 grid((t_len + BM - 3) / (BM - 2), batch);
   const size_t smem = shift_smem<T>(ch);
   auto go = [&](auto kernel) {
     return launch_with_smem(kernel, grid, smem, stream, x, w1, b1, w2, b2, y,
-                            t_len, ch, d, slope, final_slope, has_final);
+                            t_len, ch, d, slope, final_slope, has_final, lo,
+                            hi);
   };
   if constexpr (std::is_same<T, float>::value) {
     return ch > 64 ? go(shift_kernel<T, 128>) : go(shift_kernel<T, 64>);
@@ -515,6 +532,7 @@ struct ChainArgs {
   int tm;                   // output rows per thread block
   float slope, final_slope;
   int has_final;
+  int lo, hi;               // the signal window, clamped to [0, t_len]
   // UP only: polyphase weights [2*cin, scale*ch] and bias [ch]
   const T* w_up;
   const T* b_up;
@@ -532,6 +550,7 @@ __global__ void __launch_bounds__(THREADS) chain_kernel(ChainArgs<T> p) {
   using G = Gemm<T, BN>;
   extern __shared__ __align__(128) unsigned char smem[];
   const int ch = p.ch, t_len = p.t_len, tm = p.tm;
+  const int lo = p.lo, hi = p.hi;
   const int ld = ch + row_pad<T>();
   const bool vec = ch % 4 == 0;
   const int e0 = p.ext[0];
@@ -563,7 +582,7 @@ __global__ void __launch_bounds__(THREADS) chain_kernel(ChainArgs<T> p) {
                  const int pos = (q_lo + m0 + r) * scale + rho - pad;
                  const int srow = pos - slab0;
                  if (srow < 0 || srow >= slab_rows) return;
-                 const bool inside = pos >= 0 && pos < t_len;
+                 const bool inside = pos >= lo && pos < hi;
                  float b[W];
                  load_vals<T, W>(b_up + co, b);
 #pragma unroll
@@ -579,7 +598,7 @@ __global__ void __launch_bounds__(THREADS) chain_kernel(ChainArgs<T> p) {
         const int r = e / nvec, c = (e % nvec) * 8;
         const int pos = slab0 + r;
         *reinterpret_cast<uint4*>(xs + r * ld + c) =
-            (pos >= 0 && pos < t_len)
+            (pos >= lo && pos < hi)
                 ? *reinterpret_cast<const uint4*>(
                       xb + static_cast<long long>(pos) * ch + c)
                 : make_uint4(0, 0, 0, 0);
@@ -588,7 +607,7 @@ __global__ void __launch_bounds__(THREADS) chain_kernel(ChainArgs<T> p) {
       for (int e = tid; e < slab_rows * ch; e += THREADS) {
         const int r = e / ch, c = e % ch;
         const int pos = slab0 + r;
-        xs[r * ld + c] = (pos >= 0 && pos < t_len)
+        xs[r * ld + c] = (pos >= lo && pos < hi)
                              ? xb[static_cast<long long>(pos) * ch + c]
                              : from_float<T>(0.f);
       }
@@ -616,7 +635,7 @@ __global__ void __launch_bounds__(THREADS) chain_kernel(ChainArgs<T> p) {
                  const int hr = m0 + r;
                  if (hr >= h_rows) return;
                  const int pos = h_pos0 + hr;
-                 const bool inside = pos >= 0 && pos < t_len;
+                 const bool inside = pos >= lo && pos < hi;
                  float b[W];
                  load_vals<T, W>(b1 + n, b);
 #pragma unroll
@@ -644,15 +663,15 @@ __global__ void __launch_bounds__(THREADS) chain_kernel(ChainArgs<T> p) {
                  float b[W], res[W];
                  load_vals<T, W>(b2 + n, b);
                  load_vals<T, W>(xrow, res);
-                 const bool inside = pos >= 0 && pos < t_len;
+                 const bool inside = pos >= lo && pos < hi;
+                 // the next block pads its input with zeros too, and rows
+                 // of the array outside the window are written as zeros
 #pragma unroll
-                 for (int u = 0; u < W; ++u) v[u] += b[u] + res[u];
+                 for (int u = 0; u < W; ++u)
+                   v[u] = inside ? v[u] + b[u] + res[u] : 0.f;
                  if (!last) {
-                   // the next block pads its input with zeros too
-#pragma unroll
-                   for (int u = 0; u < W; ++u) v[u] = inside ? v[u] : 0.f;
                    store_vals<T, W>(xrow, v);
-                 } else if (inside) {
+                 } else if (pos >= 0 && pos < t_len) {
                    if (has_final) {
 #pragma unroll
                      for (int u = 0; u < W; ++u)
@@ -674,6 +693,8 @@ cudaError_t launch_chain(ChainArgs<T> p, int batch, cudaStream_t stream) {
   if (batch < 1 || p.t_len < 1 || p.ch < 1 || p.n < 1 || p.n > MAX_BLOCKS ||
       p.tm < 1)
     return cudaErrorInvalidValue;
+  p.lo = p.lo < 0 ? 0 : p.lo;
+  p.hi = p.hi > p.t_len ? p.t_len : p.hi;
   p.ext[p.n] = 0;
   for (int i = p.n - 1; i >= 0; --i) {
     if (p.dils[i] < 1) return cudaErrorInvalidValue;

@@ -25,7 +25,7 @@ template <typename T>
 int chain(const void* x, const void* w1, const void* b1, const void* w2,
           const void* b2, void* y, int batch, int t_len, int ch, int n,
           const int* dils, int tm, float slope, float final_slope,
-          int has_final, cudaStream_t stream) {
+          int has_final, int lo, int hi, cudaStream_t stream) {
   if (n < 1 || n > vf::res::MAX_BLOCKS) return cudaErrorInvalidValue;
   vf::res::ChainArgs<T> p{};
   p.x = static_cast<const T*>(x);
@@ -42,6 +42,8 @@ int chain(const void* x, const void* w1, const void* b1, const void* w2,
   p.slope = slope;
   p.final_slope = final_slope;
   p.has_final = has_final;
+  p.lo = lo;
+  p.hi = hi;
   return vf::res::launch_chain<T, false>(p, batch, stream);
 }
 
@@ -50,29 +52,31 @@ int chain(const void* x, const void* w1, const void* b1, const void* w2,
 // x, y: [batch, t_len, ch]; w1, w2: [n, 3*ch, ch] (block, tap*in, out);
 // b1, b2: [n, ch]; dils: n host ints; tm: output rows per thread block. All
 // float32 (bf16 = 0) or all bfloat16 (bf16 = 1, ch a multiple of 8). y must
-// not alias x.
+// not alias x. [lo, hi) is the signal window in rows (0, t_len for the whole
+// array): rows outside it are zero padding at every block, and are written
+// as zeros.
 extern "C" int vf_res_chain(const void* x, const void* w1, const void* b1,
                             const void* w2, const void* b2, void* y,
                             int batch, int t_len, int ch, int n,
                             const int* dils, int tm, float slope,
-                            float final_slope, int has_final, int bf16,
-                            void* stream) {
+                            float final_slope, int has_final, int lo,
+                            int hi, int bf16, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   return bf16 ? chain<__nv_bfloat16>(x, w1, b1, w2, b2, y, batch, t_len, ch,
                                      n, dils, tm, slope, final_slope,
-                                     has_final, s)
+                                     has_final, lo, hi, s)
               : chain<float>(x, w1, b1, w2, b2, y, batch, t_len, ch, n, dils,
-                             tm, slope, final_slope, has_final, s);
+                             tm, slope, final_slope, has_final, lo, hi, s);
 }
 
 // One block at dilation d. x, y: [batch, t_len, ch]; w1, w2: [3*ch, ch];
-// b1, b2: [ch]. y must not alias x.
+// b1, b2: [ch]. y must not alias x. [lo, hi) as for vf_res_chain.
 extern "C" int vf_res_shift_single(const void* x, const void* w1,
                                    const void* b1, const void* w2,
                                    const void* b2, void* y, int batch,
                                    int t_len, int ch, int d, float slope,
-                                   float final_slope, int has_final, int bf16,
-                                   void* stream) {
+                                   float final_slope, int has_final, int lo,
+                                   int hi, int bf16, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (bf16) {
     using T = __nv_bfloat16;
@@ -80,11 +84,11 @@ extern "C" int vf_res_shift_single(const void* x, const void* w1,
         static_cast<const T*>(x), static_cast<const T*>(w1),
         static_cast<const T*>(b1), static_cast<const T*>(w2),
         static_cast<const T*>(b2), static_cast<T*>(y), batch, t_len, ch, d,
-        slope, final_slope, has_final, s);
+        slope, final_slope, has_final, lo, hi, s);
   }
   return vf::res::launch_shift<float>(
       static_cast<const float*>(x), static_cast<const float*>(w1),
       static_cast<const float*>(b1), static_cast<const float*>(w2),
       static_cast<const float*>(b2), static_cast<float*>(y), batch, t_len, ch,
-      d, slope, final_slope, has_final, s);
+      d, slope, final_slope, has_final, lo, hi, s);
 }

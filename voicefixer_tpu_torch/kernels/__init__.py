@@ -1,10 +1,11 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), one per TPU kernel of the
-mode-0 path:
+JAX package:
 
 - kernels.stft      -- framing, windowed DFT, magnitude and mel in one pass
                        (voicefixer_tpu/kernels/stft.py::stft_mel)
-- kernels.gru       -- both directions of a bidirectional GRU layer
-                       (voicefixer_tpu/kernels/gru.py::gru_seq_bidir)
+- kernels.gru       -- both directions of a bidirectional GRU layer, or one
+                       (voicefixer_tpu/kernels/gru.py::gru_seq_bidir,
+                       ::gru_seq)
 - kernels.upsample  -- x + sin(x) and the polyphase transposed conv
                        (voicefixer_tpu/kernels/upsample.py::upsample)
 - kernels.resstack  -- ResStack blocks: chains of small dilations with the
@@ -12,8 +13,14 @@ mode-0 path:
                        shifted taps, and the dispatcher over a stage
                        (voicefixer_tpu/kernels/resstack.py::res_chain,
                        ::res_shift_single)
-- kernels.resstream -- a whole stage: upsample, ResStack and LeakyReLU
-                       (voicefixer_tpu/kernels/resstream.py::up_res_stream)
+- kernels.resstream -- a whole ResStack behind one entry point, with the
+                       stage's upsample in front or on a time shard with a
+                       signal window
+                       (voicefixer_tpu/kernels/resstream.py::up_res_stream,
+                       ::res_stream)
+- kernels.convblock -- a ResUNet ConvBlockRes: two folded-BN, LeakyReLU,
+                       3x3-conv steps and the shortcut in one kernel
+                       (voicefixer_tpu/kernels/convblock.py::conv_block_res)
 
 Every wrapper takes its plain PyTorch version for a tensor on the CPU, and
 for a CUDA tensor launches its kernel or raises; there is no switch that
@@ -22,13 +29,30 @@ reroutes. Each launch adds one to ``launches[name]``.
 
 from __future__ import annotations
 
+import contextlib
+
+import torch
+
 launches = {"stft_mel": 0, "gru_bidir": 0, "upsample": 0, "res_chain": 0,
-            "res_shift_single": 0, "up_res_stream": 0}
+            "res_shift_single": 0, "up_res_stream": 0, "res_stream": 0,
+            "gru_seq": 0, "conv_block_res": 0}
 
 
 def reset_launches():
     for k in launches:
         launches[k] = 0
+
+
+def current_device(device):
+    """Context in which ``device`` is the current CUDA device. A kernel
+    launches on the current device whatever device its tensors lie on, so
+    code that works on a card other than the current one (a time shard of
+    ``parallel.sp``, a pipeline on "cuda:1") runs its launches inside this.
+    Nothing to do for the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def on_cpu(*tensors) -> bool:

@@ -1,5 +1,7 @@
-"""Bidirectional GRU recurrence (csrc/gru_bidir.cu), the port of
-``voicefixer_tpu/kernels/gru.py::gru_seq_bidir``.
+"""GRU recurrence (csrc/gru_bidir.cu), the port of
+``voicefixer_tpu/kernels/gru.py``: ``gru_bidir`` (``gru_seq_bidir`` there,
+both directions of a layer in one launch) and ``gru_seq`` (one direction,
+forward or reverse, float32 only as there).
 
 Torch nn.GRU gate math over hoisted input projections (gate order r, z, n):
     hp = h @ W_hh^T + b_hh
@@ -90,9 +92,55 @@ def gru_bidir(xf: torch.Tensor, xb: torch.Tensor, w_f: torch.Tensor,
     return outf, outb
 
 
+def gru_seq_reference(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
+                      b_hh: torch.Tensor, reverse: bool = False):
+    """Plain version of ``gru_seq``: a Python loop over the T steps."""
+    bsz, t_total, g = x_proj.shape
+    w = w_hh_t.float()
+    h = x_proj.new_zeros((bsz, g // 3))
+    out = x_proj.new_empty((bsz, t_total, g // 3))
+    steps = range(t_total - 1, -1, -1) if reverse else range(t_total)
+    for t in steps:
+        h = _step(x_proj[:, t], h, w, b_hh, torch.float32)
+        out[:, t] = h
+    return out
+
+
+def gru_seq(x_proj: torch.Tensor, w_hh_t: torch.Tensor, b_hh: torch.Tensor,
+            reverse: bool = False) -> torch.Tensor:
+    """One direction of the recurrence. x_proj: [B, T, 3H] float32
+    (x @ W_ih^T + b_ih); w_hh_t: [H, 3H]; b_hh: [3H]. Returns [B, T, H];
+    ``reverse`` walks t from T-1 down to 0. The product is true float32."""
+    if kernels.on_cpu(x_proj, w_hh_t, b_hh):
+        return gru_seq_reference(x_proj, w_hh_t, b_hh, reverse)
+    bsz, t_total, g = x_proj.shape
+    hidden = g // 3
+    if (g % 3 or hidden > MAX_HIDDEN or t_total < 1
+            or w_hh_t.shape != (hidden, g) or b_hh.shape != (g,)):
+        raise ValueError(f"gru_seq: unsupported shapes x "
+                         f"{tuple(x_proj.shape)}, w {tuple(w_hh_t.shape)}, "
+                         f"b {tuple(b_hh.shape)} (H <= {MAX_HIDDEN})")
+    for v in (x_proj, w_hh_t, b_hh):
+        if v.dtype != torch.float32:
+            raise TypeError(f"gru_seq is float32 only, got {v.dtype}")
+    x_proj, w, b = (v.contiguous() for v in (x_proj, w_hh_t, b_hh))
+    out = torch.empty((bsz, t_total, hidden), dtype=torch.float32,
+                      device=x_proj.device)
+    lib = _lib()
+    rc = lib.vf_gru_seq(
+        x_proj.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), bsz,
+        t_total, hidden, int(bool(reverse)),
+        torch.cuda.current_stream(x_proj.device).cuda_stream)
+    build.check(lib, rc, "gru_seq")
+    kernels.launches["gru_seq"] += 1
+    return out
+
+
 def _lib():
     lib = build.load("gru_bidir")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.vf_gru_bidir.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
     lib.vf_gru_bidir.restype = i
+    lib.vf_gru_seq.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.vf_gru_seq.restype = i
     return lib

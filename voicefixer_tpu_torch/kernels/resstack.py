@@ -15,6 +15,13 @@ One block, on x: [B, T, C] with k = 3 convolutions and zero 'same' padding:
 x's type is float32 in parity mode and bfloat16 in production; products take
 operands of that type and accumulate in float32. The last block of a stage
 applies the stage's LeakyReLU in float32 before the cast (``final_slope``).
+
+``mask_bounds = (lo, hi)`` narrows the signal to the rows [lo, hi) of the
+array, as the time-sharded vocoder needs on [halo | samples | halo]: x reads
+as zero outside the window, hb is zero outside it and so is every block's y,
+as if the array ended there (``bounds_mask`` of
+``voicefixer_tpu/models/vocoder.py`` and the JAX kernels' traced bounds).
+The bounds are host integers: each shard knows its window.
 """
 
 from __future__ import annotations
@@ -43,6 +50,9 @@ SMEM_BUDGETS = (SMEM_LIMIT // 2 - 1024, SMEM_LIMIT)
 # 64-row product tiles. Below this share of useful rows the blocks run on
 # their own instead.
 MIN_EFFICIENCY = 0.65
+# widest stack that runs behind one entry point: fused with its upsample
+# (``up_res_stack``) or, under ``mask_bounds``, as ``res_stream``
+FUSE_MAX_CHANNELS = 128
 
 
 def stack_dilations(depth: int) -> tuple:
@@ -63,31 +73,53 @@ def _taps(a: torch.Tensor, w: torch.Tensor, d: int) -> torch.Tensor:
     return sum(torch.matmul(ap[:, j * d: j * d + t], wf[j]) for j in range(3))
 
 
-def _block_reference(x, w1, b1, w2, b2, d, slope, final_slope):
-    xf = x.float()
+def clamp_bounds(mask_bounds, t: int) -> tuple:
+    """(lo, hi) as ints within [0, t]; None is the whole array."""
+    if mask_bounds is None:
+        return 0, t
+    lo, hi = (int(v) for v in mask_bounds)
+    lo = min(max(lo, 0), t)
+    return lo, min(max(hi, lo), t)
+
+
+def _window(v: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """v with the rows outside [lo, hi) zeroed."""
+    if lo <= 0 and hi >= v.shape[1]:
+        return v
+    out = torch.zeros_like(v)
+    out[:, lo:hi] = v[:, lo:hi]
+    return out
+
+
+def _block_reference(x, w1, b1, w2, b2, d, slope, final_slope,
+                     mask_bounds=None):
+    lo, hi = clamp_bounds(mask_bounds, x.shape[1])
+    xf = _window(x.float(), lo, hi)
     a = _lrelu(xf, slope).to(x.dtype).float()
     h = _taps(a, w1, d) + b1.float()
-    hb = _lrelu(h, slope).to(x.dtype).float()
-    y = _taps(hb, w2, 1) + b2.float() + xf
+    hb = _window(_lrelu(h, slope), lo, hi).to(x.dtype).float()
+    y = _window(_taps(hb, w2, 1) + b2.float() + xf, lo, hi)
     if final_slope is not None:
         y = _lrelu(y, final_slope)
     return y.to(x.dtype)
 
 
 def res_shift_single_reference(x, w1, b1, w2, b2, dil: int,
-                               slope: float = 0.2, final_slope=None):
+                               slope: float = 0.2, final_slope=None,
+                               mask_bounds=None):
     """Plain version of ``res_shift_single``."""
-    return _block_reference(x, w1, b1, w2, b2, dil, slope, final_slope)
+    return _block_reference(x, w1, b1, w2, b2, dil, slope, final_slope,
+                            mask_bounds)
 
 
 def res_chain_reference(x, w1s, b1s, w2s, b2s, dils, slope: float = 0.2,
-                        final_slope=None):
+                        final_slope=None, mask_bounds=None):
     """Plain version of ``res_chain``: the blocks one after the other, each
     output cast to x's type."""
     n = len(dils)
     for i, d in enumerate(dils):
         x = _block_reference(x, w1s[i], b1s[i], w2s[i], b2s[i], d, slope,
-                             final_slope if i == n - 1 else None)
+                             final_slope if i == n - 1 else None, mask_bounds)
     return x
 
 
@@ -199,14 +231,16 @@ def int_array(values):
 
 
 def res_chain(x: torch.Tensor, w1s, b1s, w2s, b2s, dils,
-              slope: float = 0.2, final_slope=None, tm: int | None = None):
+              slope: float = 0.2, final_slope=None, tm: int | None = None,
+              mask_bounds=None):
     """len(dils) consecutive blocks in one kernel. x: [B, T, C]; w1s, w2s:
     [n, 3, C, C] (block, tap, in, out) in torch tap order; b1s, b2s: [n, C].
-    ``tm`` is the output tile of a thread block, by default the planner's."""
+    ``tm`` is the output tile of a thread block, by default the planner's;
+    ``mask_bounds`` the signal window (lo, hi) in rows."""
     dils = tuple(int(d) for d in dils)
     if kernels.on_cpu(x, w1s, b1s, w2s, b2s):
         return res_chain_reference(x, w1s, b1s, w2s, b2s, dils, slope,
-                                   final_slope)
+                                   final_slope, mask_bounds)
     n = len(dils)
     check_stack_args("res_chain", x, (w1s, w2s), (b1s, b2s), n)
     if not 1 <= n <= MAX_BLOCKS or min(dils) < 1:
@@ -226,7 +260,8 @@ def res_chain(x: torch.Tensor, w1s, b1s, w2s, b2s, dils,
     rc = lib.vf_res_chain(
         x.data_ptr(), w1s.data_ptr(), b1s.data_ptr(), w2s.data_ptr(),
         b2s.data_ptr(), y.data_ptr(), bsz, t, ch, n, int_array(dils), tm,
-        *slope_args(slope, final_slope), int(x.dtype == torch.bfloat16),
+        *slope_args(slope, final_slope), *clamp_bounds(mask_bounds, t),
+        int(x.dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, rc, "res_chain")
     kernels.launches["res_chain"] += 1
@@ -234,14 +269,14 @@ def res_chain(x: torch.Tensor, w1s, b1s, w2s, b2s, dils,
 
 
 def res_shift_single(x: torch.Tensor, w1, b1, w2, b2, dil: int,
-                     slope: float = 0.2, final_slope=None):
+                     slope: float = 0.2, final_slope=None, mask_bounds=None):
     """One block at dilation ``dil``. x: [B, T, C]; w1, w2: [3, C, C];
-    b1, b2: [C]."""
+    b1, b2: [C]; ``mask_bounds`` the signal window (lo, hi) in rows."""
     if kernels.on_cpu(x, w1, b1, w2, b2):
         return res_shift_single_reference(x, w1, b1, w2, b2, dil, slope,
-                                          final_slope)
-    check_stack_args("res_shift_single", x, (w1[None], w2[None]), (b1[None], b2[None]),
-           1)
+                                          final_slope, mask_bounds)
+    check_stack_args("res_shift_single", x, (w1[None], w2[None]),
+                     (b1[None], b2[None]), 1)
     if dil < 1:
         raise ValueError(f"res_shift_single: dilation {dil}")
     bsz, t, ch = x.shape
@@ -252,7 +287,8 @@ def res_shift_single(x: torch.Tensor, w1, b1, w2, b2, dil: int,
     rc = lib.vf_res_shift_single(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         b2.data_ptr(), y.data_ptr(), bsz, t, ch, int(dil),
-        *slope_args(slope, final_slope), int(x.dtype == torch.bfloat16),
+        *slope_args(slope, final_slope), *clamp_bounds(mask_bounds, t),
+        int(x.dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, rc, "res_shift_single")
     kernels.launches["res_shift_single"] += 1
@@ -260,24 +296,32 @@ def res_shift_single(x: torch.Tensor, w1, b1, w2, b2, dil: int,
 
 
 def res_stack(params: list, x: torch.Tensor, kernel: int, slope: float,
-              final_slope=None) -> torch.Tensor:
+              final_slope=None, mask_bounds=None) -> torch.Tensor:
     """One stage's ResStack, block i at dilation 3^(i%10), through the
     launches ``plan_stack`` picks: runs of small dilations through
     ``res_chain``, the others through ``res_shift_single``. ``final_slope``
-    folds the stage's LeakyReLU into the last launch."""
+    folds the stage's LeakyReLU into the last launch. Under ``mask_bounds``
+    (a time shard's signal window) a stack of at most FUSE_MAX_CHANNELS
+    channels goes to ``kernels.resstream.res_stream`` instead, one entry
+    point for the whole stack, as in the JAX package."""
     if kernel != 3:
         raise ValueError(f"res_stack: kernel size {kernel}, only 3 is ported")
     dils = stack_dilations(len(params))
+    if mask_bounds is not None and x.shape[-1] <= FUSE_MAX_CHANNELS:
+        from voicefixer_tpu_torch.kernels.resstream import res_stream
+        return res_stream(x, *res_bank(params), dils, slope, final_slope,
+                          mask_bounds)
     groups = plan_stack(x.shape[-1], dils, x.element_size())
     for i0, i1, tm in groups:
         fs = final_slope if i1 == len(params) else None
         if tm is None:
             p = params[i0]
             x = res_shift_single(x, p["c1"]["w"], p["c1"]["b"], p["c2"]["w"],
-                                 p["c2"]["b"], dils[i0], slope, fs)
+                                 p["c2"]["b"], dils[i0], slope, fs,
+                                 mask_bounds)
         else:
             x = res_chain(x, *res_bank(params[i0:i1]), dils[i0:i1], slope,
-                          fs, tm=tm)
+                          fs, tm=tm, mask_bounds=mask_bounds)
     return x
 
 
@@ -302,9 +346,9 @@ def _lib():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ip = ctypes.POINTER(ctypes.c_int)
     lib.vf_res_chain.argtypes = [p, p, p, p, p, p, i, i, i, i, ip, i, f, f,
-                                 i, i, p]
+                                 i, i, i, i, p]
     lib.vf_res_chain.restype = i
     lib.vf_res_shift_single.argtypes = [p, p, p, p, p, p, i, i, i, i, f, f,
-                                        i, i, p]
+                                        i, i, i, i, p]
     lib.vf_res_shift_single.restype = i
     return lib

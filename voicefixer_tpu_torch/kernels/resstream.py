@@ -1,7 +1,9 @@
-"""One fused vocoder stage (csrc/resstream.cu), the port of
-``voicefixer_tpu/kernels/resstream.py::up_res_stream``: the polyphase
+"""A whole ResStack behind one entry point (csrc/resstream.cu), the port of
+``voicefixer_tpu/kernels/resstream.py``: ``up_res_stream``, the polyphase
 upsample of a = x + sin(x), the stage's ResStack blocks and the stage's
-LeakyReLU behind one entry point.
+LeakyReLU; and ``res_stream``, the blocks and the LeakyReLU on a signal that
+is already at the full rate, optionally inside a signal window
+(``mask_bounds``), which the time-sharded vocoder runs on every shard.
 
     a    = (x + sin(x)) in float32, cast to x's type
     z[q*s + rho] = a[q] @ W[rho] + a[q-1] @ W[rho+s] + b_up   float32
@@ -12,7 +14,12 @@ The launch is cut into groups of blocks by ``resstack.plan_stack``: the
 first group runs in one kernel with the upsample, on a tile of u that only
 ever exists in shared memory; each later group reads the full-rate signal
 once and writes it once. ``passes`` says how many times a plan writes and
-reads it.
+reads it. ``res_stream`` walks the same groups from x itself.
+
+The JAX ``res_stream`` needs C in multiples of 128 and has ``mask_t_total``,
+``fold_offset`` and ``fold_ch`` for its two-halves lane fold of C = 64, and a
+VMEM plan (``stream_vmem_bytes``): TPU mechanics without a counterpart here.
+Any C that the tap product takes runs as it is.
 """
 
 from __future__ import annotations
@@ -24,7 +31,8 @@ import torch
 from voicefixer_tpu_torch import kernels
 from voicefixer_tpu_torch.kernels import build
 from voicefixer_tpu_torch.kernels.resstack import (check_stack_args,
-                                                   int_array, plan_stack,
+                                                   clamp_bounds, int_array,
+                                                   plan_stack,
                                                    res_chain_reference,
                                                    slope_args)
 from voicefixer_tpu_torch.kernels.upsample import upsample_reference
@@ -96,6 +104,49 @@ def up_res_stream(x_src: torch.Tensor, w_up, b_up, w1s, b1s, w2s, b2s,
     return y
 
 
+def res_stream_reference(x, w1s, b1s, w2s, b2s, dils, slope: float = 0.2,
+                         final_slope=None, mask_bounds=None):
+    """Plain version of ``res_stream``: the blocks one after the other."""
+    return res_chain_reference(x, w1s, b1s, w2s, b2s, dils, slope,
+                               final_slope, mask_bounds)
+
+
+def res_stream(x: torch.Tensor, w1s, b1s, w2s, b2s, dils,
+               slope: float = 0.2, final_slope=None,
+               mask_bounds=None) -> torch.Tensor:
+    """The whole len(dils)-block stack in one call. x: [B, T, C]; w1s, w2s:
+    [n, 3, C, C]; b1s, b2s: [n, C]; ``mask_bounds`` the signal window
+    (lo, hi) in rows, clamped to [0, T]. Returns [B, T, C] in x's type."""
+    dils = tuple(int(d) for d in dils)
+    if kernels.on_cpu(x, w1s, b1s, w2s, b2s):
+        return res_stream_reference(x, w1s, b1s, w2s, b2s, dils, slope,
+                                    final_slope, mask_bounds)
+    n = len(dils)
+    check_stack_args("res_stream", x, (w1s, w2s), (b1s, b2s), n)
+    if n < 1 or min(dils) < 1:
+        raise ValueError(f"res_stream: dilations {dils}")
+    bsz, t, ch = x.shape
+    groups = plan_stack(ch, dils, x.element_size())
+    x = x.contiguous()
+    w1s, b1s, w2s, b2s = (v.to(x.dtype).contiguous()
+                          for v in (w1s, b1s, w2s, b2s))
+    y = torch.empty_like(x)
+    scratch = [torch.empty_like(x) for _ in range(min(2, len(groups) - 1))]
+    ptr = [s.data_ptr() for s in scratch] + [None, None]
+    lib = _lib()
+    rc = lib.vf_res_stream(
+        x.data_ptr(), w1s.data_ptr(), b1s.data_ptr(), w2s.data_ptr(),
+        b2s.data_ptr(), y.data_ptr(), ptr[0], ptr[1], bsz, t, ch, n,
+        int_array(dils), len(groups), int_array([g[1] for g in groups]),
+        int_array([g[2] or 0 for g in groups]),
+        *slope_args(slope, final_slope), *clamp_bounds(mask_bounds, t),
+        int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(lib, rc, "res_stream")
+    kernels.launches["res_stream"] += 1
+    return y
+
+
 def _lib():
     lib = build.load("resstream")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -104,4 +155,7 @@ def _lib():
                                      i, i, i, i, i, i, ip, i, ip, ip,
                                      f, f, i, i, p]
     lib.vf_up_res_stream.restype = i
+    lib.vf_res_stream.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, ip, i,
+                                  ip, ip, f, f, i, i, i, i, p]
+    lib.vf_res_stream.restype = i
     return lib

@@ -4,9 +4,11 @@ as ``voicefixer_tpu/models/resunet.py``.
 Layout [B, T, F, C] at the functions; each ConvBlockRes is
 bn -> leaky(0.01) -> 3x3 conv -> bn -> leaky -> 3x3 conv, plus a residual or
 a 1x1 shortcut. The 3x3 convs are cuDNN convolutions (they were XLA
-convolutions in the JAX package; its fused ConvBlockRes kernel is opt-in
-there and not on this path). BN runs as one multiply-add on the (scale,
-shift) leaves that ``fold_bn_eval`` adds at construction.
+convolutions in the JAX package). As there, the fused ConvBlockRes kernel
+(``kernels.convblock``) is opt-in, through
+``ops.precision.conv_block_kernel``: with it on, every block that
+``convblock.eligible`` takes goes to the kernel. BN runs as one multiply-add
+on the (scale, shift) leaves that ``fold_bn_eval`` adds at construction.
 """
 
 from __future__ import annotations
@@ -17,13 +19,17 @@ import torch
 import torch.nn.functional as F
 
 from voicefixer_tpu_torch.config import ResUNetConfig
+from voicefixer_tpu_torch.kernels import convblock
 from voicefixer_tpu_torch.ops.conv import (avg_pool2d, batch_norm, conv2d,
                                           conv_transpose2d, leaky_relu)
-from voicefixer_tpu_torch.ops.precision import activation_dtype
+from voicefixer_tpu_torch.ops.precision import (activation_dtype,
+                                               use_conv_block_kernel)
 from voicefixer_tpu_torch.utils.weights import tree_map, uniform
 
 
 def _conv_block_res(p: dict, x: torch.Tensor, slope: float) -> torch.Tensor:
+    if use_conv_block_kernel() and convblock.eligible(p, x):
+        return convblock.conv_block_res(x, p, slope)
     h = conv2d(leaky_relu(batch_norm(x, p["bn1"]), slope), p["conv1"]["w"],
                padding=(1, 1))
     h = conv2d(leaky_relu(batch_norm(h, p["bn2"]), slope), p["conv2"]["w"],

@@ -24,7 +24,8 @@ import math
 import torch
 
 from voicefixer_tpu_torch.config import VocoderConfig
-from voicefixer_tpu_torch.kernels.resstack import res_stack, up_res_stack
+from voicefixer_tpu_torch.kernels.resstack import (FUSE_MAX_CHANNELS,
+                                                   res_stack, up_res_stack)
 from voicefixer_tpu_torch.kernels.upsample import upsample
 from voicefixer_tpu_torch.ops.conv import (conv1d, elu, leaky_relu,
                                           reflection_pad1d)
@@ -32,8 +33,14 @@ from voicefixer_tpu_torch.ops.precision import activation_dtype
 from voicefixer_tpu_torch.utils.weights import tree_map, uniform
 
 
-# widest stage (output channels) that runs fused with its upsample
-FUSE_MAX_CHANNELS = 128
+def _res_stack(params: list, x: torch.Tensor, kernel: int, slope: float,
+               final_slope=None, mask_bounds=None):
+    """One stage's ResStack -> (out, activated), the JAX package's contract:
+    the kernels fold the stage's LeakyReLU(final_slope) into their last
+    launch, so activated says the caller must not apply it again.
+    ``mask_bounds`` is a time shard's signal window (``parallel.sp``)."""
+    return (res_stack(params, x, kernel, slope, final_slope=final_slope,
+                      mask_bounds=mask_bounds), final_slope is not None)
 
 
 def _post_conv(params: dict, x: torch.Tensor) -> torch.Tensor:

@@ -56,6 +56,28 @@ def precision(p: str):
         _current = prev
 
 
+_conv_block_kernel = False
+
+
+def use_conv_block_kernel() -> bool:
+    """Whether the ResUNet routes eligible blocks to the fused ConvBlockRes
+    kernel (``kernels.convblock``). Off unless ``conv_block_kernel`` is
+    entered: the default path keeps the library convolutions."""
+    return _conv_block_kernel
+
+
+@contextlib.contextmanager
+def conv_block_kernel(on: bool = True):
+    """Opt in to the fused ConvBlockRes kernel for the blocks it takes."""
+    global _conv_block_kernel
+    prev = _conv_block_kernel
+    _conv_block_kernel = bool(on)
+    try:
+        yield
+    finally:
+        _conv_block_kernel = prev
+
+
 @contextlib.contextmanager
 def tf32_off():
     """Run float32 products and convolutions in full float32 on the card."""

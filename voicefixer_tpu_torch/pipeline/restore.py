@@ -9,12 +9,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from voicefixer_tpu_torch import kernels
 from voicefixer_tpu_torch.config import DEFAULT_CONFIG, VoiceFixerConfig
 from voicefixer_tpu_torch.models import analysis
 from voicefixer_tpu_torch.models import vocoder as vocoder_model
 from voicefixer_tpu_torch.ops.conv import fold_bn_eval
 from voicefixer_tpu_torch.ops.norm import from_log
-from voicefixer_tpu_torch.ops.precision import tf32_off
+from voicefixer_tpu_torch.ops.precision import (conv_block_kernel, tf32_off,
+                                               use_conv_block_kernel)
 from voicefixer_tpu_torch.pipeline import vocoder_facade
 from voicefixer_tpu_torch.utils.weights import tree_map
 
@@ -32,17 +34,27 @@ def _trim_center(est: np.ndarray, ref_len: int) -> np.ndarray:
     return est
 
 
-def restore_batch(analysis_params: dict, vocoder_params: dict,
-                  wav: torch.Tensor, cfg: VoiceFixerConfig):
+def restore_batch(analysis_params: dict, vocoder_params,
+                  wav: torch.Tensor, cfg: VoiceFixerConfig,
+                  model_devices=None):
     """A batch of equal-length chunks through both stages:
     wav [B, N] -> (wav_out [B, S], pre-cap peaks [B]). A chunk whose peak
-    exceeds 1 is divided by it."""
-    with tf32_off(), torch.inference_mode():
+    exceeds 1 is divided by it. With more than one entry in
+    ``model_devices`` the vocoder runs time-sharded over them
+    (``parallel.sp``), and ``vocoder_params`` may be a list of per-device
+    copies."""
+    with tf32_off(), torch.inference_mode(), \
+            kernels.current_device(wav.device):
         mel_orig = analysis.wav_to_mel(wav, cfg)
         out = analysis.apply(analysis_params, mel_orig, cfg)
         denoised_mel = from_log(out["mel"])
-        wav_out = vocoder_facade.synthesize(vocoder_params, denoised_mel,
-                                            cfg.vocoder)[..., 0]
+        if model_devices is not None and len(model_devices) > 1:
+            from voicefixer_tpu_torch.parallel.sp import synthesize_sp
+            wav_out = synthesize_sp(vocoder_params, denoised_mel,
+                                    cfg.vocoder, model_devices)[..., 0]
+        else:
+            wav_out = vocoder_facade.synthesize(vocoder_params, denoised_mel,
+                                                cfg.vocoder)[..., 0]
         peaks = wav_out.abs().amax(dim=-1)
         wav_out = torch.where((peaks > 1.0)[:, None],
                               wav_out / peaks[:, None], wav_out)
@@ -70,25 +82,47 @@ class VoiceFixer:
     """Restoration API mirroring upstream ``VoiceFixer``, mode 0.
 
     params / vocoder_params: the port's parameter trees (``analysis.init``
-    and ``vocoder.init``, or ``utils.weights.from_jax_params``)."""
+    and ``vocoder.init``, or ``utils.weights.from_jax_params``).
+
+    model_devices: the counterpart of the JAX package's mesh with a model
+    axis. With more than one entry the vocoder runs time-sharded over them
+    (``parallel.sp``), its weights copied to each; the analysis stage stays
+    on ``device``. One device may be listed several times. One process
+    drives all of them.
+
+    conv_block_kernel: route the ResUNet blocks that
+    ``kernels.convblock.eligible`` takes to the fused ConvBlockRes kernel
+    instead of the library convolutions. Off by default, as in the JAX
+    package."""
 
     def __init__(self, params: dict, vocoder_params: dict,
-                 config: VoiceFixerConfig = DEFAULT_CONFIG, device=None):
+                 config: VoiceFixerConfig = DEFAULT_CONFIG, device=None,
+                 model_devices=None, conv_block_kernel: bool = False):
         self.device = resolve_device(device)
         self.config = config
-        to_dev = lambda t: t.to(self.device)  # noqa: E731
-        self.params = fold_bn_eval(tree_map(to_dev, params))
-        self.vocoder_params = tree_map(to_dev, vocoder_params)
+        self.conv_block_kernel = bool(conv_block_kernel)
+        self.params = fold_bn_eval(
+            tree_map(lambda t: t.to(self.device), params))
+        self.model_devices = None
+        if model_devices is not None and len(model_devices) > 1:
+            self.model_devices = tuple(resolve_device(d)
+                                       for d in model_devices)
+            copies = {d: tree_map(lambda t, d=d: t.to(d), vocoder_params)
+                      for d in dict.fromkeys(self.model_devices)}
+            self.vocoder_params = [copies[d] for d in self.model_devices]
+        else:
+            self.vocoder_params = tree_map(lambda t: t.to(self.device),
+                                           vocoder_params)
 
     @classmethod
     def random(cls, seed: int = 0, config: VoiceFixerConfig = DEFAULT_CONFIG,
-               device=None) -> "VoiceFixer":
+               device=None, **kwargs) -> "VoiceFixer":
         """Randomly initialized pipeline, drawn from ``seed`` on the CPU."""
         device = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
         return cls(analysis.init(config, gen, device),
                    vocoder_model.init(config.vocoder, gen, device),
-                   config=config, device=device)
+                   config=config, device=device, **kwargs)
 
     def restore_inmem(self, wav_10k: np.ndarray, cuda: bool = False,
                       mode: int = 0, your_vocoder_func=None, seed: int = 0,
@@ -125,8 +159,11 @@ class VoiceFixer:
         res: list = [None] * len(segments)
         for seg_len, idxs in groups.items():
             batch = torch.from_numpy(np.stack([segments[i] for i in idxs]))
-            outs, peaks = restore_batch(self.params, self.vocoder_params,
-                                        batch.to(self.device), self.config)
+            with conv_block_kernel(self.conv_block_kernel
+                                   or use_conv_block_kernel()):
+                outs, peaks = restore_batch(
+                    self.params, self.vocoder_params, batch.to(self.device),
+                    self.config, model_devices=self.model_devices)
             outs = outs.float().cpu().numpy()
             for j, i in enumerate(idxs):
                 peak = float(peaks[j])
