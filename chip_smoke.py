@@ -126,13 +126,16 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float):
 # The least work of each kernel's function, (FLOPs, bytes), each input read
 # once and each output written once.
 
-def stft_work(n: int, t: int, n_fft: int, n_freqs: int, n_mels: int):
+def stft_work(n: int, t: int, n_fft: int, n_freqs: int, n_mels: int,
+              fb_nnz: int):
     """STFT -> magnitude -> mel of an n-sample float32 wave into t frames, as
     an FFT computes it: a real FFT of n_fft points per frame (2.5 n log2 n
-    FLOPs), the magnitude of each bin, the mel product. The dense DFT that
-    the kernel runs is 25x more work than this."""
+    FLOPs), the magnitude of each bin, and the mel product over the fb_nnz
+    entries of this run's filterbank that are not zero (a triangular
+    filterbank has about two a frequency bin, a dense one n_freqs * n_mels).
+    The plain version's dense DFT and dense mel product are far more."""
     flops = (t * 2.5 * n_fft * math.log2(n_fft) + 4 * t * n_freqs
-             + 2 * t * n_freqs * n_mels)
+             + 2 * t * fb_nnz)
     return flops, 4 * (n + n_freqs * n_mels + t * n_mels)
 
 
@@ -319,28 +322,46 @@ def phase_build():
                     log(f"  {name}: {line.strip()}")
 
 
-def _stft_case(gen, device):
+def _stft_case(gen, device, small=None):
+    """The 30 s chunk through the model's own STFT; ``small`` = (n_fft, hop,
+    win_length, n_mels, samples, batch): checked and not timed."""
     import torch
     from voicefixer_tpu_torch.config import DEFAULT_CONFIG as C
+    from voicefixer_tpu_torch.config import STFTConfig
     from voicefixer_tpu_torch.kernels import stft
     from voicefixer_tpu_torch.models.analysis import mel_fbank
+    from voicefixer_tpu_torch.ops.mel import melscale_fbanks
     from voicefixer_tpu_torch.ops.stft import num_frames
-    n = C.pipeline.seg_length
-    wav = (0.1 * torch.randn((1, n), generator=gen)).to(device)
-    fb = mel_fbank(C, device)
-    flops, work_bytes = stft_work(n, num_frames(n, C.stft), C.stft.n_fft,
-                                  C.stft.n_freqs, fb.shape[1])
-    fn = lambda: stft.stft_mel(wav, fb, C.stft)  # noqa: E731
-    plain = lambda: stft.stft_mel_reference(wav, fb, C.stft)  # noqa: E731
-    win = torch.hann_window(C.stft.win_length, periodic=True, device=device)
+    if small is None:
+        cfg, n, batch = C.stft, C.pipeline.seg_length, 1
+        fb = mel_fbank(C, device)
+    else:
+        n_fft, hop, win_length, n_mels, n, batch = small
+        cfg = STFTConfig(n_fft=n_fft, hop_length=hop, win_length=win_length)
+        fb = torch.as_tensor(melscale_fbanks(
+            cfg.n_freqs, C.mel.f_min, C.mel.f_max, n_mels,
+            C.mel.sample_rate), device=device)
+    wav = (0.1 * torch.randn((batch, n), generator=gen)).to(device)
+    t = num_frames(n, cfg)
+    flops, work_bytes = stft_work(n, t, cfg.n_fft, cfg.n_freqs, fb.shape[1],
+                                  int((fb != 0).sum()))
+    fn = lambda: stft.stft_mel(wav, fb, cfg)  # noqa: E731
+    plain = lambda: stft.stft_mel_reference(wav, fb, cfg)  # noqa: E731
+    win = torch.hann_window(cfg.win_length, periodic=True, device=device)
 
     def library():
-        spec = torch.stft(wav, C.stft.n_fft, C.stft.hop_length,
-                          C.stft.win_length, window=win, center=True,
-                          pad_mode="reflect", return_complex=True)
+        spec = torch.stft(wav, cfg.n_fft, cfg.hop_length, cfg.win_length,
+                          window=win, center=True, pad_mode="reflect",
+                          return_complex=True)
         return spec.abs().transpose(1, 2) @ fb
 
-    return {"name": "stft_mel", "dtype": "float32", "shape": f"wav [1, {n}]",
+    # the plain version's dense float32 DFT of n_fft taps carries more
+    # rounding error than the FFT: the difference is the plain version's own
+    return {"name": "stft_mel", "dtype": "float32",
+            "main_path": small is None,
+            "shape": f"wav [{batch}, {n}] n_fft {cfg.n_fft} hop "
+                     f"{cfg.hop_length} window {cfg.win_length} -> "
+                     f"[{batch}, {t}, {fb.shape[1]}]",
             "fn": fn, "plain": plain, "library": library, "reps": 20,
             "rtol": 1e-4, "atol": 1e-3, "per_chunk": 1,
             "bytes": work_bytes, "flops": flops, "peak": PEAK_FP32}
@@ -427,17 +448,24 @@ def _gru_seq_case(gen, device, reverse, batch, per_chunk):
             "peak": PEAK_FP32}
 
 
-def _upsample_case(gen, device, dtype, stage, t):
+def _upsample_case(gen, device, dtype, stage, t, small=None):
+    """Stage ``stage`` of the vocoder at t input rows; ``small`` = (scale,
+    Cin, Cout, batch) instead of a stage: checked and not timed."""
     import torch
     import torch.nn.functional as F
     from voicefixer_tpu_torch.config import DEFAULT_CONFIG as C
     from voicefixer_tpu_torch.kernels import upsample
     v = C.vocoder
-    s = v.upsample_scales[stage]
-    cin, cout = v.channels // 2 ** stage, v.channels // 2 ** (stage + 1)
+    if small is None:
+        s, batch = v.upsample_scales[stage], 1
+        cin, cout = v.channels // 2 ** stage, v.channels // 2 ** (stage + 1)
+        what = f"stage {stage}"
+    else:
+        s, cin, cout, batch = small
+        what = f"scale {s}"
     dt = getattr(torch, dtype)
     bound = (1 / (cin * 2 * s)) ** 0.5
-    x = torch.randn((1, t, cin), generator=gen).to(device, dt)
+    x = torch.randn((batch, t, cin), generator=gen).to(device, dt)
     w = ((torch.rand((2 * s, cin, cout), generator=gen) * 2 - 1) * bound
          ).to(device, dt)
     b = (0.01 * torch.randn((cout,), generator=gen)).to(device, dt)
@@ -455,8 +483,9 @@ def _upsample_case(gen, device, dtype, stage, t):
     # bfloat16: outputs are rounded once, so the two sides may differ by one
     # bfloat16 ulp (2^-8 relative) where their float32 sums straddle a
     # rounding boundary
-    return {"name": "upsample", "dtype": dtype,
-            "shape": f"stage {stage}: [1, {t}, {cin}] -> [1, {t * s}, {cout}]",
+    return {"name": "upsample", "dtype": dtype, "main_path": small is None,
+            "shape": f"{what}: [{batch}, {t}, {cin}] -> [{batch}, {t * s}, "
+                     f"{cout}]",
             "fn": fn, "plain": plain, "library": library, "reps": 10,
             "rtol": 1e-4 if dtype == "float32" else 2 ** -7,
             "atol": 1e-4 if dtype == "float32" else 1e-3,
@@ -662,6 +691,11 @@ def phase_kernels(device):
     log("== kernels against their plain versions (their paths' shapes)")
     gen = torch.Generator().manual_seed(SEED)
     cases = [_stft_case(gen, device)]
+    # a short window in a small transform, an odd frame count, batch 3; a
+    # last pass of radix 2 at hop = n_fft; the largest transform
+    cases += [_stft_case(gen, device, (256, 100, 200, 40, 5000, 3)),
+              _stft_case(gen, device, (128, 128, 128, 16, 3000, 2)),
+              _stft_case(gen, device, (4096, 512, 4000, 128, 20000, 1))]
     # the unidirectional path launches the forward direction twice a call
     cases += [_gru_seq_case(gen, device, False, 1, 2),
               _gru_seq_case(gen, device, True, 1, 0),
@@ -673,6 +707,12 @@ def phase_kernels(device):
         # frames after the tail pad: 3001 + 1 + 4, then x7, x7, x3
         for stage, t in enumerate((3006, 21042)):
             cases.append(_upsample_case(gen, device, dtype, stage, t))
+        # rows q = 0 .. T fill exactly one 128 x 128 tile at T = 127; one
+        # row less and one more; batch 2, where the row above a batch row's
+        # first must read zero, with a ragged K step and column tile
+        for t, small in ((127, (7, 64, 128, 1)), (126, (7, 64, 128, 1)),
+                         (128, (7, 64, 128, 1)), (127, (3, 40, 136, 2))):
+            cases.append(_upsample_case(gen, device, dtype, 0, t, small))
         for ch, t in ((512, 21042), (256, 147294)):
             cases += _res_cases(gen, device, dtype, ch, t)
         cases.append(_up_res_case(gen, device, dtype, 256, 128, 3, 147294))

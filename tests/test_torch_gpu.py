@@ -58,6 +58,15 @@ def _randn(gen, shape, scale=1.0):
     (2, 16, 70, 65, 3, "float32"),
     (3, 128, 64, 130, 2, "bfloat16"),
     (7, 40, 24, 33, 1, "bfloat16"),   # a k-step straddles a[q] | a[q-1]
+    (7, 64, 128, 127, 1, "bfloat16"),   # rows q = 0..T: exactly one tile
+    (7, 64, 128, 126, 1, "bfloat16"),   # one row short of it
+    (7, 64, 128, 128, 1, "bfloat16"),   # one row into the next tile
+    (3, 192, 136, 127, 2, "bfloat16"),  # batch 2; Cout no multiple of 128
+    (2, 64, 128, 127, 1, "float32"),
+    (3, 32, 128, 128, 2, "float32"),
+    (7, 24, 200, 126, 1, "float32"),    # Cout no multiple of the tile
+    (3, 8, 8, 1, 2, "float32"),         # a single input row
+    (3, 8, 8, 1, 2, "bfloat16"),
 ])
 def test_upsample_kernel(cuda, scale, cin, cout, t, b, dtype):
     gen = torch.Generator().manual_seed(0)
@@ -73,6 +82,20 @@ def test_upsample_kernel(cuda, scale, cin, cout, t, b, dtype):
     tol = (1e-5, 1e-5) if dtype == "float32" else (2 ** -7, 1e-3)
     torch.testing.assert_close(got.float(), ref.float(), rtol=tol[0],
                                atol=tol[1])
+
+
+def test_upsample_first_launch_after_cold_build(cuda):
+    """The float32 kernel as the first launch of eight new processes, each
+    straight after a cold build (tools/torch_first_launch.py): one such
+    launch once returned wrong numbers, and no cause was found."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    tool = Path(__file__).resolve().parent.parent / "tools" / \
+        "torch_first_launch.py"
+    run = subprocess.run([sys.executable, str(tool), "--loop", "8"],
+                         capture_output=True, text=True)
+    assert run.returncode == 0, run.stdout + run.stderr
 
 
 def test_upsample_bfloat16_refuses_ragged_channels(cuda):
@@ -99,17 +122,64 @@ def test_gru_bidir_kernel(cuda, hidden, t, b, mm):
         torch.testing.assert_close(g_, r_, rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("n,b", [(20000, 2), (4410, 1)])
-def test_stft_mel_kernel(cuda, n, b):
-    from voicefixer_tpu_torch.config import DEFAULT_CONFIG
-    from voicefixer_tpu_torch.models.analysis import mel_fbank
+def _stft_cfg(n_fft, hop, win):
+    from voicefixer_tpu_torch.config import STFTConfig
+    return STFTConfig(n_fft=n_fft, hop_length=hop, win_length=win)
+
+
+def _fbank(n_fft, n_mels, cuda):
+    from voicefixer_tpu_torch.ops.mel import melscale_fbanks
+    return torch.as_tensor(melscale_fbanks(n_fft // 2 + 1, 0.0, 22050.0,
+                                           n_mels, 44100), device=cuda)
+
+
+@pytest.mark.parametrize("n,b,n_fft,hop,win,n_mels", [
+    (20000, 2, 2048, 441, 2048, 128),
+    (4410, 1, 2048, 441, 2048, 128),
+    (5000, 3, 256, 100, 200, 40),     # short window, 51 frames (odd)
+    (4999, 3, 256, 100, 200, 40),     # the same, 50 frames
+    (150, 2, 256, 200, 256, 16),      # shorter than a hop: one frame
+    (3000, 1, 64, 64, 64, 8),         # the smallest transform, hop = n_fft
+    (9000, 2, 128, 37, 100, 128),     # a last pass of radix 2
+    (9000, 1, 1024, 300, 1024, 64),
+    (20000, 2, 4096, 512, 4000, 128),  # one pair a block
+])
+def test_stft_mel_kernel(cuda, n, b, n_fft, hop, win, n_mels):
     gen = torch.Generator().manual_seed(2)
+    cfg = _stft_cfg(n_fft, hop, win)
     wav = _randn(gen, (b, n), 0.3).to(cuda)
-    fb = mel_fbank(DEFAULT_CONFIG, cuda)
-    got = stft_mel(wav, fb, DEFAULT_CONFIG.stft)
-    ref = stft_mel_reference(wav, fb, DEFAULT_CONFIG.stft)
+    fb = _fbank(n_fft, n_mels, cuda)
+    n0 = kernels.launches["stft_mel"]
+    got = stft_mel(wav, fb, cfg)
+    assert kernels.launches["stft_mel"] == n0 + 1
+    ref = stft_mel_reference(wav, fb, cfg)
+    assert got.shape == ref.shape == (b, n // hop + 1, n_mels)
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
 
+
+def test_stft_mel_kernel_dense_fbank(cuda):
+    """A filterbank without zeros: every band is the whole spectrum."""
+    gen = torch.Generator().manual_seed(14)
+    cfg = _stft_cfg(256, 100, 256)
+    wav = _randn(gen, (2, 3000), 0.3).to(cuda)
+    fb = _randn(gen, (129, 24), 0.1).to(cuda)
+    fb[:, 3] = 0.0  # and one column of zeros
+    got = stft_mel(wav, fb, cfg)
+    ref = stft_mel_reference(wav, fb, cfg)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("n_fft,hop,win,n_mels", [
+    (1000, 250, 1000, 64),    # no power of two
+    (8192, 441, 8192, 128),   # more than the kernel holds
+    (256, 300, 256, 40),      # hop beyond n_fft
+    (256, 100, 256, 129),     # too many mel columns
+])
+def test_stft_mel_kernel_refuses(cuda, n_fft, hop, win, n_mels):
+    wav = torch.zeros((1, 20000), device=cuda)
+    fb = torch.zeros((n_fft // 2 + 1, n_mels), device=cuda)
+    with pytest.raises(ValueError):
+        stft_mel(wav, fb, _stft_cfg(n_fft, hop, win))
 
 
 def _bank(gen, n, ch, cuda, dt):

@@ -26,6 +26,12 @@ relative, reaches the output through the second convolution's sum, so
 its input outside the window (its callers hand it one that is), so those
 cases feed both sides an x that is zero there; the port's own zeroing of x
 is held against the JAX package's plain path (``bounds_mask``).
+
+The FFT ``stft_mel`` kernel and the GEMM-view ``upsample`` kernel run only
+on a card, so their index arithmetic is replayed here in plain torch
+(``_stockham_fft``, ``_stft_mel_model``, ``_upsample_gemm_model``) and held
+to the plain versions and the JAX kernels: 1e-4 for the STFT->mel (float32,
+another summation order), 2e-5 for the upsample.
 """
 
 import jax.numpy as jnp
@@ -543,3 +549,242 @@ def test_conv_block_not_eligible(why):
     if why == "k1":
         p["conv1"]["w"] = e(1, 1, ci, co)
     assert not convblock.eligible(p, e(1, 16, 15, ci, dt=dt))
+
+
+# ------------------------- the redesigned kernels' index arithmetic, modelled
+#
+# The models below are written here, beside the tests, after csrc/stft_mel.cu
+# and csrc/upsample.cu: they hold the algorithms' index arithmetic (pass
+# plan, twiddle indices, output order, bands, the shifted flat store) to the
+# plain versions and to the JAX kernels, and they run none of the port's
+# CUDA code. The kernels themselves are held only on a card, by the gpu
+# tests (tests/test_torch_gpu.py) and by chip_smoke.py.
+
+def _rev(i, bits):
+    return int(format(i, f"0{bits}b")[::-1], 2) if bits else 0
+
+
+def _fft2(v, a, b):
+    v[a], v[b] = v[a] + v[b], v[a] - v[b]
+
+
+def _fft4(v, i0, i1, i2, i3):
+    _fft2(v, i0, i2)
+    _fft2(v, i1, i3)
+    v[i3] = v[i3] * -1j
+    _fft2(v, i0, i1)
+    _fft2(v, i2, i3)
+
+
+def _butterfly(v):
+    """csrc/stft_mel.cu's fft2 / fft4 / fft8, step by step: v[i] ends up
+    holding X[rev(i)]."""
+    if len(v) == 2:
+        _fft2(v, 0, 1)
+    elif len(v) == 4:
+        _fft4(v, 0, 1, 2, 3)
+    else:
+        h = 0.70710678118654752440
+        for i in range(4):
+            _fft2(v, i, i + 4)
+        v[5] = v[5] * complex(h, -h)
+        v[6] = v[6] * -1j
+        v[7] = v[7] * complex(-h, -h)
+        _fft4(v, 0, 1, 2, 3)
+        _fft4(v, 4, 5, 6, 7)
+
+
+def _stockham_fft(z, tw):
+    """The kernel's transform of z [..., n] complex64: radix-8 Stockham
+    passes and a last pass of radix 2 or 4, twiddles from the port's table,
+    every index as the kernel computes it."""
+    n = z.shape[-1]
+    ns = 1
+    while ns < n:
+        radix = 8 if n // ns >= 8 else n // ns
+        stride, tw_step = n // radix, n // (ns * radix)
+        j = torch.arange(stride)
+        k = j % ns
+        j0 = (j // ns) * ns * radix + k
+        v = [z[..., j + r * stride] * tw[k * r * tw_step]
+             for r in range(radix)]
+        _butterfly(v)
+        out = torch.empty_like(z)
+        bits = radix.bit_length() - 1
+        for r in range(radix):
+            out[..., j0 + _rev(r, bits) * ns] = v[r]
+        z, ns = out, ns * radix
+    return z
+
+
+def _mel_bands(fb):
+    """First and last non-zero row of every column (0, -1 for none): what
+    the kernel's pre-pass finds."""
+    nz = fb != 0
+    rows = torch.arange(fb.shape[0])[:, None]
+    lo = torch.where(nz, rows, fb.shape[0]).min(0).values
+    hi = torch.where(nz, rows, -1).max(0).values
+    return torch.where(hi < 0, 0, lo), hi
+
+
+def _band_product(mag, fb):
+    lo, hi = _mel_bands(fb)
+    return torch.stack([mag[..., l:h + 1] @ fb[l:h + 1, m] for m, (l, h) in
+                        enumerate(zip(lo.tolist(), hi.tolist()))], dim=-1)
+
+
+def _stft_mel_model(wav, fb, cfg):
+    """What csrc/stft_mel.cu does, in plain torch: frames in pairs as one
+    complex signal, window, Stockham FFT, the split of the pair, magnitude,
+    the mel product over each column's band."""
+    from voicefixer_tpu_torch.ops import stft as vstft
+
+    win, tw = vstft.fft_tables(cfg.n_fft, cfg.win_length, torch.device("cpu"))
+    tw = torch.complex(tw[:, 0], tw[:, 1])
+    frames = vstft.frame_signal(wav, cfg)              # [B, T, n]
+    t = frames.shape[1]
+    if t % 2:  # the last pair's second frame is zero
+        frames = torch.cat([frames, torch.zeros_like(frames[:, :1])], 1)
+    x1, x2 = frames[:, 0::2] * win, frames[:, 1::2] * win
+    z = _stockham_fft(torch.complex(x1, x2), tw)       # [B, T/2, n]
+    n = cfg.n_fft
+    k = torch.arange(n // 2 + 1)
+    zk, zc = z[..., k], z[..., (n - k) % n].conj()
+    spec = torch.stack([(zk + zc) / 2, (zk - zc) / 2j], dim=2)
+    spec = spec.reshape(wav.shape[0], -1, n // 2 + 1)[:, :t]
+    power = spec.real ** 2 + spec.imag ** 2
+    return _band_product(torch.sqrt(torch.clamp(power, min=cfg.mag_eps)), fb)
+
+
+@pytest.mark.parametrize("n_fft", [64, 128, 256, 512, 1024, 2048, 4096])
+def test_stockham_fft_model_matches_fft(n_fft):
+    """Every transform size the kernel takes: the pass plan, the butterflies'
+    output order and the twiddle indices give the DFT."""
+    from voicefixer_tpu_torch.ops import stft as vstft
+
+    _, tw = vstft.fft_tables(n_fft, n_fft, torch.device("cpu"))
+    rng = np.random.default_rng(40)
+    z = torch.complex(torch.from_numpy(_rand(rng, (3, n_fft))),
+                      torch.from_numpy(_rand(rng, (3, n_fft))))
+    got = _stockham_fft(z, torch.complex(tw[:, 0], tw[:, 1]))
+    ref = torch.fft.fft(z.to(torch.complex128)).to(torch.complex64)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("n_fft,hop,win,n,n_mels", [
+    (256, 100, 200, 5000, 40),       # 51 frames: an odd count, short window
+    (256, 100, 200, 4999, 40),       # 50 frames
+    (2048, 441, 2048, 8820, 128),    # 21 frames, the model's own STFT
+    (2048, 441, 1800, 9261, 128),    # 22 frames, short window
+])
+def test_stft_mel_fft_model(n_fft, hop, win, n, n_mels):
+    """The FFT kernel's algorithm against the plain version and the JAX
+    kernel in interpret mode; float32 summed in another order."""
+    from voicefixer_tpu.config import STFTConfig as JaxSTFT
+    from voicefixer_tpu.kernels.stft import stft_mel as jax_stft_mel
+
+    from voicefixer_tpu_torch.config import STFTConfig
+    from voicefixer_tpu_torch.kernels.stft import stft_mel_reference
+    from voicefixer_tpu_torch.ops.mel import melscale_fbanks
+
+    kw = dict(n_fft=n_fft, hop_length=hop, win_length=win)
+    cfg = STFTConfig(**kw)
+    wav = _rand(np.random.default_rng(41), (2, n), 0.3)
+    fb = melscale_fbanks(n_fft // 2 + 1, 0.0, 22050.0, n_mels, 44100)
+    got = _stft_mel_model(torch.from_numpy(wav), torch.from_numpy(fb), cfg)
+    assert got.shape == (2, n // hop + 1, n_mels)
+    ref = stft_mel_reference(torch.from_numpy(wav), torch.from_numpy(fb), cfg)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-4, atol=1e-4)
+    jref = jax_stft_mel(jnp.asarray(wav), jnp.asarray(fb), JaxSTFT(**kw),
+                        t_tile=128, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jref), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("kind", ["filterbank", "dense", "gaps"])
+def test_mel_band_product_matches_dense(kind):
+    """The band finder and the per-column band product against mag @ fb: a
+    triangular filterbank, an fb without zeros (full bands), and one with a
+    column of zeros and zeros inside a band."""
+    from voicefixer_tpu_torch.ops.mel import melscale_fbanks
+
+    rng = np.random.default_rng(42)
+    if kind == "filterbank":
+        fb = torch.from_numpy(melscale_fbanks(1025, 0.0, 22050.0, 128, 44100))
+    else:
+        fb = torch.from_numpy(_rand(rng, (129, 24), 0.1))
+        if kind == "gaps":
+            fb[:, 3] = 0.0
+            fb[40:50, 5] = 0.0
+            fb[:17, 7] = 0.0
+    lo, hi = _mel_bands(fb)
+    if kind == "filterbank":
+        assert int((hi - lo + 1).sum()) < 3 * 1025  # two columns a bin
+    if kind == "dense":
+        assert lo.tolist() == [0] * 24 and hi.tolist() == [128] * 24
+    if kind == "gaps":
+        assert (int(lo[3]), int(hi[3])) == (0, -1) and int(lo[7]) == 17
+    mag = torch.from_numpy(np.abs(_rand(rng, (2, 5, fb.shape[0]))))
+    np.testing.assert_allclose(_band_product(mag, fb).numpy(),
+                               (mag @ fb).numpy(), rtol=1e-5, atol=1e-5)
+
+
+def _upsample_gemm_model(x, w, b, s):
+    """What csrc/upsample.cu does, in plain torch: one product per batch row
+    with A[q] = [a[q] | a[q-1]] for q in [0, T] and B = [W[rho]; W[rho+s]]
+    side by side over rho, then row q of C stored at (q*s - p)*Cout of the
+    flat output under one mask on the flat index."""
+    bsz, t, cin = x.shape
+    cout = w.shape[2]
+    p = s // 2 + s % 2
+    a = torch.nn.functional.pad(x + torch.sin(x), (0, 0, 1, 1))  # rows -1..T
+    a_mat = torch.cat([a[:, 1:], a[:, :-1]], dim=2)     # [B, T+1, 2Cin]
+    b_mat = torch.cat([w[:s], w[s:]], dim=1)            # [s, 2Cin, Cout]
+    b_mat = b_mat.permute(1, 0, 2).reshape(2 * cin, s * cout)
+    c = a_mat @ b_mat                                   # [B, T+1, s*Cout]
+    n_flat = t * s * cout
+    idx = ((torch.arange(t + 1) * s - p) * cout)[:, None] \
+        + torch.arange(s * cout)[None, :]
+    keep = (idx >= 0) & (idx < n_flat)
+    # every output sample is written exactly once
+    assert torch.bincount(idx[keep], minlength=n_flat).tolist() == [1] * n_flat
+    y = torch.zeros((bsz, n_flat))
+    y[:, idx[keep]] = c[:, keep] + b[idx[keep] % cout]
+    return y.reshape(bsz, t * s, cout)
+
+
+@pytest.mark.parametrize("t", [1, 63, 64, 65])
+@pytest.mark.parametrize("scale", [2, 3, 7])
+def test_upsample_gemm_view(scale, t):
+    """The GEMM view and the shifted flat store against the plain version
+    and the JAX kernel in interpret mode, around one 64-row tile."""
+    from voicefixer_tpu.kernels.upsample import upsample as jax_upsample
+
+    from voicefixer_tpu_torch.kernels.upsample import upsample_reference
+
+    cin, cout = 24, 16
+    rng = np.random.default_rng(43)
+    w = _rand(rng, (2 * scale, cin, cout), 0.05)
+    b = _rand(rng, (cout,), 0.05)
+    x = _rand(rng, (2, t, cin))
+    got = _upsample_gemm_model(*map(torch.from_numpy, (x, w, b)), scale)
+    ref = upsample_reference(*map(torch.from_numpy, (x, w, b)), scale)
+    assert got.shape == ref.shape == (2, t * scale, cout)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=2e-5, atol=2e-5)
+    jref = jax_upsample(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), scale,
+                        t_tile=256, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jref), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_mel_fbank_is_cached_per_config_and_device():
+    """A restore uploads the filterbank once: the same tensor comes back."""
+    from voicefixer_tpu_torch.config import (DEFAULT_CONFIG, MelConfig,
+                                             VoiceFixerConfig)
+    from voicefixer_tpu_torch.models.analysis import mel_fbank
+
+    fb = mel_fbank(DEFAULT_CONFIG, "cpu")
+    assert mel_fbank(DEFAULT_CONFIG, torch.device("cpu")) is fb
+    other = VoiceFixerConfig(mel=MelConfig(n_mels=64))
+    assert mel_fbank(other, "cpu") is not fb
+    assert mel_fbank(other, "cpu").shape == (1025, 64)

@@ -1,0 +1,216 @@
+// Hopper (sm_90a) building blocks for a matrix product whose tiles the Tensor
+// Memory Accelerator (TMA) loads into a shared-memory ring and a warpgroup
+// multiplies with wgmma: mbarrier init / arrive / expect-tx / wait, the TMA
+// tile load, wgmma fence / commit / wait, the shared-memory
+// matrix descriptor for the 128-byte swizzle, one wgmma shape
+// (m64n128k16, bf16 in, float32 accumulators), setmaxnreg, and a host helper
+// that encodes a CUtensorMap for a three-dimensional bf16 tensor.
+//
+// upsample.cu is the first user; the tap product of resblock.cuh is meant
+// to take the same pieces.
+//
+// cuTensorMapEncodeTiled lives in libcuda, not in the CUDA runtime: it is
+// fetched at run time (dlopen/dlsym), so that the kernel libraries keep
+// linking against the runtime only.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <dlfcn.h>
+#include <stdint.h>
+
+namespace hopper {
+
+// ---------------------------------------------------------------- device
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(arrivals) : "memory");
+}
+
+// after the inits, before any thread or the TMA uses the barriers
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// one arrival that also announces `bytes` of TMA traffic to wait for
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// Spins until the barrier's phase differs from `parity`. A barrier that
+// never flips (a producer and a consumer out of step) traps after about two
+// seconds instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  const long long t0 = clock64();
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (!done && clock64() - t0 > 4000000000LL) __trap();
+  } while (!done);
+}
+
+// One box of a 3-D tensor map into shared memory; completion is counted in
+// bytes on `bar`. Out-of-bounds elements, negative coordinates included,
+// arrive as zeros and count like any others.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// keeps the compiler from moving reads or writes of an accumulator across
+// the asynchronous product that owns it
+__device__ __forceinline__ void fence_operand(float& r) {
+  asm volatile("" : "+f"(r) :: "memory");
+}
+
+template <int REGS>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(REGS));
+}
+template <int REGS>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(REGS));
+}
+
+// Shared-memory matrix descriptor for a tile in the 128-byte swizzle that a
+// CU_TENSOR_MAP_SWIZZLE_128B load writes (rows of 128 bytes, eight rows to a
+// 1024-byte atom; the tile starts on a 1024-byte boundary).
+//   K-major operand (the 128-byte rows run along K): `stride_bytes` is the
+//   distance between 8-row groups along M or N, `leading_bytes` is unused.
+//   MN-major operand (the rows run along M or N, one row per k):
+//   `leading_bytes` is the distance between 64-element groups along M or N,
+//   `stride_bytes` the distance between groups of eight k.
+__device__ __forceinline__ uint64_t smem_desc_sw128(const void* tile,
+                                                    uint32_t leading_bytes,
+                                                    uint32_t stride_bytes) {
+  uint64_t d = 0;
+  d |= static_cast<uint64_t>((smem_u32(tile) & 0x3FFFF) >> 4);
+  d |= static_cast<uint64_t>((leading_bytes & 0x3FFFF) >> 4) << 16;
+  d |= static_cast<uint64_t>((stride_bytes & 0x3FFFF) >> 4) << 32;
+  d |= static_cast<uint64_t>(1) << 62;  // layout type: 128-byte swizzle
+  return d;
+}
+
+// the descriptor of the same tile `bytes` further on (a K step inside it)
+__device__ __forceinline__ uint64_t desc_advance(uint64_t desc,
+                                                 uint32_t bytes) {
+  return desc + (bytes >> 4);
+}
+
+// d[64 x 128] (+)= A[64 x 16] * B[16 x 128], bf16 in, float32 out, A K-major
+// and B MN-major (the transpose bit), both from shared memory. Thread t of
+// the warpgroup holds, for j < 16: d[4j], d[4j+1] at row 16*(t/32) +
+// (t%32)/4, columns 8j + 2*(t%4) + {0, 1}; d[4j+2], d[4j+3] eight rows down.
+// `accumulate` = 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n128k16_bf16_tn(float (&d)[64],
+                                                         uint64_t desc_a,
+                                                         uint64_t desc_b,
+                                                         int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// ------------------------------------------------------------------ host
+
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled_entry() {
+  static EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
+    return lib ? reinterpret_cast<EncodeTiled>(
+                     dlsym(lib, "cuTensorMapEncodeTiled"))
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A map over a row-major bf16 tensor [d2][d1][d0] (d0 contiguous, a
+// multiple of 8 so that every stride is one of 16 bytes) read in boxes of
+// [b2][b1][b0], b0 = 64 elements = one 128-byte swizzled row. Elements
+// outside the tensor read as zeros. Returns a cudaError_t.
+inline int encode_bf16_3d(CUtensorMap* map, const void* base, uint64_t d0,
+                          uint64_t d1, uint64_t d2, uint32_t b0, uint32_t b1,
+                          uint32_t b2) {
+  EncodeTiled encode = encode_tiled_entry();
+  if (!encode) return cudaErrorSharedObjectSymbolNotFound;
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};  // bytes, dims 1 and 2
+  const cuuint32_t box[3] = {b0, b1, b2};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult rc = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+}  // namespace hopper

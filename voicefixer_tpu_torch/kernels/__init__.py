@@ -1,12 +1,13 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), one per TPU kernel of the
 JAX package:
 
-- kernels.stft      -- framing, windowed DFT, magnitude and mel in one pass
+- kernels.stft      -- framing, windowed FFT, magnitude and mel in one pass
                        (voicefixer_tpu/kernels/stft.py::stft_mel)
 - kernels.gru       -- both directions of a bidirectional GRU layer, or one
                        (voicefixer_tpu/kernels/gru.py::gru_seq_bidir,
                        ::gru_seq)
-- kernels.upsample  -- x + sin(x) and the polyphase transposed conv
+- kernels.upsample  -- x + sin(x) and the polyphase transposed conv as one
+                       GEMM (wgmma on TMA-fed tiles in bfloat16)
                        (voicefixer_tpu/kernels/upsample.py::upsample)
 - kernels.resstack  -- ResStack blocks: chains of small dilations with the
                        intermediates in shared memory, single blocks with

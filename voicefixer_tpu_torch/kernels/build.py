@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` becomes its own shared library with a plain C
 interface (nvcc, ``-gencode arch=compute_90a,code=sm_90a``), named after a
-hash of its sources and flags, in ``voicefixer_tpu_torch/build/``. The first
+hash of its sources, the shared headers (``common.cuh``, ``resblock.cuh``,
+``hopper.cuh``) and flags, in ``voicefixer_tpu_torch/build/``. The first
 call builds every missing library at once, one nvcc process per source, all
 started together. A library is written under a temporary name and renamed
 into place, so concurrent builders never load a half-written file.

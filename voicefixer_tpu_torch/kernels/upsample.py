@@ -4,7 +4,10 @@
 y = ConvTranspose1d(x + sin(x)), kernel 2s, stride s, padding s//2 + s%2,
 output padding s%2, so y has exactly T*s samples. sin is taken in float32;
 the products take x's type (float32 in parity mode, bfloat16 in production)
-and accumulate in float32.
+and accumulate in float32. On the card it is one GEMM per batch row, rows
+q in [0, T], K = 2*Cin, with row q of the result stored at (q*s - p)*Cout of
+the flat output: wgmma on TMA-loaded tiles in bfloat16 (Cin and Cout
+multiples of 8), a float32 product on the FMA units for any channel counts.
 """
 
 from __future__ import annotations

@@ -5,9 +5,11 @@ restored log10 mel.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from voicefixer_tpu_torch.config import VoiceFixerConfig
+from voicefixer_tpu_torch.config import MelConfig, VoiceFixerConfig
 from voicefixer_tpu_torch.kernels.stft import stft_mel
 from voicefixer_tpu_torch.models import denoiser as dn
 from voicefixer_tpu_torch.models import resunet
@@ -16,8 +18,14 @@ from voicefixer_tpu_torch.ops.norm import to_log
 
 
 def mel_fbank(cfg: VoiceFixerConfig, device) -> torch.Tensor:
-    """The analysis mel filterbank [n_freqs, n_mels] (htk, norm=None)."""
-    m = cfg.mel
+    """The analysis mel filterbank [n_freqs, n_mels] (htk, norm=None) on
+    ``device``: uploaded once per (cfg.mel, device) and shared, so callers
+    do not write to it."""
+    return _mel_fbank(cfg.mel, torch.device(device))
+
+
+@functools.lru_cache(maxsize=8)
+def _mel_fbank(m: MelConfig, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(vmel.melscale_fbanks(
         m.n_stft, m.f_min, m.f_max, m.n_mels, m.sample_rate), device=device)
 

@@ -47,6 +47,20 @@ def dft_matrices(n_fft: int, win_length: int, device: torch.device):
     return torch.cos(ang) * w, -torch.sin(ang) * w
 
 
+@functools.lru_cache(maxsize=8)
+def fft_tables(n_fft: int, win_length: int, device: torch.device):
+    """(window, twiddles) for an FFT of n_fft points on ``device``: the
+    periodic Hann window zero-padded to n_fft, [n_fft] float32, and
+    exp(-2 pi i k / n_fft) as (cos, -sin) pairs, [n_fft, 2] float32, taken
+    in float64 and rounded once. Built once per (n_fft, win_length,
+    device)."""
+    ang = 2.0 * np.pi * np.arange(n_fft, dtype=np.float64) / n_fft
+    tw = np.stack([np.cos(ang), -np.sin(ang)], axis=1).astype(np.float32)
+    win = _padded_window(n_fft, win_length)
+    return (torch.as_tensor(win, device=device),
+            torch.as_tensor(tw, device=device))
+
+
 def num_frames(n_samples: int, cfg: STFTConfig) -> int:
     padded = n_samples + 2 * (cfg.n_fft // 2) if cfg.center else n_samples
     return (padded - cfg.n_fft) // cfg.hop_length + 1
