@@ -66,6 +66,8 @@ SOURCES = {
     "gru_seq": "voicefixer_tpu_torch/csrc/gru_bidir.cu",
     "conv_block_res": "voicefixer_tpu_torch/csrc/convblock.cu",
 }
+# a kernel whose bfloat16 path has a source of its own
+SOURCES_BF16 = {"res_chain": "voicefixer_tpu_torch/csrc/resstack_wgmma.cu"}
 KERNELS = tuple(SOURCES)
 # slopes of the vocoder's LeakyReLUs: inside a ResStack, after a stage
 SLOPE_RES, SLOPE_ACT = 0.01, 0.2
@@ -160,6 +162,25 @@ def res_work(ch: int, t: int, n_blocks: int, size: int):
     [t, C]: the signal read once and written once, the weights read once."""
     return (n_blocks * 12 * ch * ch * t,
             size * (2 * t * ch + n_blocks * 2 * (3 * ch * ch + ch)))
+
+
+def chain_weight_bytes(ch: int, t: int, dils, tm: int,
+                       wgmma: bool = True) -> int:
+    """Weight bytes that a bfloat16 chain reads from L2 over a [1, t, ch]
+    signal: every thread block streams the 6*C^2 bytes of a block's two
+    convolutions once per pass of the bfloat16 wgmma kernel
+    (``resstack.wgmma_passes``), or, with ``wgmma`` False, once per 64-row
+    product tile of the WMMA chain_kernel that ran bfloat16 chains before
+    it."""
+    from voicefixer_tpu_torch.kernels import resstack
+    tiles = -(-t // tm)
+    if wgmma:
+        per_block = resstack.wgmma_passes(ch, dils, tm)
+    else:
+        per_block = sum(-(-(tm + 2 * eo + k) // resstack.BM)
+                        for eo in resstack.chain_extents(dils)[1:]
+                        for k in (2, 0))
+    return tiles * per_block * 3 * ch * ch * 2
 
 
 def up_res_work(t: int, s: int, cin: int, cout: int, n_blocks: int,
@@ -539,6 +560,7 @@ def _res_cases(gen, device, dtype, ch, t, main_path=True, bounds=None):
     cases = []
     for i0, i1, tm in resstack.plan_stack(ch, dils, x.element_size()):
         fs = SLOPE_ACT if i1 == 8 else None
+        name_note = ""
         sub, d = tuple(v[i0:i1] for v in bank), dils[i0:i1]
         if tm is None:
             one = tuple(v[0] for v in sub)
@@ -554,12 +576,16 @@ def _res_cases(gen, device, dtype, ch, t, main_path=True, bounds=None):
                 x, *sub, d, SLOPE_RES, fs, tm=tm, mask_bounds=bounds)
             plain = lambda sub=sub, d=d, fs=fs: resstack.res_chain_reference(  # noqa: E731
                 x, *sub, d, SLOPE_RES, fs, bounds)
+            if dtype == "bfloat16":
+                name_note = (f" tile {tm}, weights from L2 "
+                             f"{chain_weight_bytes(ch, t, d, tm) / 1e9:.3f} GB")
         library = lambda sub=sub, d=d, fs=fs: _cudnn_blocks(x, sub, d, fs)  # noqa: E731
         flops, work_bytes = res_work(ch, t, i1 - i0, x.element_size())
         cases.append({
             "name": name, "dtype": dtype, "main_path": main_path,
             "shape": f"[1, {t}, {ch}] dilations {d}"
-                     + (f" window {bounds}" if bounds else ""), "fn": fn,
+                     + (f" window {bounds}" if bounds else "") + name_note,
+            "fn": fn,
             "plain": plain, "library": library, "reps": 3, "per_chunk": 1,
             **_res_tol(dtype, i1 - i0 if i1 - i0 > 1 else 0), "bytes": work_bytes,
             "flops": flops,
@@ -1083,14 +1109,16 @@ def phase_gru_path(device):
 
 def _kernel_group(name: str) -> str:
     # chain_kernel<T, BN, UP>: UP is the fused upsample front of K4; K4's
-    # later groups and all of K7's launch the kernels that K2 and K3 launch
+    # later groups and all of K7's launch the kernels that K2-f32 and K3
+    # launch; K2 in bfloat16 is chain_wgmma_kernel
     for key, group in (("stft_mel", "K5 stft_mel"),
                        ("gru_bidir", "K6 gru_bidir"),
                        ("gru_seq", "K8 gru_seq"),
                        ("conv_block_kernel", "K9 conv_block_res"),
                        ("sin_residual", "x+sin(x) pre-pass of K1 and K4"),
                        ("upsample", "K1 upsample"),
-                       ("chain_kernel", "K2/K4/K7 chain_kernel"),
+                       ("chain_wgmma_kernel", "K2-bf16 chain_wgmma_kernel"),
+                       ("chain_kernel", "K2-f32/K4/K7 chain_kernel"),
                        ("shift_kernel", "K3/K4/K7 shift_kernel"),
                        ("nchwToNhwc", "layout copies"),
                        ("nhwcToNchw", "layout copies"),
@@ -1268,7 +1296,9 @@ def main() -> int:
                            if r["bound_by"] == "bytes")
             record.append({
                 "name": f"{name}:{dtype}", "route": "cuda",
-                "source": SOURCES[name], "replaces": REPLACES[name],
+                "source": (SOURCES_BF16.get(name, SOURCES[name])
+                           if dtype == "bfloat16" else SOURCES[name]),
+                "replaces": REPLACES[name],
                 "launches": launches(name, mode),
                 "max_abs_err": max(r["err"] for r in rs),
                 "ms": total("ms"), "plain_ms": total("plain_ms"),

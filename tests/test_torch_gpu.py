@@ -143,6 +143,7 @@ def _fbank(n_fft, n_mels, cuda):
     (9000, 2, 128, 37, 100, 128),     # a last pass of radix 2
     (9000, 1, 1024, 300, 1024, 64),
     (20000, 2, 4096, 512, 4000, 128),  # one pair a block
+    (500, 2, 2048, 441, 2048, 128),   # shorter than the centre pad
 ])
 def test_stft_mel_kernel(cuda, n, b, n_fft, hop, win, n_mels):
     gen = torch.Generator().manual_seed(2)
@@ -206,6 +207,15 @@ def _close_chained(got, ref, dtype):
     (128, 701, 2, (1, 3, 9), None, "bfloat16"),
     (24, 333, 1, (1, 3), 17, "bfloat16"),
     (512, 300, 1, (1, 3), None, "bfloat16"),
+    # the wgmma chain: several tiles with a ragged last one; two row tiles
+    # a pass (C = 256) and both column chunks in one pass (C = 512)
+    (256, 1000, 1, (1, 3, 9), None, "bfloat16"),
+    (256, 1000, 2, (1, 3), 118, "bfloat16"),
+    (512, 500, 2, (1, 3), None, "bfloat16"),
+    (128, 300, 1, (1,), None, "bfloat16"),                      # n = 1
+    (64, 400, 1, (1, 3, 1, 3, 1, 3, 1, 3), None, "bfloat16"),  # n = 8
+    (40, 200, 2, (1, 3, 9), None, "bfloat16"),  # ragged against the boxes
+    (16, 20, 1, (27, 81), None, "bfloat16"),    # T < d
 ])
 def test_res_chain_kernel(cuda, ch, t, b, dils, tm, dtype):
     gen = torch.Generator().manual_seed(3)
@@ -218,6 +228,43 @@ def test_res_chain_kernel(cuda, ch, t, b, dils, tm, dtype):
         assert kernels.launches["res_chain"] == n0 + 1
         ref = res_chain_reference(x, *bank, dils, 0.2, final_slope)
         _close_chained(got, ref, dtype)
+
+
+@pytest.mark.parametrize("ch,t,dils,bounds", [
+    (512, 777, (1, 3), (100, 650)),
+    (512, 777, (1, 3), (-5, 400)),
+    (256, 1500, (1, 3, 9), (200, 1201)),
+    (256, 1500, (1, 3, 9), (40, 41)),
+    (40, 300, (1, 3), (10, 250)),
+])
+def test_res_chain_wgmma_windows(cuda, ch, t, dils, bounds):
+    """The bfloat16 chain under a signal window at the widths of the
+    vocoder's unfused stages and a ragged one: rows outside the window come
+    out as zeros."""
+    gen = torch.Generator().manual_seed(15)
+    dt = torch.bfloat16
+    x = _randn(gen, (2, t, ch)).to(cuda, dt)
+    bank = _bank(gen, len(dils), ch, cuda, dt)
+    got = res_chain(x, *bank, dils, 0.2, 0.3, mask_bounds=bounds)
+    ref = res_chain_reference(x, *bank, dils, 0.2, 0.3, bounds)
+    _close_chained(got, ref, "bfloat16")
+    lo, hi = max(bounds[0], 0), min(bounds[1], t)
+    assert float(got[:, :lo].float().abs().sum()) == 0.0
+    assert float(got[:, hi:].float().abs().sum()) == 0.0
+
+
+def test_res_chain_first_launch_after_cold_build(cuda):
+    """The bfloat16 chain as the first launch of two new processes, each
+    straight after a cold build (tools/torch_first_launch.py --case
+    res_chain)."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    tool = Path(__file__).resolve().parent.parent / "tools" / \
+        "torch_first_launch.py"
+    run = subprocess.run([sys.executable, str(tool), "--case", "res_chain",
+                          "--loop", "2"], capture_output=True, text=True)
+    assert run.returncode == 0, run.stdout + run.stderr
 
 
 @pytest.mark.parametrize("ch,t,b,dil,dtype", [

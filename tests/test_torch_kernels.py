@@ -27,11 +27,13 @@ its input outside the window (its callers hand it one that is), so those
 cases feed both sides an x that is zero there; the port's own zeroing of x
 is held against the JAX package's plain path (``bounds_mask``).
 
-The FFT ``stft_mel`` kernel and the GEMM-view ``upsample`` kernel run only
-on a card, so their index arithmetic is replayed here in plain torch
-(``_stockham_fft``, ``_stft_mel_model``, ``_upsample_gemm_model``) and held
-to the plain versions and the JAX kernels: 1e-4 for the STFT->mel (float32,
-another summation order), 2e-5 for the upsample.
+The FFT ``stft_mel`` kernel, the GEMM-view ``upsample`` kernel and the
+bfloat16 wgmma chain run only on a card, so their index arithmetic is
+replayed here in plain torch (``_stockham_fft``, ``_stft_mel_model``,
+``_upsample_gemm_model``, ``_chain_wgmma_model``) and held to the plain
+versions and the JAX kernels: 1e-4 for the STFT->mel (float32, another
+summation order), 2e-5 for the upsample, the chained bfloat16 tolerance
+above for the chain. These models run none of the CUDA code.
 """
 
 import jax.numpy as jnp
@@ -788,3 +790,165 @@ def test_mel_fbank_is_cached_per_config_and_device():
     other = VoiceFixerConfig(mel=MelConfig(n_mels=64))
     assert mel_fbank(other, "cpu") is not fb
     assert mel_fbank(other, "cpu").shape == (1025, 64)
+
+
+# --------------------------------------------- the bfloat16 chain's schedule
+
+def _chain_wgmma_model(x, w1s, b1s, w2s, b2s, dils, slope, final_slope, tm,
+                       bounds=None):
+    """What csrc/resstack_wgmma.cu does, in plain torch: per (batch row,
+    time tile), the slab (zero outside
+    the window and in the columns [C, cp)), then per block and product the
+    (64-row tile, 256-column chunk) pairs two passes at a time, A rows at
+    their tap offsets clamped to the source (conv1's LeakyReLU rounded to
+    bfloat16), B as the tensor maps read w (zero past C), and the two
+    epilogues with their masks. Shared memory the kernel never writes is
+    NaN here, so that a read of it shows; every output row must be written
+    exactly once."""
+    bsz, t, ch = x.shape
+    n = len(dils)
+    lo, hi = resstack.clamp_bounds(bounds, t)
+    ext = resstack.chain_extents(dils)
+    cp = -(-ch // resstack.WG_ALIGN) * resstack.WG_ALIGN
+    chunks = -(-ch // resstack.WG_COLS)
+    rows_tile, cols = resstack.WG_ROWS, resstack.WG_COLS
+    e0 = ext[0]
+    slab_rows = tm + 2 * e0
+    tiles = -(-t // tm)
+    bf = lambda v: v.to(torch.bfloat16).float()  # noqa: E731
+    lrelu = lambda v, a: torch.where(v > 0, v, a * v)  # noqa: E731
+
+    def wmap(w):
+        m = torch.zeros((3 * n, cp, chunks * cols))
+        m[:, :ch, :ch] = w.float().reshape(3 * n, ch, ch)
+        return m
+
+    wmaps = (wmap(w1s), wmap(w2s))
+    bias = (b1s.float(), b2s.float())
+    y = torch.full((bsz, t, ch), float("nan"))
+    written = torch.zeros((bsz, t), dtype=torch.int64)
+    for bi in range(bsz):
+        for tile in range(tiles):
+            t0 = tile * tm
+            slab = torch.zeros((slab_rows, cp))
+            pos = torch.arange(slab_rows) + t0 - e0
+            ok = (pos >= lo) & (pos < hi)
+            slab[ok, :ch] = x[bi, pos[ok]].float()
+            h = torch.full((tm + 2 * ext[1] + 2, cp), float("nan"))
+            h[:, ch:] = 0.0
+            for i, d in enumerate(dils):
+                eo, last = ext[i + 1], i == n - 1
+                for conv in range(2):
+                    rows = tm + 2 * eo + (0 if conv else 2)
+                    pairs = -(-rows // rows_tile) * chunks
+                    src = h if conv else slab
+                    src_rows = rows + 2 if conv else slab_rows
+                    first, step = (1, 1) if conv else (e0 - eo - 1, d)
+                    for pair in range(-(-pairs // 2) * 2):
+                        if pair >= pairs:
+                            continue  # an idle warpgroup in the last pass
+                        m, nb = divmod(pair, chunks)
+                        r = first + m * rows_tile + torch.arange(rows_tile)
+                        acc = torch.zeros((rows_tile, cols))
+                        for tap in range(3):
+                            a = src[(r + (tap - 1) * step).clamp(
+                                0, src_rows - 1)]
+                            if conv == 0:
+                                a = bf(lrelu(a, slope))
+                            acc += a @ wmaps[conv][3 * i + tap, :,
+                                                   nb * cols:(nb + 1) * cols]
+                        out = m * rows_tile + torch.arange(rows_tile)
+                        keep = out < rows
+                        nc = torch.arange(nb * cols, min((nb + 1) * cols, ch))
+                        v = acc[keep][:, nc - nb * cols] + bias[conv][i, nc]
+                        out = out[keep]
+                        if conv == 0:
+                            p = t0 - eo - 1 + out
+                            inside = ((p >= lo) & (p < hi))[:, None]
+                            h[out[:, None], nc] = bf(torch.where(
+                                inside, lrelu(v, slope), 0.0))
+                            continue
+                        p = t0 - eo + out
+                        inside = ((p >= lo) & (p < hi))[:, None]
+                        srow = e0 - eo + out
+                        v = torch.where(inside, v + slab[srow[:, None], nc],
+                                        0.0)
+                        if not last:
+                            slab[srow[:, None], nc] = bf(v)
+                            continue
+                        sel = (p >= 0) & (p < t)
+                        if final_slope is not None:
+                            v = lrelu(v, final_slope)
+                        y[bi, p[sel][:, None], nc] = bf(v[sel])
+                        if nb == 0:
+                            written[bi, p[sel]] += 1
+    assert written.eq(1).all(), "an output row is not written exactly once"
+    return y.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("ch,t,b,dils,tm,bounds", [
+    (24, 333, 2, (1, 3), 17, None),         # C ragged against the boxes
+    (40, 100, 1, (1, 3, 9), None, (-5, 60)),
+    (16, 20, 1, (27, 81), None, None),       # T < d: bias-only taps
+    (8, 90, 1, (1, 3, 1, 2, 1, 1, 3, 1), None, (40, 41)),  # n = 8
+    (256, 260, 1, (1, 3, 9), 98, None),      # two row tiles a pass
+    (264, 130, 1, (1, 3), None, (3, 10 ** 6)),  # a ragged second chunk
+    (512, 140, 1, (1, 3), 54, None),         # both chunks in one pass
+])
+def test_chain_wgmma_schedule(ch, t, b, dils, tm, bounds):
+    """The bfloat16 chain kernel's tiles, passes, clamped tap rows and
+    epilogue masks against the plain version, bfloat16 values on both
+    sides (the chained tolerance of this file's docstring)."""
+    from voicefixer_tpu_torch.kernels.resstack import res_chain_reference
+
+    rng = np.random.default_rng(17)
+    bank = [torch.from_numpy(_bf16_exact(_rand(rng, shape, sc)))
+            for shape, sc in (((len(dils), 3, ch, ch), 0.5 / (3 * ch) ** 0.5),
+                              ((len(dils), ch), 0.05),
+                              ((len(dils), 3, ch, ch), 0.5 / (3 * ch) ** 0.5),
+                              ((len(dils), ch), 0.05))]
+    bank = [v.to(torch.bfloat16) for v in bank]
+    x = torch.from_numpy(_rand(rng, (b, t, ch))).to(torch.bfloat16)
+    if tm is None:
+        tm = resstack.chain_tile(ch, dils, 2, wgmma=True)[0]
+    assert resstack.wgmma_smem_bytes(ch, dils, tm) <= resstack.SMEM_LIMIT
+    got = _chain_wgmma_model(x, *bank, dils, 0.2, 0.3, tm, bounds)
+    ref = res_chain_reference(x, *bank, dils, 0.2, 0.3, bounds)
+    _assert_close(got, jnp.asarray(ref.float().numpy()), 2 ** -7, 1e-3,
+                  chained=len(dils))
+
+
+@pytest.mark.parametrize("ch,itemsize,want", [
+    (64, 2, ((0, 4, 170), (4, 5, None), (5, 6, None), (6, 7, None),
+             (7, 8, None))),
+    (64, 4, ((0, 3, 98), (3, 4, None), (4, 5, None), (5, 6, None),
+             (6, 7, None), (7, 8, None))),
+    (128, 2, ((0, 3, 98), (3, 4, None), (4, 5, None), (5, 6, None),
+              (6, 7, None), (7, 8, None))),
+    (128, 4, ((0, 2, 54), (2, 3, None), (3, 4, None), (4, 5, None),
+              (5, 6, None), (6, 7, None), (7, 8, None))),
+])
+def test_plan_stack_fused_widths_unchanged(ch, itemsize, want):
+    """The fused stages (K4, K7) run the WMMA chain kernel and keep its
+    plan, with and without a chain first."""
+    dils = resstack.stack_dilations(8)
+    assert resstack.plan_stack(ch, dils, itemsize) == want
+    assert resstack.plan_stack(ch, dils, itemsize, first_chain=True) == want
+
+
+@pytest.mark.parametrize("ch", [256, 512])
+def test_plan_stack_wgmma_groups_fit(ch):
+    """Every bfloat16 chain at the unfused widths fits the wgmma kernel's
+    shared memory with its least ring, at the efficiency promised, and
+    keeps both warpgroups busy in all but its last pass of a product."""
+    dils = resstack.stack_dilations(8)
+    groups = resstack.plan_stack(ch, dils, 2)
+    chains = [g for g in groups if g[2] is not None]
+    assert chains
+    for i0, i1, tm in chains:
+        sub = dils[i0:i1]
+        assert resstack.wgmma_smem_bytes(ch, sub, tm) <= resstack.SMEM_LIMIT
+        tile = resstack.chain_tile(ch, sub, 2, wgmma=True)
+        assert tile[0] == tm and tile[1] >= resstack.MIN_EFFICIENCY
+        # the planner's tiles make block 0's h whole 64-row tiles
+        assert (tm + 2 * resstack.chain_extents(sub)[1] + 2) % 64 == 0

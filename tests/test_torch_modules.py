@@ -126,6 +126,18 @@ def test_wav_to_mel(params):
     _close(got, ref, 1e-5, rtol=1e-4)
 
 
+@pytest.mark.parametrize("n", [1, 2, 500, 1024, 1025])
+def test_wav_to_mel_short_wave(n):
+    """Waves no longer than the centre pad (n_fft // 2 = 1024): the reflect
+    pad reflects again off the far end, as ``jnp.pad`` does, and a single
+    sample is repeated. Same tolerance as the long wave."""
+    wav = _x((2, n), 12, 0.3)
+    ref = _jit(jax_analysis.wav_to_mel, cfg=JCFG)(_J(wav))
+    got = analysis.wav_to_mel(_T(wav), CFG)
+    assert tuple(got.shape) == ref.shape
+    _close(got, ref, 1e-5, rtol=1e-4)
+
+
 def test_denoiser_apply(params):
     ja, _, pa, _ = params
     mel = np.abs(_x((2, 57, 128), 11))

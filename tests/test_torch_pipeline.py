@@ -6,6 +6,7 @@ Tolerance 1e-5 on the waveform (samples of magnitude ~0.1 after a few
 hundred float32 layers summed in another order; the error seen is ~1e-7).
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -121,6 +122,23 @@ def test_restore_inmem_mode0_padded_tail(params):
     ref = jvf.restore_inmem(wav, mode=0)
     vf = restore.VoiceFixer(pa, pv, config=CFG, device="cpu")
     got = vf.restore_inmem(wav, mode=0)
+    assert got.shape == ref.shape == wav.shape
+    np.testing.assert_allclose(got, ref, rtol=TOL, atol=TOL)
+
+
+def test_restore_inmem_short_tail_unpadded(params):
+    """pad_short_to_seg=False: the last segment, 500 samples, runs at its
+    own length, shorter than the STFT's centre pad."""
+    ja, jv, pa, pv = params
+    jcfg = dataclasses.replace(JCFG, pipeline=dataclasses.replace(
+        JCFG.pipeline, pad_short_to_seg=False))
+    cfg = dataclasses.replace(CFG, pipeline=dataclasses.replace(
+        CFG.pipeline, pad_short_to_seg=False))
+    wav = _wav(cfg.pipeline.seg_length + 500, 9)
+    ref = jax_restore.VoiceFixer(params=ja, vocoder_params=jv,
+                                 config=jcfg).restore_inmem(wav, mode=0)
+    got = restore.VoiceFixer(pa, pv, config=cfg,
+                             device="cpu").restore_inmem(wav, mode=0)
     assert got.shape == ref.shape == wav.shape
     np.testing.assert_allclose(got, ref, rtol=TOL, atol=TOL)
 

@@ -1,13 +1,14 @@
 // Hopper (sm_90a) building blocks for a matrix product whose tiles the Tensor
 // Memory Accelerator (TMA) loads into a shared-memory ring and a warpgroup
 // multiplies with wgmma: mbarrier init / arrive / expect-tx / wait, the TMA
-// tile load, wgmma fence / commit / wait, the shared-memory
-// matrix descriptor for the 128-byte swizzle, one wgmma shape
-// (m64n128k16, bf16 in, float32 accumulators), setmaxnreg, and a host helper
-// that encodes a CUtensorMap for a three-dimensional bf16 tensor.
+// tile load, a 16-byte cp.async with zero fill, wgmma fence / commit / wait,
+// the shared-memory matrix descriptor for the 128-byte swizzle, two wgmma
+// shapes (m64n128k16 with
+// both operands in shared memory; m64n256k16 with A in registers, loaded by
+// ldmatrix), setmaxnreg, and a host helper that encodes a CUtensorMap for a
+// three-dimensional bf16 tensor.
 //
-// upsample.cu is the first user; the tap product of resblock.cuh is meant
-// to take the same pieces.
+// Users: upsample.cu (K1) and resstack_wgmma.cu (K2 in bfloat16).
 //
 // cuTensorMapEncodeTiled lives in libcuda, not in the CUDA runtime: it is
 // fetched at run time (dlopen/dlsym), so that the kernel libraries keep
@@ -81,6 +82,19 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// cp.async of 16 bytes from global to shared memory, zeros when !valid
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
+                                            bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// waits for every cp.async this thread has started
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -172,6 +186,89 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16_tn(float (&d)[64],
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d[64 x 256] (+)= A[64 x 16] * B[16 x 256], bf16 in, float32 out: A from
+// registers, four per thread as ldmatrix_x4 leaves them (the fragment of
+// mma.sync.m16n8k16 for this warp's 16 rows), B MN-major from shared memory
+// (the transpose bit). Thread t of the warpgroup holds, for j < 32: d[4j],
+// d[4j+1] at row 16*(t/32) + (t%32)/4, columns 8j + 2*(t%4) + {0, 1};
+// d[4j+2], d[4j+3] eight rows down. `accumulate` = 0 overwrites d. The
+// A registers must stay untouched until the wait that retires this product.
+__device__ __forceinline__ void wgmma_m64n256k16_bf16_rs(float (&d)[128],
+                                                         const uint32_t (&a)[4],
+                                                         uint64_t desc_b,
+                                                         int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate));
+}
+
+// ldmatrix.x4: lane l gives the address of row l % 16, column 8 * (l / 16)
+// of a 16 x 16 bf16 tile in shared memory (16-byte aligned rows); r[0..3]
+// are the tile's four 8 x 8 quarters (rows 0-7 / 8-15 of columns 0-7, then
+// of columns 8-15), the A fragment of wgmma_m64n256k16_bf16_rs.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// keeps the compiler from reusing an A register before the product that
+// reads it has retired
+__device__ __forceinline__ void fence_operand(uint32_t& r) {
+  asm volatile("" : "+r"(r) :: "memory");
 }
 
 // ------------------------------------------------------------------ host

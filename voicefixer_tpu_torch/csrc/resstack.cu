@@ -1,5 +1,6 @@
 // The vocoder's ResStack kernels of the unfused stages (C = 512 and 256 at
-// full width): vf_res_chain and vf_res_shift_single.
+// full width): vf_res_chain (float32; bfloat16 chains are
+// resstack_wgmma.cu's) and vf_res_shift_single.
 //
 // Replace voicefixer_tpu/kernels/resstack.py::res_chain and
 // ::res_shift_single (Pallas, TPU). The block's arithmetic, the tap product
@@ -15,7 +16,8 @@
 // the summed dilations stay small beside the tile; res_shift_single reads
 // its +-d taps at row offsets, so its cost does not depend on d. The TPU
 // kernels' 128-lane padding, 8-row alignment, VMEM plans and double-buffered
-// DMA are gone; wgmma, TMA and a pipelined K loop are later work.
+// DMA are gone. The bfloat16 chain runs on wgmma with TMA-fed weights
+// (resstack_wgmma.cu); wgmma for these two is later work.
 
 #include "resblock.cuh"
 
@@ -49,24 +51,20 @@ int chain(const void* x, const void* w1, const void* b1, const void* w2,
 
 }  // namespace
 
-// x, y: [batch, t_len, ch]; w1, w2: [n, 3*ch, ch] (block, tap*in, out);
-// b1, b2: [n, ch]; dils: n host ints; tm: output rows per thread block. All
-// float32 (bf16 = 0) or all bfloat16 (bf16 = 1, ch a multiple of 8). y must
-// not alias x. [lo, hi) is the signal window in rows (0, t_len for the whole
-// array): rows outside it are zero padding at every block, and are written
-// as zeros.
+// x, y: [batch, t_len, ch] float32; w1, w2: [n, 3*ch, ch] (block,
+// tap*in, out); b1, b2: [n, ch]; dils: n host ints; tm: output rows per
+// thread block. y must not alias x. [lo, hi) is the signal window in rows
+// (0, t_len for the whole array): rows outside it are zero padding at every
+// block, and are written as zeros.
 extern "C" int vf_res_chain(const void* x, const void* w1, const void* b1,
                             const void* w2, const void* b2, void* y,
                             int batch, int t_len, int ch, int n,
                             const int* dils, int tm, float slope,
                             float final_slope, int has_final, int lo,
-                            int hi, int bf16, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  return bf16 ? chain<__nv_bfloat16>(x, w1, b1, w2, b2, y, batch, t_len, ch,
-                                     n, dils, tm, slope, final_slope,
-                                     has_final, lo, hi, s)
-              : chain<float>(x, w1, b1, w2, b2, y, batch, t_len, ch, n, dils,
-                             tm, slope, final_slope, has_final, lo, hi, s);
+                            int hi, void* stream) {
+  return chain<float>(x, w1, b1, w2, b2, y, batch, t_len, ch, n, dils, tm,
+                      slope, final_slope, has_final, lo, hi,
+                      static_cast<cudaStream_t>(stream));
 }
 
 // One block at dilation d. x, y: [batch, t_len, ch]; w1, w2: [3*ch, ch];

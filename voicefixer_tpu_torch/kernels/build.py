@@ -22,8 +22,8 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
-SOURCES = ("stft_mel", "gru_bidir", "upsample", "resstack", "resstream",
-           "convblock")
+SOURCES = ("stft_mel", "gru_bidir", "upsample", "resstack", "resstack_wgmma",
+           "resstream", "convblock")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

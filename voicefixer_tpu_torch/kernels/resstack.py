@@ -1,4 +1,5 @@
-"""The vocoder's ResStack (csrc/resstack.cu, csrc/resblock.cuh), the port of
+"""The vocoder's ResStack (csrc/resstack.cu, csrc/resblock.cuh; bfloat16
+chains csrc/resstack_wgmma.cu), the port of
 ``voicefixer_tpu/kernels/resstack.py``: ``res_chain`` (n consecutive blocks
 in one kernel, intermediates in shared memory), ``res_shift_single`` (one
 block, its +-d taps read at row offsets), the dispatcher ``res_stack`` over
@@ -53,6 +54,17 @@ MIN_EFFICIENCY = 0.65
 # widest stack that runs behind one entry point: fused with its upsample
 # (``up_res_stack``) or, under ``mask_bounds``, as ``res_stream``
 FUSE_MAX_CHANNELS = 128
+# of csrc/resstack_wgmma.cu, the bfloat16 chain: two consumer warpgroups of
+# 64-row wgmma tiles over 256-column chunks, a ring of at least two 32-deep
+# weight stages (16 KB a chunk, 16 bytes of barriers each; 64-deep where two
+# of those fit), slab and h rows of the width rounded up to WG_ALIGN plus 16
+# bytes, one thread block an SM
+WG_ROWS = 64
+WG_COLS = 256
+WG_CONSUMERS = 2
+WG_STAGE_BYTES = 16384
+WG_MIN_STAGES = 2
+WG_ALIGN = 64
 
 
 def stack_dilations(depth: int) -> tuple:
@@ -135,29 +147,67 @@ def chain_extents(dils) -> tuple:
 
 
 def chain_smem_bytes(ch: int, dils, tm: int, itemsize: int) -> int:
-    """Shared memory of one thread block of the chain kernel: the staging
-    tiles, the input slab (tile + halo) and the widest block's h; rows are
-    padded by 16 bytes."""
+    """Shared memory of one thread block of the WMMA chain kernel (float32,
+    and the fused stages' groups): the staging tiles, the input slab (tile +
+    halo) and the widest block's h; rows are padded by 16 bytes."""
     e = chain_extents(dils)
     rows = (tm + 2 * e[0]) + (tm + 2 * e[1] + 2)
     return STAGE_BYTES + rows * (ch + 16 // itemsize) * itemsize
 
 
-def chain_tile(ch: int, dils, itemsize: int, budget: int = SMEM_LIMIT):
+def wgmma_chain(ch: int, itemsize: int) -> bool:
+    """Whether ``plan_stack`` plans for the bfloat16 wgmma chain kernel: the
+    unfused stages (C > FUSE_MAX_CHANNELS) in bfloat16. Narrower stacks are
+    planned for the fused kernels, which run the WMMA chain."""
+    return itemsize == 2 and ch > FUSE_MAX_CHANNELS
+
+
+def wgmma_smem_bytes(ch: int, dils, tm: int,
+                     stages: int = WG_MIN_STAGES) -> int:
+    """Shared memory of one thread block of the bfloat16 chain kernel with
+    ``stages`` ring stages: 1 KB of alignment, the ring and its barriers,
+    the slab and the widest block's h."""
+    e = chain_extents(dils)
+    rows = (tm + 2 * e[0]) + (tm + 2 * e[1] + 2)
+    chunks = -(-ch // WG_COLS)
+    return (1024 + stages * (chunks * WG_STAGE_BYTES + 16)
+            + rows * (-(-ch // WG_ALIGN) * WG_ALIGN + 8) * 2)
+
+
+def wgmma_passes(ch: int, dils, tm: int) -> int:
+    """Passes over the weights that one thread block of the bfloat16 chain
+    kernel makes: per product, its (64-row tile, 256-column chunk) pairs two
+    at a time."""
+    chunks = -(-ch // WG_COLS)
+    return sum(-(-(-(-rows // WG_ROWS) * chunks) // WG_CONSUMERS)
+               for eo in chain_extents(dils)[1:]
+               for rows in (tm + 2 * eo + 2, tm + 2 * eo))
+
+
+def chain_tile(ch: int, dils, itemsize: int, budget: int = SMEM_LIMIT,
+               wgmma: bool = False):
     """(tm, efficiency) of the best output tile of a chain over ``dils``, or
     None when no tile fits ``budget`` bytes of shared memory. Tiles make the
     first block's h a whole number of product tiles; efficiency is the share
-    of product rows that are output rows."""
+    of product rows that are output rows. With ``wgmma``, the bfloat16 chain
+    kernel's accounting: its shared memory, and product rows counted as the
+    two warpgroups' 64-row tiles of every pass, busy or not."""
     e = chain_extents(dils)
     best = None
     k = 1
     while True:
         tm = k * BM - 2 * e[1] - 2
-        if chain_smem_bytes(ch, dils, max(tm, 1), itemsize) > budget:
+        smem = (wgmma_smem_bytes(ch, dils, max(tm, 1)) if wgmma
+                else chain_smem_bytes(ch, dils, max(tm, 1), itemsize))
+        if smem > budget:
             return best
         if tm >= 1:
-            done = sum((-(-(tm + 2 * eo + 2) // BM) + -(-(tm + 2 * eo) // BM))
-                       * BM for eo in e[1:])
+            if wgmma:
+                done = (wgmma_passes(ch, dils, tm) * WG_CONSUMERS * WG_ROWS
+                        / -(-ch // WG_COLS))
+            else:
+                done = sum((-(-(tm + 2 * eo + 2) // BM)
+                            + -(-(tm + 2 * eo) // BM)) * BM for eo in e[1:])
             eff = 2 * len(dils) * tm / done
             if best is None or eff > best[1]:
                 best = (tm, eff)
@@ -173,22 +223,24 @@ def plan_stack(ch: int, dils: tuple, itemsize: int,
     chain of at least two blocks that fits the first of SMEM_BUDGETS it can
     at MIN_EFFICIENCY or better, else the block alone. With ``first_chain``
     the first group is a chain even when it is one block (the fused upsample
-    feeds a chain)."""
+    feeds a chain). The bfloat16 chain kernel takes one thread block an SM
+    (``wgmma_chain``): its only budget is SMEM_LIMIT."""
     n = len(dils)
+    wgmma = wgmma_chain(ch, itemsize)
     groups = []
     i = 0
     while i < n:
         pick = None
-        for budget in SMEM_BUDGETS:
+        for budget in (SMEM_LIMIT,) if wgmma else SMEM_BUDGETS:
             for j in range(min(n, i + MAX_BLOCKS), i + 1, -1):
-                tile = chain_tile(ch, dils[i:j], itemsize, budget)
+                tile = chain_tile(ch, dils[i:j], itemsize, budget, wgmma)
                 if tile is not None and tile[1] >= MIN_EFFICIENCY:
                     pick = (i, j, tile[0])
                     break
             if pick is not None:
                 break
         if pick is None and first_chain and i == 0:
-            tile = chain_tile(ch, dils[:1], itemsize)
+            tile = chain_tile(ch, dils[:1], itemsize, wgmma=wgmma)
             if tile is None:
                 raise ValueError(f"no chain tile fits shared memory at "
                                  f"C={ch}, itemsize {itemsize}")
@@ -236,7 +288,8 @@ def res_chain(x: torch.Tensor, w1s, b1s, w2s, b2s, dils,
     """len(dils) consecutive blocks in one kernel. x: [B, T, C]; w1s, w2s:
     [n, 3, C, C] (block, tap, in, out) in torch tap order; b1s, b2s: [n, C].
     ``tm`` is the output tile of a thread block, by default the planner's;
-    ``mask_bounds`` the signal window (lo, hi) in rows."""
+    ``mask_bounds`` the signal window (lo, hi) in rows. bfloat16 runs the
+    wgmma chain kernel, float32 the WMMA one."""
     dils = tuple(int(d) for d in dils)
     if kernels.on_cpu(x, w1s, b1s, w2s, b2s):
         return res_chain_reference(x, w1s, b1s, w2s, b2s, dils, slope,
@@ -246,23 +299,29 @@ def res_chain(x: torch.Tensor, w1s, b1s, w2s, b2s, dils,
     if not 1 <= n <= MAX_BLOCKS or min(dils) < 1:
         raise ValueError(f"res_chain: dilations {dils}")
     bsz, t, ch = x.shape
+    bf16 = x.dtype == torch.bfloat16
     if tm is None:
-        tile = chain_tile(ch, dils, x.element_size())
+        tile = chain_tile(ch, dils, x.element_size(), wgmma=bf16)
         tm = tile[0] if tile is not None else 1
-    if chain_smem_bytes(ch, dils, tm, x.element_size()) > SMEM_LIMIT:
+    smem = (wgmma_smem_bytes(ch, dils, tm) if bf16
+            else chain_smem_bytes(ch, dils, tm, x.element_size()))
+    if smem > SMEM_LIMIT:
         raise ValueError(f"res_chain: C={ch}, dilations {dils}, tile {tm} "
                          f"do not fit {SMEM_LIMIT} bytes of shared memory")
     x = x.contiguous()
     w1s, b1s, w2s, b2s = (v.to(x.dtype).contiguous()
                           for v in (w1s, b1s, w2s, b2s))
     y = torch.empty_like(x)
-    lib = _lib()
-    rc = lib.vf_res_chain(
-        x.data_ptr(), w1s.data_ptr(), b1s.data_ptr(), w2s.data_ptr(),
-        b2s.data_ptr(), y.data_ptr(), bsz, t, ch, n, int_array(dils), tm,
-        *slope_args(slope, final_slope), *clamp_bounds(mask_bounds, t),
-        int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    args = (x.data_ptr(), w1s.data_ptr(), b1s.data_ptr(), w2s.data_ptr(),
+            b2s.data_ptr(), y.data_ptr(), bsz, t, ch, n, int_array(dils), tm,
+            *slope_args(slope, final_slope), *clamp_bounds(mask_bounds, t))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if bf16:
+        lib = _wgmma_lib()
+        rc = lib.vf_res_chain_wgmma(*args, stream)
+    else:
+        lib = _lib()
+        rc = lib.vf_res_chain(*args, stream)
     build.check(lib, rc, "res_chain")
     kernels.launches["res_chain"] += 1
     return y
@@ -346,9 +405,19 @@ def _lib():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ip = ctypes.POINTER(ctypes.c_int)
     lib.vf_res_chain.argtypes = [p, p, p, p, p, p, i, i, i, i, ip, i, f, f,
-                                 i, i, i, i, p]
+                                 i, i, i, p]
     lib.vf_res_chain.restype = i
     lib.vf_res_shift_single.argtypes = [p, p, p, p, p, p, i, i, i, i, f, f,
                                         i, i, i, i, p]
     lib.vf_res_shift_single.restype = i
+    return lib
+
+
+def _wgmma_lib():
+    lib = build.load("resstack_wgmma")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.vf_res_chain_wgmma.argtypes = [p, p, p, p, p, p, i, i, i, i,
+                                       ctypes.POINTER(ctypes.c_int), i, f, f,
+                                       i, i, i, p]
+    lib.vf_res_chain_wgmma.restype = i
     return lib

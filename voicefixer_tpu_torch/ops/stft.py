@@ -67,11 +67,24 @@ def num_frames(n_samples: int, cfg: STFTConfig) -> int:
 
 
 def center_pad(x: torch.Tensor, cfg: STFTConfig) -> torch.Tensor:
-    """[B, N] -> [B, N + 2*(n_fft//2)] with the configured pad mode."""
+    """[B, N] -> [B, N + 2*(n_fft//2)] with the configured pad mode.
+
+    "reflect" is ``jnp.pad``'s (and numpy's) for any pad length: a pad of N
+    samples or more reflects again off the far end, with period 2(N - 1),
+    and a single sample is repeated. ``F.pad`` covers pad < N only."""
     if not cfg.center:
         return x
     pad = cfg.n_fft // 2
-    return F.pad(x[:, None], (pad, pad), mode=cfg.pad_mode)[:, 0]
+    n = x.shape[-1]
+    if cfg.pad_mode != "reflect" or pad < n:
+        return F.pad(x[:, None], (pad, pad), mode=cfg.pad_mode)[:, 0]
+    idx = torch.arange(-pad, n + pad, device=x.device)
+    if n == 1:
+        idx = torch.zeros_like(idx)
+    else:
+        idx = torch.remainder(idx, 2 * (n - 1))
+        idx = torch.where(idx < n, idx, 2 * (n - 1) - idx)
+    return x[:, idx]
 
 
 def frame_signal(x: torch.Tensor, cfg: STFTConfig) -> torch.Tensor:
