@@ -59,15 +59,18 @@ SOURCES = {
     "stft_mel": "voicefixer_tpu_torch/csrc/stft_mel.cu",
     "gru_bidir": "voicefixer_tpu_torch/csrc/gru_bidir.cu",
     "upsample": "voicefixer_tpu_torch/csrc/upsample.cu",
-    "res_chain": "voicefixer_tpu_torch/csrc/resstack.cu",
-    "res_shift_single": "voicefixer_tpu_torch/csrc/resstack.cu",
+    "res_chain": "voicefixer_tpu_torch/csrc/resstack_f32.cu",
+    "res_shift_single": "voicefixer_tpu_torch/csrc/resstack_f32.cu",
     "up_res_stream": "voicefixer_tpu_torch/csrc/resstream.cu",
     "res_stream": "voicefixer_tpu_torch/csrc/resstream.cu",
     "gru_seq": "voicefixer_tpu_torch/csrc/gru_bidir.cu",
     "conv_block_res": "voicefixer_tpu_torch/csrc/convblock.cu",
 }
 # a kernel whose bfloat16 path has a source of its own
-SOURCES_BF16 = {"res_chain": "voicefixer_tpu_torch/csrc/resstack_wgmma.cu"}
+SOURCES_BF16 = {
+    "res_chain": "voicefixer_tpu_torch/csrc/resstack_wgmma.cu",
+    "res_shift_single": "voicefixer_tpu_torch/csrc/resstack.cu",
+}
 KERNELS = tuple(SOURCES)
 # slopes of the vocoder's LeakyReLUs: inside a ResStack, after a stage
 SLOPE_RES, SLOPE_ACT = 0.01, 0.2
@@ -162,6 +165,21 @@ def res_work(ch: int, t: int, n_blocks: int, size: int):
     [t, C]: the signal read once and written once, the weights read once."""
     return (n_blocks * 12 * ch * ch * t,
             size * (2 * t * ch + n_blocks * 2 * (3 * ch * ch + ch)))
+
+
+def f32_executed_flops(ch: int, t: int, dils, tm) -> int:
+    """FLOPs that the float32 ResStack kernels (csrc/resstack_f32.cu) run
+    on [1, t, ch], discarded rows included: every product is 64-row tiles
+    of 6*C^2 FLOP a row. A single block (tm None) computes h over 64 rows
+    for 62 output rows; a chain computes block i's h over tm + 2*E[i+1] + 2
+    rows and its output over tm + 2*E[i+1]."""
+    from voicefixer_tpu_torch.kernels import resstack
+    per_row = 6 * ch * ch * resstack.BM
+    if tm is None:
+        return -(-t // (resstack.BM - 2)) * 2 * per_row
+    tiles = sum(-(-(tm + 2 * eo + k) // resstack.BM)
+                for eo in resstack.chain_extents(dils)[1:] for k in (2, 0))
+    return -(-t // tm) * tiles * per_row
 
 
 def chain_weight_bytes(ch: int, t: int, dils, tm: int,
@@ -585,6 +603,8 @@ def _res_cases(gen, device, dtype, ch, t, main_path=True, bounds=None):
             "name": name, "dtype": dtype, "main_path": main_path,
             "shape": f"[1, {t}, {ch}] dilations {d}"
                      + (f" window {bounds}" if bounds else "") + name_note,
+            "executed": (f32_executed_flops(ch, t, d, tm)
+                         if dtype == "float32" else None),
             "fn": fn,
             "plain": plain, "library": library, "reps": 3, "per_chunk": 1,
             **_res_tol(dtype, i1 - i0 if i1 - i0 > 1 else 0), "bytes": work_bytes,
@@ -788,10 +808,13 @@ def phase_kernels(device):
                 log(f"  library call unavailable: {str(e).splitlines()[0]}")
                 lib_ms = None
             bms, by = bound_ms(c["bytes"], c["flops"], c["peak"])
+            rate = ("" if not c.get("executed") else
+                    f"; executed {c['executed'] / 1e9:.1f} GFLOP, "
+                    f"{c['executed'] / ms / 1e9:.1f} TFLOP/s")
             log(f"  {c['name']} {c['dtype']} {c['shape']}: kernel {ms:.3f} ms, "
                 f"plain {plain_ms:.3f} ms, library {lib_ms} ms, bound "
                 f"{bms:.4f} ms ({by}; {c['flops'] / 1e9:.2f} GFLOP, "
-                f"{c['bytes'] / 1e6:.1f} MB)")
+                f"{c['bytes'] / 1e6:.1f} MB){rate}")
             rows.append({**c, "err": err, "ms": ms, "plain_ms": plain_ms,
                          "lib_ms": lib_ms, "bound_ms": bms, "bound_by": by})
     return rows
@@ -1109,8 +1132,9 @@ def phase_gru_path(device):
 
 def _kernel_group(name: str) -> str:
     # chain_kernel<T, BN, UP>: UP is the fused upsample front of K4; K4's
-    # later groups and all of K7's launch the kernels that K2-f32 and K3
-    # launch; K2 in bfloat16 is chain_wgmma_kernel
+    # later groups and all of K7's launch chain_kernel and shift_kernel, as
+    # K3 does in bfloat16; K2 in bfloat16 is chain_wgmma_kernel, K2 and K3
+    # in float32 chain_f32_kernel and shift_f32_kernel
     for key, group in (("stft_mel", "K5 stft_mel"),
                        ("gru_bidir", "K6 gru_bidir"),
                        ("gru_seq", "K8 gru_seq"),
@@ -1118,8 +1142,10 @@ def _kernel_group(name: str) -> str:
                        ("sin_residual", "x+sin(x) pre-pass of K1 and K4"),
                        ("upsample", "K1 upsample"),
                        ("chain_wgmma_kernel", "K2-bf16 chain_wgmma_kernel"),
-                       ("chain_kernel", "K2-f32/K4/K7 chain_kernel"),
-                       ("shift_kernel", "K3/K4/K7 shift_kernel"),
+                       ("chain_f32_kernel", "K2-f32 chain_f32_kernel"),
+                       ("shift_f32_kernel", "K3-f32 shift_f32_kernel"),
+                       ("chain_kernel", "K4/K7 chain_kernel"),
+                       ("shift_kernel", "K3-bf16/K4/K7 shift_kernel"),
                        ("nchwToNhwc", "layout copies"),
                        ("nhwcToNchw", "layout copies"),
                        ("fprop", "cuDNN conv"), ("implicit", "cuDNN conv"),

@@ -216,6 +216,14 @@ def _close_chained(got, ref, dtype):
     (64, 400, 1, (1, 3, 1, 3, 1, 3, 1, 3), None, "bfloat16"),  # n = 8
     (40, 200, 2, (1, 3, 9), None, "bfloat16"),  # ragged against the boxes
     (16, 20, 1, (27, 81), None, "bfloat16"),    # T < d
+    # the float32 FMA chain: stage 1's plan with a ragged last tile and
+    # batch 2; three blocks; C = 512 (two column passes, the one-row tile
+    # that fits); h over two 64-row tiles at a ragged C; T < d at C = 256
+    (256, 300, 2, (1, 3), 54, "float32"),
+    (256, 130, 1, (1, 3, 9), 34, "float32"),
+    (512, 40, 1, (1, 3), None, "float32"),
+    (6, 150, 2, (1, 3), 100, "float32"),
+    (64, 20, 1, (27, 81), None, "float32"),
 ])
 def test_res_chain_kernel(cuda, ch, t, b, dils, tm, dtype):
     gen = torch.Generator().manual_seed(3)
@@ -267,6 +275,21 @@ def test_res_chain_first_launch_after_cold_build(cuda):
     assert run.returncode == 0, run.stdout + run.stderr
 
 
+@pytest.mark.parametrize("case", ["res_chain_f32", "res_shift_single_f32"])
+def test_res_f32_first_launch_after_cold_build(cuda, case):
+    """The float32 chain and single block, whose operands go through a
+    cp.async ring, as the first launch of two new processes, each straight
+    after a cold build (tools/torch_first_launch.py --case CASE)."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    tool = Path(__file__).resolve().parent.parent / "tools" / \
+        "torch_first_launch.py"
+    run = subprocess.run([sys.executable, str(tool), "--case", case,
+                          "--loop", "2"], capture_output=True, text=True)
+    assert run.returncode == 0, run.stdout + run.stderr
+
+
 @pytest.mark.parametrize("ch,t,b,dil,dtype", [
     (24, 333, 2, 9, "float32"),
     (2, 1001, 1, 729, "float32"),
@@ -274,6 +297,13 @@ def test_res_chain_first_launch_after_cold_build(cuda):
     (128, 2000, 2, 729, "bfloat16"),
     (40, 63, 1, 2187, "bfloat16"),
     (512, 500, 1, 81, "bfloat16"),
+    # the float32 FMA block: C = 512 (two column passes) at a short T and
+    # batch 2; tile boundaries at 62 and 124; the bias-only result at
+    # C = 512; a width that is no multiple of 4
+    (512, 200, 2, 81, "float32"),
+    (256, 130, 1, 3, "float32"),
+    (512, 50, 1, 729, "float32"),
+    (6, 70, 2, 27, "float32"),
 ])
 def test_res_shift_single_kernel(cuda, ch, t, b, dil, dtype):
     gen = torch.Generator().manual_seed(4)
@@ -395,10 +425,11 @@ BOUNDS = [(100, 250), (-5, 120), (200, 10 ** 6), (40, 41)]
 
 
 @pytest.mark.parametrize("ch,dtype", [(24, "float32"), (256, "float32"),
-                                      (128, "bfloat16")])
+                                      (512, "float32"), (128, "bfloat16")])
 def test_res_chain_and_shift_kernels_with_bounds(cuda, ch, dtype):
     """The signal window: rows outside it are zero padding at every block
-    and come out as zeros, also where the window leaves the array."""
+    and come out as zeros, also where the window leaves the array; the
+    float32 single block's 62-row tiles end inside the windows."""
     gen = torch.Generator().manual_seed(9)
     dt = getattr(torch, dtype)
     t = 333

@@ -40,6 +40,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from voicefixer_tpu_torch.kernels import convblock, resstack
 from voicefixer_tpu_torch.kernels.gru import gru_bidir, gru_seq
@@ -910,7 +911,7 @@ def test_chain_wgmma_schedule(ch, t, b, dils, tm, bounds):
     bank = [v.to(torch.bfloat16) for v in bank]
     x = torch.from_numpy(_rand(rng, (b, t, ch))).to(torch.bfloat16)
     if tm is None:
-        tm = resstack.chain_tile(ch, dils, 2, wgmma=True)[0]
+        tm = resstack.chain_tile(ch, dils, 2, route="wgmma")[0]
     assert resstack.wgmma_smem_bytes(ch, dils, tm) <= resstack.SMEM_LIMIT
     got = _chain_wgmma_model(x, *bank, dils, 0.2, 0.3, tm, bounds)
     ref = res_chain_reference(x, *bank, dils, 0.2, 0.3, bounds)
@@ -948,7 +949,239 @@ def test_plan_stack_wgmma_groups_fit(ch):
     for i0, i1, tm in chains:
         sub = dils[i0:i1]
         assert resstack.wgmma_smem_bytes(ch, sub, tm) <= resstack.SMEM_LIMIT
-        tile = resstack.chain_tile(ch, sub, 2, wgmma=True)
+        tile = resstack.chain_tile(ch, sub, 2, route="wgmma")
         assert tile[0] == tm and tile[1] >= resstack.MIN_EFFICIENCY
         # the planner's tiles make block 0's h whole 64-row tiles
         assert (tm + 2 * resstack.chain_extents(sub)[1] + 2) % 64 == 0
+
+
+# ------------------------------------------- the float32 kernels' schedule
+
+F32_STAGES, F32_BM, F32_BN, F32_BK = resstack.F32_STAGES, 64, 256, 16
+_A_GLOBAL, _A_SLAB, _A_DIRECT = "global", "slab", "direct"
+
+
+def _f32_product(mode, src, row0, step, lo, hi, w, ch, n0, slope):
+    """One tap product of csrc/resstack_f32.cu, in plain torch: the 64 x 256
+    tile at columns n0 over K steps (tap, 16 channels), each staged into ring
+    slot step % F32_STAGES, F32_STAGES - 1 steps ahead, the weights and (from
+    global memory) the rows of x as the copies leave them: zero outside [lo,
+    hi) and past C. conv1's LeakyReLU is applied to a staged A tile once,
+    the slab's rows as they are staged; h (``_A_DIRECT``) is read in place,
+    rows past hi read row hi - 1. Slots never written are NaN."""
+    kc = -(-ch // F32_BK)
+    steps = 3 * kc
+    ring_a = torch.full((F32_STAGES, F32_BM, F32_BK), float("nan"))
+    ring_b = torch.full((F32_STAGES, F32_BK, F32_BN), float("nan"))
+    r = torch.arange(F32_BM)
+    lrelu = lambda v: torch.where(v > 0, v, slope * v)  # noqa: E731
+
+    def tile(p, source, c0):
+        """A tile: rows p of source (zero outside [lo, hi)), channels c0 ..
+        c0 + 15 (zero past C)."""
+        ok = ((p >= lo) & (p < hi))[:, None]
+        a = source[p.clamp(lo, hi - 1), c0:min(c0 + F32_BK, ch)]
+        return F.pad(torch.where(ok, a, 0.0), (0, F32_BK - a.shape[1]))
+
+    def load(it):
+        s, (tap, ci) = it % F32_STAGES, divmod(it, kc)
+        c0 = ci * F32_BK
+        b = torch.zeros((F32_BK, F32_BN))
+        kk = torch.arange(c0, min(c0 + F32_BK, ch))
+        nn = torch.arange(n0, min(n0 + F32_BN, ch))
+        b[:len(kk), :len(nn)] = w[tap][kk][:, nn]
+        ring_b[s] = b
+        if mode == _A_GLOBAL:
+            ring_a[s] = tile(row0 + r + (tap - 1) * step, src, c0)
+
+    for it in range(min(F32_STAGES - 1, steps)):
+        load(it)
+    acc = torch.zeros((F32_BM, F32_BN))
+    for it in range(steps):
+        s, (tap, ci) = it % F32_STAGES, divmod(it, kc)
+        c0 = ci * F32_BK
+        if mode == _A_GLOBAL:
+            ring_a[s] = lrelu(ring_a[s])
+        elif mode == _A_SLAB:
+            ring_a[s] = lrelu(tile(row0 + r + (tap - 1) * step, src, c0))
+        if it + F32_STAGES - 1 < steps:
+            load(it + F32_STAGES - 1)
+        if mode == _A_DIRECT:
+            rows = (row0 + r + (tap - 1) * step).clamp(max=hi - 1)
+            a = src[rows][:, c0:c0 + F32_BK]
+        else:
+            a = ring_a[s]
+        acc += a @ ring_b[s]
+    return acc
+
+
+def _f32_ld(ch):
+    return -(-ch // F32_BK) * F32_BK + 4
+
+
+def _f32_cols(ch, n0):
+    return torch.arange(n0, min(n0 + F32_BN, ch))
+
+
+def _shift_f32_model(x, w1, b1, w2, b2, d, slope, final_slope, bounds):
+    """What csrc/resstack_f32.cu's shift kernel does, per (batch row,
+    62-row tile): h over 64 rows (NaN where unwritten, padding columns
+    zero), conv1 from x at its tap offsets, conv2 from h in place, both
+    epilogues with their masks. Every output row is written exactly once."""
+    bsz, t, ch = x.shape
+    lo, hi = resstack.clamp_bounds(bounds, t)
+    lrelu = lambda v, a: torch.where(v > 0, v, a * v)  # noqa: E731
+    y = torch.full((bsz, t, ch), float("nan"))
+    written = torch.zeros((bsz, t), dtype=torch.int64)
+    r = torch.arange(F32_BM)
+    for bi in range(bsz):
+        for t0 in range(0, t, F32_BM - 2):
+            h = torch.full((F32_BM, _f32_ld(ch)), float("nan"))
+            h[:, ch:] = 0.0
+            for n0 in range(0, ch, F32_BN):
+                acc = _f32_product(_A_GLOBAL, x[bi], t0 - 1, d, lo, hi,
+                                   w1, ch, n0, slope)
+                nc = _f32_cols(ch, n0)
+                pos = t0 - 1 + r
+                inside = ((pos >= lo) & (pos < hi))[:, None]
+                h[:, nc] = torch.where(
+                    inside, lrelu(acc[:, :len(nc)] + b1[nc], slope), 0.0)
+            for n0 in range(0, ch, F32_BN):
+                acc = _f32_product(_A_DIRECT, h, 1, 1, 0, F32_BM, w2,
+                                   ch, n0, slope)
+                nc = _f32_cols(ch, n0)
+                pos = t0 + r
+                keep = (r < F32_BM - 2) & (pos < t)
+                pos = pos[keep]
+                inside = ((pos >= lo) & (pos < hi))[:, None]
+                v = torch.where(inside, acc[keep][:, :len(nc)] + b2[nc]
+                                + x[bi, pos][:, nc], 0.0)
+                if final_slope is not None:
+                    v = lrelu(v, final_slope)
+                y[bi, pos[:, None], nc] = v
+                if n0 == 0:
+                    written[bi, pos] += 1
+    assert written.eq(1).all(), "an output row is not written exactly once"
+    return y
+
+
+def _chain_f32_model(x, w1s, b1s, w2s, b2s, dils, slope, final_slope, tm,
+                     bounds):
+    """What csrc/resstack_f32.cu's chain kernel does, per (batch row, time
+    tile): the slab (zero outside the window; padding columns NaN), then
+    per block conv1 from the slab over 64-row tiles and column passes, and
+    conv2 from h in place, written over the slab or, for the last block, to
+    the tile's output rows. h is NaN where unwritten, its padding columns
+    zero."""
+    bsz, t, ch = x.shape
+    n = len(dils)
+    lo, hi = resstack.clamp_bounds(bounds, t)
+    ext = resstack.chain_extents(dils)
+    e0 = ext[0]
+    slab_rows = tm + 2 * e0
+    lrelu = lambda v, a: torch.where(v > 0, v, a * v)  # noqa: E731
+    y = torch.full((bsz, t, ch), float("nan"))
+    written = torch.zeros((bsz, t), dtype=torch.int64)
+    r = torch.arange(F32_BM)
+    for bi in range(bsz):
+        for t0 in range(0, t, tm):
+            slab = torch.full((slab_rows, _f32_ld(ch)), float("nan"))
+            pos = torch.arange(slab_rows) + t0 - e0
+            ok = (pos >= lo) & (pos < hi)
+            slab[:, :ch] = 0.0
+            slab[ok, :ch] = x[bi, pos[ok]]
+            h = torch.full((tm + 2 * ext[1] + 2, _f32_ld(ch)), float("nan"))
+            h[:, ch:] = 0.0
+            for i, d in enumerate(dils):
+                eo = ext[i + 1]
+                h_rows, y_rows = tm + 2 * eo + 2, tm + 2 * eo
+                for m0 in range(0, h_rows, F32_BM):
+                    for n0 in range(0, ch, F32_BN):
+                        acc = _f32_product(_A_SLAB, slab,
+                                           e0 - eo - 1 + m0, d, 0, slab_rows,
+                                           w1s[i], ch, n0, slope)
+                        nc = _f32_cols(ch, n0)
+                        hr = m0 + r
+                        keep = hr < h_rows
+                        p = t0 - eo - 1 + hr[keep]
+                        inside = ((p >= lo) & (p < hi))[:, None]
+                        h[hr[keep][:, None], nc] = torch.where(
+                            inside, lrelu(acc[keep][:, :len(nc)]
+                                          + b1s[i][nc], slope), 0.0)
+                for m0 in range(0, y_rows, F32_BM):
+                    for n0 in range(0, ch, F32_BN):
+                        acc = _f32_product(_A_DIRECT, h, m0 + 1, 1, 0,
+                                           h_rows, w2s[i], ch, n0, slope)
+                        nc = _f32_cols(ch, n0)
+                        yr = m0 + r
+                        yr = yr[yr < y_rows]
+                        p = t0 - eo + yr
+                        srow = e0 - eo + yr
+                        inside = ((p >= lo) & (p < hi))[:, None]
+                        v = torch.where(inside, acc[:len(yr), :len(nc)]
+                                        + b2s[i][nc]
+                                        + slab[srow[:, None], nc], 0.0)
+                        if i + 1 < n:
+                            slab[srow[:, None], nc] = v
+                            continue
+                        sel = (p >= 0) & (p < t)
+                        if final_slope is not None:
+                            v = lrelu(v, final_slope)
+                        y[bi, p[sel][:, None], nc] = v[sel]
+                        if n0 == 0:
+                            written[bi, p[sel]] += 1
+    assert written.eq(1).all(), "an output row is not written exactly once"
+    return y
+
+
+def _f32_bank(rng, n, ch):
+    sc = 1 / (3 * ch) ** 0.5
+    return [torch.from_numpy(_rand(rng, shape, s))
+            for shape, s in (((n, 3, ch, ch), sc), ((n, ch), 0.05),
+                             ((n, 3, ch, ch), sc), ((n, ch), 0.05))]
+
+
+@pytest.mark.parametrize("ch,t,b,d,bounds", [
+    (2, 70, 2, 3, None),               # C far below a K step; batch 2
+    (24, 130, 1, 27, (10, 100)),       # ragged C; a window across tiles
+    (16, 20, 1, 27, None),             # T < d: the bias-only result
+    (512, 50, 1, 9, (-5, 45)),         # two column passes
+])
+def test_shift_f32_schedule(ch, t, b, d, bounds):
+    """The float32 single-block kernel's tiles, passes, ring order,
+    zero-filled rows and window masks against the plain version."""
+    from voicefixer_tpu_torch.kernels.resstack import (
+        res_shift_single_reference)
+
+    rng = np.random.default_rng(19)
+    w1, b1, w2, b2 = (v[0] for v in _f32_bank(rng, 1, ch))
+    x = torch.from_numpy(_rand(rng, (b, t, ch)))
+    got = _shift_f32_model(x, w1, b1, w2, b2, d, 0.2, 0.3, bounds)
+    ref = res_shift_single_reference(x, w1, b1, w2, b2, d, 0.2, 0.3, bounds)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-4,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("ch,t,b,dils,tm,bounds", [
+    (24, 100, 2, (1, 3), 17, None),          # ragged C; batch 2
+    (2, 77, 1, (1, 3, 9), None, (5, 60)),    # C = 2 under a window
+    (24, 150, 1, (1, 3, 9), 100, (-3, 140)),  # h over three 64-row tiles
+    (16, 20, 1, (27, 81), None, None),       # T < d: bias-only taps
+    (256, 70, 1, (1, 3), 54, None),          # stage 1's chain
+    (512, 2, 1, (1, 3), 1, None),            # two column passes
+])
+def test_chain_f32_schedule(ch, t, b, dils, tm, bounds):
+    """The float32 chain kernel's tiles, passes, ring order, zero-filled
+    rows, in-place slab and window masks against the plain version."""
+    from voicefixer_tpu_torch.kernels.resstack import res_chain_reference
+
+    rng = np.random.default_rng(23)
+    bank = _f32_bank(rng, len(dils), ch)
+    x = torch.from_numpy(_rand(rng, (b, t, ch)))
+    if tm is None:
+        tm = resstack.chain_tile(ch, dils, 4, route="f32")[0]
+    assert resstack.f32_smem_bytes(ch, dils, tm) <= resstack.SMEM_LIMIT
+    got = _chain_f32_model(x, *bank, dils, 0.2, 0.3, tm, bounds)
+    ref = res_chain_reference(x, *bank, dils, 0.2, 0.3, bounds)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-4,
+                               atol=2e-5)

@@ -8,7 +8,11 @@ cold build, on one CUDA card:
 Cases: ``upsample`` (the default), the float32 upsample, whose first launch
 once returned wrong numbers in 6 % of its outputs and no later one did: this
 is the record of the hunt; ``res_chain``, the bfloat16 wgmma chain at the
-width of vocoder stage 0. With BUILD_DIR the kernel libraries are built
+width of vocoder stage 0; ``res_chain_f32`` and ``res_shift_single_f32``,
+the float32 chain and single block of csrc/resstack_f32.cu, which stage
+their operands through a ``cp.async`` ring as the float32 upsample does,
+at the widths of vocoder stages 1 and 0. With BUILD_DIR the kernel
+libraries are built
 there (a new directory gives a cold build) instead of in the package's own
 build directory. The kernel's result
 and the plain version's result on the card are each held to the plain
@@ -34,6 +38,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 UPSAMPLE = dict(scale=7, cin=64, cout=32, t=100, b=2)
 CHAIN = dict(ch=512, t=300, b=1, dils=(1, 3))
+CHAIN_F32 = dict(ch=256, t=300, b=2, dils=(1, 3))
+SHIFT_F32 = dict(ch=512, t=300, b=2, d=81)
 
 
 def _upsample(torch):
@@ -77,7 +83,48 @@ def _res_chain(torch):
             2 ** -7 * float(ref.abs().max()))
 
 
-CASES = {"upsample": _upsample, "res_chain": _res_chain}
+def _f32_bank(torch, gen, n, ch):
+    sc = 1 / (3 * ch) ** 0.5
+    return [sc * torch.randn((n, 3, ch, ch), generator=gen),
+            0.05 * torch.randn((n, ch), generator=gen),
+            sc * torch.randn((n, 3, ch, ch), generator=gen),
+            0.05 * torch.randn((n, ch), generator=gen)]
+
+
+def _res_chain_f32(torch):
+    """(kernel, card plain, CPU plain) outputs, float32; tolerance 1e-4
+    (float32 sums in another order)."""
+    from voicefixer_tpu_torch.kernels.resstack import (res_chain,
+                                                       res_chain_reference)
+    gen = torch.Generator().manual_seed(0)
+    ch, t, b, dils = (CHAIN_F32[k] for k in ("ch", "t", "b", "dils"))
+    bank = _f32_bank(torch, gen, len(dils), ch)
+    x = torch.randn((b, t, ch), generator=gen)
+    ref = res_chain_reference(x, *bank, dils, 0.2, 0.3)
+    on_card = [v.cuda() for v in (x, *bank)]
+    return (res_chain(*on_card, dils, 0.2, 0.3).cpu(),
+            res_chain_reference(*on_card, dils, 0.2, 0.3).cpu(), ref, 1e-4,
+            1e-4)
+
+
+def _res_shift_single_f32(torch):
+    """(kernel, card plain, CPU plain) outputs, float32; tolerance 1e-4."""
+    from voicefixer_tpu_torch.kernels.resstack import (
+        res_shift_single, res_shift_single_reference)
+    gen = torch.Generator().manual_seed(0)
+    ch, t, b, d = (SHIFT_F32[k] for k in ("ch", "t", "b", "d"))
+    one = [v[0] for v in _f32_bank(torch, gen, 1, ch)]
+    x = torch.randn((b, t, ch), generator=gen)
+    ref = res_shift_single_reference(x, *one, d, 0.2, 0.3)
+    on_card = [v.cuda() for v in (x, *one)]
+    return (res_shift_single(*on_card, d, 0.2, 0.3).cpu(),
+            res_shift_single_reference(*on_card, d, 0.2, 0.3).cpu(), ref,
+            1e-4, 1e-4)
+
+
+CASES = {"upsample": _upsample, "res_chain": _res_chain,
+         "res_chain_f32": _res_chain_f32,
+         "res_shift_single_f32": _res_shift_single_f32}
 
 
 def one(case: str, build_dir: str | None) -> int:

@@ -418,8 +418,10 @@ struct Gemm<__nv_bfloat16, BN> {
 
 // One block at any dilation. Block (bx, b) computes output rows
 // [t0, t0 + BM - 2) of batch row b from h rows [t0 - 1, t0 + BM - 1). Its
-// shared memory lets two thread blocks share an SM at every width of the
-// vocoder, so the registers are capped for two as well: they hide each
+// shared memory lets two thread blocks share an SM at every width it runs
+// (bfloat16 up to C = 512: 97 KB; float32 up to C = 128, the fused stages:
+// 65 KB; float32 at wider C runs resstack_f32.cu instead, one thread block
+// an SM), so the registers are capped for two as well: they hide each
 // other's waits at the barriers, which gains more than the few spills cost.
 template <typename T, int BN>
 __global__ void __launch_bounds__(THREADS, 2)

@@ -1,5 +1,6 @@
-"""The vocoder's ResStack (csrc/resstack.cu, csrc/resblock.cuh; bfloat16
-chains csrc/resstack_wgmma.cu), the port of
+"""The vocoder's ResStack (float32: csrc/resstack_f32.cu; bfloat16 chains
+csrc/resstack_wgmma.cu, single blocks csrc/resstack.cu and
+csrc/resblock.cuh), the port of
 ``voicefixer_tpu/kernels/resstack.py``: ``res_chain`` (n consecutive blocks
 in one kernel, intermediates in shared memory), ``res_shift_single`` (one
 block, its +-d taps read at row offsets), the dispatcher ``res_stack`` over
@@ -65,6 +66,12 @@ WG_CONSUMERS = 2
 WG_STAGE_BYTES = 16384
 WG_MIN_STAGES = 2
 WG_ALIGN = 64
+# of csrc/resstack_f32.cu, the float32 chain and single block: a ring of
+# F32_STAGES K steps, each a 64 x 16 A tile (rows 20 floats apart) and a
+# 16 x 256 weight tile; slab and h rows of the width rounded up to 16 plus 4
+# floats; one thread block an SM
+F32_STAGES = 3
+F32_RING_BYTES = F32_STAGES * (BM * 20 + 16 * 256) * 4
 
 
 def stack_dilations(depth: int) -> tuple:
@@ -147,19 +154,40 @@ def chain_extents(dils) -> tuple:
 
 
 def chain_smem_bytes(ch: int, dils, tm: int, itemsize: int) -> int:
-    """Shared memory of one thread block of the WMMA chain kernel (float32,
-    and the fused stages' groups): the staging tiles, the input slab (tile +
-    halo) and the widest block's h; rows are padded by 16 bytes."""
+    """Shared memory of one thread block of the WMMA chain kernel (the fused
+    stages' groups): the staging tiles, the input slab (tile + halo) and the
+    widest block's h; rows are padded by 16 bytes."""
     e = chain_extents(dils)
     rows = (tm + 2 * e[0]) + (tm + 2 * e[1] + 2)
     return STAGE_BYTES + rows * (ch + 16 // itemsize) * itemsize
 
 
-def wgmma_chain(ch: int, itemsize: int) -> bool:
-    """Whether ``plan_stack`` plans for the bfloat16 wgmma chain kernel: the
-    unfused stages (C > FUSE_MAX_CHANNELS) in bfloat16. Narrower stacks are
-    planned for the fused kernels, which run the WMMA chain."""
-    return itemsize == 2 and ch > FUSE_MAX_CHANNELS
+def f32_smem_bytes(ch: int, dils, tm: int) -> int:
+    """Shared memory of one thread block of the float32 chain kernel: the
+    ring, the slab (tile + halo) and the widest block's h."""
+    e = chain_extents(dils)
+    rows = (tm + 2 * e[0]) + (tm + 2 * e[1] + 2)
+    return F32_RING_BYTES + rows * (-(-ch // 16) * 16 + 4) * 4
+
+
+def chain_route(ch: int, itemsize: int) -> str:
+    """The chain kernel that ``plan_stack`` plans for: at the unfused stages
+    (C > FUSE_MAX_CHANNELS) the bfloat16 wgmma kernel ("wgmma") or the
+    float32 one ("f32"); narrower stacks are planned for the fused kernels,
+    which run the WMMA chain ("wmma")."""
+    if ch <= FUSE_MAX_CHANNELS:
+        return "wmma"
+    return "wgmma" if itemsize == 2 else "f32"
+
+
+def route_smem_bytes(route: str, ch: int, dils, tm: int,
+                     itemsize: int) -> int:
+    """Shared memory of one thread block of ``route``'s chain kernel."""
+    if route == "wgmma":
+        return wgmma_smem_bytes(ch, dils, tm)
+    if route == "f32":
+        return f32_smem_bytes(ch, dils, tm)
+    return chain_smem_bytes(ch, dils, tm, itemsize)
 
 
 def wgmma_smem_bytes(ch: int, dils, tm: int,
@@ -185,24 +213,22 @@ def wgmma_passes(ch: int, dils, tm: int) -> int:
 
 
 def chain_tile(ch: int, dils, itemsize: int, budget: int = SMEM_LIMIT,
-               wgmma: bool = False):
+               route: str = "wmma"):
     """(tm, efficiency) of the best output tile of a chain over ``dils``, or
-    None when no tile fits ``budget`` bytes of shared memory. Tiles make the
-    first block's h a whole number of product tiles; efficiency is the share
-    of product rows that are output rows. With ``wgmma``, the bfloat16 chain
-    kernel's accounting: its shared memory, and product rows counted as the
-    two warpgroups' 64-row tiles of every pass, busy or not."""
+    None when no tile fits ``budget`` bytes of shared memory of ``route``'s
+    chain kernel (``chain_route``). Tiles make the first block's h a whole
+    number of product tiles; efficiency is the share of product rows that
+    are output rows: 64-row tiles, and for "wgmma" the two warpgroups'
+    64-row tiles of every pass, busy or not."""
     e = chain_extents(dils)
     best = None
     k = 1
     while True:
         tm = k * BM - 2 * e[1] - 2
-        smem = (wgmma_smem_bytes(ch, dils, max(tm, 1)) if wgmma
-                else chain_smem_bytes(ch, dils, max(tm, 1), itemsize))
-        if smem > budget:
+        if route_smem_bytes(route, ch, dils, max(tm, 1), itemsize) > budget:
             return best
         if tm >= 1:
-            if wgmma:
+            if route == "wgmma":
                 done = (wgmma_passes(ch, dils, tm) * WG_CONSUMERS * WG_ROWS
                         / -(-ch // WG_COLS))
             else:
@@ -216,31 +242,32 @@ def chain_tile(ch: int, dils, itemsize: int, budget: int = SMEM_LIMIT,
 
 @functools.lru_cache(maxsize=64)
 def plan_stack(ch: int, dils: tuple, itemsize: int,
-               first_chain: bool = False) -> tuple:
+               first_chain: bool = False, route: str | None = None) -> tuple:
     """Cut a stack's blocks into kernel launches: ((i0, i1, tm), ...) over
     range(len(dils)). A group with a tile ``tm`` is a chain; ``tm`` None is
     one block for ``res_shift_single``. Greedy: from each block, the longest
     chain of at least two blocks that fits the first of SMEM_BUDGETS it can
     at MIN_EFFICIENCY or better, else the block alone. With ``first_chain``
     the first group is a chain even when it is one block (the fused upsample
-    feeds a chain). The bfloat16 chain kernel takes one thread block an SM
-    (``wgmma_chain``): its only budget is SMEM_LIMIT."""
+    feeds a chain). ``route`` is the chain kernel planned for, by default
+    ``chain_route``'s; "wgmma" and "f32" take one thread block an SM: their
+    only budget is SMEM_LIMIT."""
     n = len(dils)
-    wgmma = wgmma_chain(ch, itemsize)
+    route = route or chain_route(ch, itemsize)
     groups = []
     i = 0
     while i < n:
         pick = None
-        for budget in (SMEM_LIMIT,) if wgmma else SMEM_BUDGETS:
+        for budget in SMEM_BUDGETS if route == "wmma" else (SMEM_LIMIT,):
             for j in range(min(n, i + MAX_BLOCKS), i + 1, -1):
-                tile = chain_tile(ch, dils[i:j], itemsize, budget, wgmma)
+                tile = chain_tile(ch, dils[i:j], itemsize, budget, route)
                 if tile is not None and tile[1] >= MIN_EFFICIENCY:
                     pick = (i, j, tile[0])
                     break
             if pick is not None:
                 break
         if pick is None and first_chain and i == 0:
-            tile = chain_tile(ch, dils[:1], itemsize, wgmma=wgmma)
+            tile = chain_tile(ch, dils[:1], itemsize, route=route)
             if tile is None:
                 raise ValueError(f"no chain tile fits shared memory at "
                                  f"C={ch}, itemsize {itemsize}")
@@ -289,7 +316,7 @@ def res_chain(x: torch.Tensor, w1s, b1s, w2s, b2s, dils,
     [n, 3, C, C] (block, tap, in, out) in torch tap order; b1s, b2s: [n, C].
     ``tm`` is the output tile of a thread block, by default the planner's;
     ``mask_bounds`` the signal window (lo, hi) in rows. bfloat16 runs the
-    wgmma chain kernel, float32 the WMMA one."""
+    wgmma chain kernel, float32 the FMA one of csrc/resstack_f32.cu."""
     dils = tuple(int(d) for d in dils)
     if kernels.on_cpu(x, w1s, b1s, w2s, b2s):
         return res_chain_reference(x, w1s, b1s, w2s, b2s, dils, slope,
@@ -300,12 +327,11 @@ def res_chain(x: torch.Tensor, w1s, b1s, w2s, b2s, dils,
         raise ValueError(f"res_chain: dilations {dils}")
     bsz, t, ch = x.shape
     bf16 = x.dtype == torch.bfloat16
+    route = "wgmma" if bf16 else "f32"
     if tm is None:
-        tile = chain_tile(ch, dils, x.element_size(), wgmma=bf16)
+        tile = chain_tile(ch, dils, x.element_size(), route=route)
         tm = tile[0] if tile is not None else 1
-    smem = (wgmma_smem_bytes(ch, dils, tm) if bf16
-            else chain_smem_bytes(ch, dils, tm, x.element_size()))
-    if smem > SMEM_LIMIT:
+    if route_smem_bytes(route, ch, dils, tm, x.element_size()) > SMEM_LIMIT:
         raise ValueError(f"res_chain: C={ch}, dilations {dils}, tile {tm} "
                          f"do not fit {SMEM_LIMIT} bytes of shared memory")
     x = x.contiguous()
@@ -320,8 +346,8 @@ def res_chain(x: torch.Tensor, w1s, b1s, w2s, b2s, dils,
         lib = _wgmma_lib()
         rc = lib.vf_res_chain_wgmma(*args, stream)
     else:
-        lib = _lib()
-        rc = lib.vf_res_chain(*args, stream)
+        lib = _f32_lib()
+        rc = lib.vf_res_chain_f32(*args, stream)
     build.check(lib, rc, "res_chain")
     kernels.launches["res_chain"] += 1
     return y
@@ -330,7 +356,9 @@ def res_chain(x: torch.Tensor, w1s, b1s, w2s, b2s, dils,
 def res_shift_single(x: torch.Tensor, w1, b1, w2, b2, dil: int,
                      slope: float = 0.2, final_slope=None, mask_bounds=None):
     """One block at dilation ``dil``. x: [B, T, C]; w1, w2: [3, C, C];
-    b1, b2: [C]; ``mask_bounds`` the signal window (lo, hi) in rows."""
+    b1, b2: [C]; ``mask_bounds`` the signal window (lo, hi) in rows.
+    float32 runs the FMA kernel of csrc/resstack_f32.cu, bfloat16 the WMMA
+    one of csrc/resstack.cu."""
     if kernels.on_cpu(x, w1, b1, w2, b2):
         return res_shift_single_reference(x, w1, b1, w2, b2, dil, slope,
                                           final_slope, mask_bounds)
@@ -342,13 +370,16 @@ def res_shift_single(x: torch.Tensor, w1, b1, w2, b2, dil: int,
     x = x.contiguous()
     w1, b1, w2, b2 = (v.to(x.dtype).contiguous() for v in (w1, b1, w2, b2))
     y = torch.empty_like(x)
-    lib = _lib()
-    rc = lib.vf_res_shift_single(
-        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), y.data_ptr(), bsz, t, ch, int(dil),
-        *slope_args(slope, final_slope), *clamp_bounds(mask_bounds, t),
-        int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    if x.dtype == torch.bfloat16:
+        lib = _lib()
+        fn = lib.vf_res_shift_single
+    else:
+        lib = _f32_lib()
+        fn = lib.vf_res_shift_single_f32
+    rc = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            b2.data_ptr(), y.data_ptr(), bsz, t, ch, int(dil),
+            *slope_args(slope, final_slope), *clamp_bounds(mask_bounds, t),
+            torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, rc, "res_shift_single")
     kernels.launches["res_shift_single"] += 1
     return y
@@ -370,7 +401,9 @@ def res_stack(params: list, x: torch.Tensor, kernel: int, slope: float,
         from voicefixer_tpu_torch.kernels.resstream import res_stream
         return res_stream(x, *res_bank(params), dils, slope, final_slope,
                           mask_bounds)
-    groups = plan_stack(x.shape[-1], dils, x.element_size())
+    # res_chain runs the float32 chain kernel at any width: plan for it
+    groups = plan_stack(x.shape[-1], dils, x.element_size(),
+                        route="f32" if x.dtype == torch.float32 else None)
     for i0, i1, tm in groups:
         fs = final_slope if i1 == len(params) else None
         if tm is None:
@@ -400,24 +433,31 @@ def up_res_stack(up_params: dict, res_params: list, x_src: torch.Tensor,
                          final_slope)
 
 
+# argument types of a chain entry point and of a single-block one
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+CHAIN_ARGS = [_P] * 6 + [_I] * 4 + [ctypes.POINTER(ctypes.c_int), _I, _F,
+                                    _F, _I, _I, _I, _P]
+SHIFT_ARGS = [_P] * 6 + [_I] * 4 + [_F, _F, _I, _I, _I, _P]
+
+
 def _lib():
     lib = build.load("resstack")
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    ip = ctypes.POINTER(ctypes.c_int)
-    lib.vf_res_chain.argtypes = [p, p, p, p, p, p, i, i, i, i, ip, i, f, f,
-                                 i, i, i, p]
-    lib.vf_res_chain.restype = i
-    lib.vf_res_shift_single.argtypes = [p, p, p, p, p, p, i, i, i, i, f, f,
-                                        i, i, i, i, p]
-    lib.vf_res_shift_single.restype = i
+    lib.vf_res_shift_single.argtypes = SHIFT_ARGS
+    lib.vf_res_shift_single.restype = _I
+    return lib
+
+
+def _f32_lib():
+    lib = build.load("resstack_f32")
+    lib.vf_res_chain_f32.argtypes = CHAIN_ARGS
+    lib.vf_res_chain_f32.restype = _I
+    lib.vf_res_shift_single_f32.argtypes = SHIFT_ARGS
+    lib.vf_res_shift_single_f32.restype = _I
     return lib
 
 
 def _wgmma_lib():
     lib = build.load("resstack_wgmma")
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.vf_res_chain_wgmma.argtypes = [p, p, p, p, p, p, i, i, i, i,
-                                       ctypes.POINTER(ctypes.c_int), i, f, f,
-                                       i, i, i, p]
-    lib.vf_res_chain_wgmma.restype = i
+    lib.vf_res_chain_wgmma.argtypes = CHAIN_ARGS
+    lib.vf_res_chain_wgmma.restype = _I
     return lib
