@@ -182,6 +182,20 @@ def f32_executed_flops(ch: int, t: int, dils, tm) -> int:
     return -(-t // tm) * tiles * per_row
 
 
+def conv_block_executed_flops(t: int, f: int, ci: int, co: int,
+                              itemsize: int, batch: int = 1) -> int:
+    """FLOPs that the ConvBlockRes kernel (csrc/convblock.cu) runs on
+    [batch, t, f, ci], discarded rows and padding included: conv1 over each
+    run's halo and steps (9 taps of Ci rounded up to 16), conv2 and the
+    shortcut's K rows over the steps, every product at the width rounded
+    up to 32, 64 or 128 columns (``kernels.convblock.plan_stream``)."""
+    from voicefixer_tpu_torch.kernels import convblock
+    p = convblock.plan_stream(t, f, ci, co, itemsize, batch)
+    c1, c2 = p.executed_rows(t * (f + 1))
+    k2 = 9 * p.cp2 + (p.cp1 if ci != co else 0)
+    return batch * 2 * p.np * (c1 * 9 * p.cp1 + c2 * k2)
+
+
 def chain_weight_bytes(ch: int, t: int, dils, tm: int,
                        wgmma: bool = True) -> int:
     """Weight bytes that a bfloat16 chain reads from L2 over a [1, t, ch]
@@ -712,13 +726,20 @@ def _conv_block_case(gen, device, dtype, t, f, ci, co, per_chunk):
         raise AssertionError(f"conv_block_res does not take [{t}, {f}] "
                              f"{ci}->{co} {dtype}")
     flops, work_bytes = conv_block_work(t, f, ci, co, x.element_size())
+    plan = convblock.plan_stream(t, f, ci, co, x.element_size())
+    layout = (f"{plan.tr} x 8 a thread" if plan.tr
+              else f"{plan.stages} weight stages")
     # bfloat16: the output is rounded once; a2 is rounded where the plain
     # version rounds it, so one ulp of a2 (2^-8 relative) where the float32
     # sums straddle a boundary reaches the output through conv2
     return {"name": "conv_block_res", "dtype": dtype,
             "shape": f"[1, {t}, {f}, {ci}] -> {co}, "
-                     f"{'1x1 shortcut' if ci != co else 'identity'}, tile "
-                     f"{convblock.plan_tile(f, co, x.element_size(), ci != co)}",
+                     f"{'1x1 shortcut' if ci != co else 'identity'}; "
+                     f"{plan.runs} runs of {plan.run} rows, steps of "
+                     f"{plan.bm}, {plan.np} columns, {layout}",
+            "executed": conv_block_executed_flops(t, f, ci, co,
+                                                  x.element_size()),
+            "args": (x, p, slope),
             "fn": lambda: convblock.conv_block_res(x, p, slope),
             "plain": lambda: convblock.conv_block_res_reference(x, p, slope),
             "library": lambda: resunet._conv_block_res(p, x, slope),
@@ -810,7 +831,10 @@ def phase_kernels(device):
             bms, by = bound_ms(c["bytes"], c["flops"], c["peak"])
             rate = ("" if not c.get("executed") else
                     f"; executed {c['executed'] / 1e9:.1f} GFLOP, "
-                    f"{c['executed'] / ms / 1e9:.1f} TFLOP/s")
+                    f"{c['executed'] / ms / 1e9:.1f} TFLOP/s executed, "
+                    f"{c['flops'] / ms / 1e9:.1f} useful")
+            if lib_ms:
+                rate += f"; {ms / lib_ms:.2f}x the library's time"
             log(f"  {c['name']} {c['dtype']} {c['shape']}: kernel {ms:.3f} ms, "
                 f"plain {plain_ms:.3f} ms, library {lib_ms} ms, bound "
                 f"{bms:.4f} ms ({by}; {c['flops'] / 1e9:.2f} GFLOP, "
@@ -1080,8 +1104,13 @@ def phase_conv_block_path(vf, wav, outs, device):
                 lib_ms = busy()
                 with conv_block_kernel():
                     k_ms = busy()
-                    k9 = sum(r[1] for r in _device_kernels(unet)
-                             if "conv_block_kernel" in r[0])
+                    k9_rows = [r for r in _device_kernels(unet)
+                               if _kernel_group(r[0]) == K9_GROUP]
+                if not k9_rows:
+                    raise AssertionError(
+                        f"{mode}: the profiler saw no kernel of the "
+                        f"{K9_GROUP} group on the conv-block path")
+                k9 = sum(r[1] for r in k9_rows)
             log(f"  {mode} resunet stage, summed kernel ms (profiler, 30 s): "
                 f"{k_ms:.2f} with {want['conv_block_res']} blocks through "
                 f"conv_block_res ({k9:.2f} ms in the kernel), {lib_ms:.2f} on "
@@ -1130,6 +1159,11 @@ def phase_gru_path(device):
     return counts
 
 
+# csrc/convblock.cu's kernels: conv_block_f32_kernel and
+# conv_block_wgmma_kernel
+K9_GROUP = "K9 conv_block_res"
+
+
 def _kernel_group(name: str) -> str:
     # chain_kernel<T, BN, UP>: UP is the fused upsample front of K4; K4's
     # later groups and all of K7's launch chain_kernel and shift_kernel, as
@@ -1138,7 +1172,7 @@ def _kernel_group(name: str) -> str:
     for key, group in (("stft_mel", "K5 stft_mel"),
                        ("gru_bidir", "K6 gru_bidir"),
                        ("gru_seq", "K8 gru_seq"),
-                       ("conv_block_kernel", "K9 conv_block_res"),
+                       ("conv_block_", K9_GROUP),
                        ("sin_residual", "x+sin(x) pre-pass of K1 and K4"),
                        ("upsample", "K1 upsample"),
                        ("chain_wgmma_kernel", "K2-bf16 chain_wgmma_kernel"),

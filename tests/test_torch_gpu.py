@@ -551,6 +551,69 @@ def test_conv_block_res_kernel(cuda, t, f, ci, co, b, dtype):
                                atol=tol[1])
 
 
+FULL_WIDTH_BLOCKS = [(3008, 127, 2, 32), (3008, 127, 32, 32),
+                     (3008, 127, 64, 32), (1504, 63, 32, 64),
+                     (1504, 63, 64, 64), (1504, 63, 128, 64),
+                     (752, 31, 64, 128), (752, 31, 128, 128)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t,f,ci,co", FULL_WIDTH_BLOCKS)
+def test_conv_block_res_full_width(cuda, t, f, ci, co, dtype):
+    """The 24 blocks' eight shapes of a 30 s chunk under the planner's own
+    plan, at chip_smoke.py's tolerances (float32 sums in another order over
+    up to 9 * 192 terms; bfloat16: an ulp of a2 through conv2)."""
+    gen = torch.Generator().manual_seed(14)
+    dt = getattr(torch, dtype)
+    p = _conv_block_params(gen, ci, co, cuda, dt)
+    x = _randn(gen, (1, t, f, ci)).to(cuda, dt)
+    got = convblock.conv_block_res(x, p, 0.01)
+    ref = convblock.conv_block_res_reference(x, p, 0.01)
+    tol = (1e-4, 1e-4) if dtype == "float32" else (2 ** -7, 2 ** -6)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=tol[0],
+                               atol=tol[1])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t,f,ci,co,b,run", [
+    (40, 31, 64, 128, 2, 300),   # batch 2, the shortcut; runs end inside a
+                                 # time step (300 = 9 * 32 + 12)
+    (60, 15, 32, 32, 1, 333),    # the identity; a last run of 294 rows
+    (25, 127, 2, 32, 1, 1000),   # the first block; several steps a run
+])
+def test_conv_block_res_run_boundaries(cuda, t, f, ci, co, b, run, dtype):
+    """Forced run lengths that end inside a time step: every run computes
+    conv1's halo again, and its rows are stored once."""
+    gen = torch.Generator().manual_seed(15)
+    dt = getattr(torch, dtype)
+    p = _conv_block_params(gen, ci, co, cuda, dt)
+    x = _randn(gen, (b, t, f, ci), 0.5).to(cuda, dt)
+    plan = convblock.plan_stream(t, f, ci, co, dt.itemsize, b, run=run)
+    assert plan.run == run and plan.runs > 1
+    got = convblock.launch(x, p, 0.01, plan)
+    ref = convblock.conv_block_res_reference(x, p, 0.01)
+    tol = (1e-4, 2e-5) if dtype == "float32" else (2 ** -7, 2e-3)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=tol[0],
+                               atol=tol[1])
+
+
+@pytest.mark.parametrize("case", ["conv_block_res_f32",
+                                  "conv_block_res_bf16"])
+def test_conv_block_res_first_launch_after_cold_build(cuda, case):
+    """The ConvBlockRes kernel in either type, whose weights and rows go
+    through cp.async (float32) or TMA and mbarriers (bfloat16), as the first
+    launch of two new processes, each straight after a cold build
+    (tools/torch_first_launch.py --case CASE)."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    tool = Path(__file__).resolve().parent.parent / "tools" / \
+        "torch_first_launch.py"
+    run = subprocess.run([sys.executable, str(tool), "--case", case,
+                          "--loop", "2"], capture_output=True, text=True)
+    assert run.returncode == 0, run.stdout + run.stderr
+
+
 def test_conv_block_res_refuses(cuda):
     """A block the kernel does not take raises on the card."""
     gen = torch.Generator().manual_seed(13)

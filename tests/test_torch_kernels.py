@@ -30,7 +30,8 @@ is held against the JAX package's plain path (``bounds_mask``).
 The FFT ``stft_mel`` kernel, the GEMM-view ``upsample`` kernel and the
 bfloat16 wgmma chain run only on a card, so their index arithmetic is
 replayed here in plain torch (``_stockham_fft``, ``_stft_mel_model``,
-``_upsample_gemm_model``, ``_chain_wgmma_model``) and held to the plain
+``_upsample_gemm_model``, ``_chain_wgmma_model``; the ConvBlockRes kernel's
+streaming walk, ``_conv_block_stream_model``) and held to the plain
 versions and the JAX kernels: 1e-4 for the STFT->mel (float32, another
 summation order), 2e-5 for the upsample, the chained bfloat16 tolerance
 above for the chain. These models run none of the CUDA code.
@@ -514,7 +515,7 @@ FULL_WIDTH_BLOCKS = [(3008, 127, 2, 32), (3008, 127, 32, 32),
 @pytest.mark.parametrize("t,f,ci,co", FULL_WIDTH_BLOCKS)
 def test_conv_block_eligible_takes_the_full_width_blocks(t, f, ci, co, dtype):
     """The port's rule takes every block the JAX kernel takes at full width
-    (at most 128 channels in and out), with a tile that fits one thread
+    (at most 128 channels in and out), with rings that fit one thread
     block's shared memory; shapes only, nothing is allocated."""
     dt = getattr(torch, dtype)
     e = lambda *s: torch.empty(s, device="meta", dtype=dt)  # noqa: E731
@@ -523,10 +524,11 @@ def test_conv_block_eligible_takes_the_full_width_blocks(t, f, ci, co, dtype):
     if ci != co:
         p["shortcut"] = {"w": e(1, 1, ci, co), "b": e(co)}
     assert convblock.eligible(p, e(1, t, f, ci))
-    tm = convblock.plan_tile(f, co, dt.itemsize, ci != co)
-    assert convblock.tile_smem_bytes(f, co, tm, dt.itemsize,
-                                     ci != co) <= resstack.SMEM_LIMIT
-    assert (tm + 2 * (f + 2)) % resstack.BM == 0
+    plan = convblock.plan_stream(t, f, ci, co, dt.itemsize)
+    assert plan.smem <= resstack.SMEM_LIMIT
+    # every product is whole tiles of the kernel's granule, at most a step
+    assert all(n % plan.tile == 0 and 0 < n <= plan.bm
+               for _, _, n in plan.products(plan.run))
 
 
 @pytest.mark.parametrize("why", ["wide", "unfolded", "k1", "ragged_bf16",
@@ -552,6 +554,195 @@ def test_conv_block_not_eligible(why):
     if why == "k1":
         p["conv1"]["w"] = e(1, 1, ci, co)
     assert not convblock.eligible(p, e(1, 16, 15, ci, dt=dt))
+
+
+def _old_tile_cost(t, f, ci, co, itemsize, batch=1):
+    """Product rows an SM executed in series under the tile-with-halo K9
+    (before the streaming kernel): tm rows a thread block, conv1 over tm +
+    2(F + 2) rows and conv2 over tm rounded up to 64, one or two thread
+    blocks an SM by its shared memory (its planner, plan_tile, restated)."""
+    budgets, stage, bm = (resstack.SMEM_LIMIT // 2 - 1024,
+                          resstack.SMEM_LIMIT), 32768, 64
+
+    def smem(tm):
+        return (stage + (tm + 2 * (f + 2)) * (co + 16 // itemsize) * itemsize
+                + (tm * (co + 4) * 4 if ci != co else 0))
+
+    best = None
+    for budget in budgets:
+        k = 1
+        while smem(max(k * bm - 2 * (f + 2), 1)) <= budget:
+            tm = k * bm - 2 * (f + 2)
+            if tm >= 1:
+                eff = 2 * tm / (k * bm + -(-tm // bm) * bm)
+                if best is None or eff > best[1]:
+                    best = (tm, eff)
+            k += 1
+        if best is not None and best[1] >= 0.65:
+            break
+    tm = best[0]
+    per_sm = 2 if smem(tm) <= budgets[0] else 1
+    tiles = batch * -(-t * (f + 1) // tm)
+    return (-(-tiles // (convblock.SMS * per_sm)) * per_sm
+            * (tm + 2 * (f + 2) + -(-tm // bm) * bm))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t,f,ci,co", FULL_WIDTH_BLOCKS)
+def test_conv_block_plan_fits_and_never_executes_more_rows(t, f, ci, co,
+                                                           dtype):
+    """The streaming plan of each full-width block fits a thread block's
+    shared memory, and an SM executes no more product rows in series
+    (waves x the busiest block's rows) than under the tile-with-halo kernel
+    it replaced."""
+    itemsize = getattr(torch, dtype).itemsize
+    plan = convblock.plan_stream(t, f, ci, co, itemsize)
+    np_, cp1, cp2 = plan.np, plan.cp1, plan.cp2
+    if dtype == "float32":
+        assert plan.smem == convblock.f32_smem_bytes(np_, plan.tr, cp1, cp2,
+                                                     f)
+    else:
+        assert plan.smem == convblock.wgmma_smem_bytes(np_, plan.bm, cp1,
+                                                       cp2, f, plan.stages)
+        assert plan.stages >= convblock.WG_STAGES[0]
+    assert plan.smem <= resstack.SMEM_LIMIT
+    rows = t * (f + 1)
+    assert plan.runs * plan.run >= rows > (plan.runs - 1) * plan.run
+    cost = -(-plan.runs // convblock.SMS) * plan.block_rows(rows)
+    assert cost <= _old_tile_cost(t, f, ci, co, itemsize)
+
+
+def _conv_block_stream_model(x, params, slope, plan):
+    """What csrc/convblock.cu does, per (batch row, run): the a1 and a2
+    rings (NaN where unwritten, each slot tagged with the stream row it
+    holds), the products in ``convblock.walk`` order, the a1 rows copied
+    just before the conv1 that reads them, taps read in place at their row
+    offsets modulo the ring, the shortcut as conv2's last K rows over x,
+    the masks at the absent column and outside the stream, and the stores
+    of the run's rows only. Every tap that a stored output reads must find
+    its own row in the ring, and every output is written exactly once."""
+    bsz, t, f, ci = x.shape
+    co = params["conv1"]["w"].shape[3]
+    dt = x.dtype
+    fp, hb, rows = f + 1, f + 2, t * (f + 1)
+    w1, w2, bsc = convblock.pack_weights(params, dt, plan.np)
+    if dt == torch.bfloat16:
+        w1, w2 = w1.t(), w2.t()
+    w1, w2 = w1.float(), w2.float()
+    taps = [(j // 3 - 1) * fp + j % 3 - 1 for j in range(9)]
+    lrelu = lambda v: torch.where(v > 0, v, slope * v)  # noqa: E731
+
+    def bn_act(v, bn, c):
+        v = v[:, :c] * bn["scale"].float() + bn["shift"].float()
+        return lrelu(v).to(dt).float()
+
+    def inside(q):
+        return (q >= 0) & (q < rows) & (q % fp < f)
+
+    def pixel(q):
+        return (q // fp) * f + q % fp
+
+    y = torch.full((bsz, t * f, co), float("nan"), dtype=dt)
+    written = torch.zeros((bsz, t * f), dtype=torch.int64)
+    for b in range(bsz):
+        xf = x[b].reshape(t * f, ci).float()
+        for r in range(plan.runs):
+            s0 = r * plan.run
+            s1 = min(s0 + plan.run, rows)
+            origin2 = s0 - hb - plan.front
+            origin1 = origin2 - hb
+            rings = {1: torch.full((plan.ring1, plan.cp1), float("nan")),
+                     2: torch.full((plan.ring2, plan.cp2), float("nan"))}
+            tags = {1: torch.full((plan.ring1,), -10 ** 9),
+                    2: torch.full((plan.ring2,), -10 ** 9)}
+            origin = {1: origin1, 2: origin2}
+
+            def put(k, q, v):
+                slot = (q - origin[k]) % len(tags[k])
+                assert len(set(slot.tolist())) == len(slot)
+                rings[k][slot], tags[k][slot] = v, q
+
+            def taps_of(k, q, needed):
+                parts = []
+                for off in taps:
+                    slot = (q + off - origin[k]) % len(tags[k])
+                    assert torch.equal(tags[k][slot][needed],
+                                       (q + off)[needed]), "a stale ring row"
+                    parts.append(rings[k][slot])
+                return torch.cat(parts, 1)
+
+            a1_end = origin1
+            for kind, q0, n in convblock.walk(s0, s1, f, plan.bm, plan.tile,
+                                              plan.front):
+                assert n % plan.tile == 0 and 0 < n <= plan.bm
+                q = torch.arange(q0, q0 + n)
+                if kind == "conv1":
+                    qa = torch.arange(a1_end, q0 + n + hb)
+                    ok = inside(qa)
+                    v = torch.zeros((len(qa), plan.cp1))
+                    v[:, :ci] = torch.where(
+                        ok[:, None], bn_act(xf[pixel(qa).clamp(0, t * f - 1)],
+                                            params["bn1"], ci), 0.0)
+                    put(1, qa, v)
+                    a1_end = q0 + n + hb
+                    # a2 rows that stored outputs read: below s1 + hb
+                    h = taps_of(1, q, q < s1 + hb) @ w1
+                    a2 = torch.zeros((n, plan.cp2))
+                    a2[:, :co] = torch.where(inside(q)[:, None],
+                                             bn_act(h, params["bn2"], co),
+                                             0.0)
+                    put(2, q, a2)
+                else:
+                    keep = (q < s1) & inside(q)
+                    a = taps_of(2, q, q < s1)
+                    pix = torch.where(inside(q), pixel(q), 0)
+                    if bsc is not None:
+                        xs = F.pad(xf[pix], (0, plan.cp1 - ci))
+                        a = torch.cat([a, xs], 1)
+                        res = bsc.float()
+                    else:
+                        res = xf[pix]
+                    out = (a @ w2)[:, :co] + res
+                    y[b, pixel(q[keep])] = out[keep].to(dt)
+                    written[b, pixel(q[keep])] += 1
+    assert written.eq(1).all(), "an output is not written exactly once"
+    return y.reshape(bsz, t, f, co)
+
+
+@pytest.mark.parametrize("dtype,t,f,ci,co,b,run,bm", [
+    # float32, batch 2, Ci = 2 -> Co = 10 through the shortcut; a run of
+    # 555 rows ends inside a time step after three steps (the rings wrap),
+    # the stream's last run is 45 rows
+    ("float32", 60, 9, 2, 10, 2, 555, 256),
+    # the identity at a 128-row step: two runs of two steps each
+    ("float32", 50, 7, 64, 64, 1, 205, 128),
+    # a run shorter than the halo (hb = 33): conv1 starts two tiles early
+    ("float32", 10, 31, 128, 128, 1, 40, 64),
+    # bfloat16: 64-row tiles, the halo's last tile leads and the run's last
+    # conv1 is shorter; Ci = 2 through the shortcut, batch 2
+    ("bfloat16", 60, 9, 2, 8, 2, 255, 128),
+    ("bfloat16", 40, 15, 32, 32, 1, 300, 128),
+    ("bfloat16", 8, 31, 64, 128, 1, 100, 128),
+])
+def test_conv_block_stream_schedule(dtype, t, f, ci, co, b, run, bm):
+    """The streaming ConvBlockRes kernel's runs, steps, rings, halo, masks
+    and shortcut rows, replayed in plain torch against the plain version."""
+    from voicefixer_tpu_torch.ops.conv import fold_bn_eval
+
+    rng = np.random.default_rng(41)
+    dt = getattr(torch, dtype)
+    params = _tree(fold_bn_eval(_tree(_conv_block_params(rng, ci, co),
+                                      torch.from_numpy)),
+                   lambda a: a.to(dt))
+    x = torch.from_numpy(_rand(rng, (b, t, f, ci), 0.5)).to(dt)
+    plan = convblock.plan_stream(t, f, ci, co, dt.itemsize, b, run=run,
+                                 bm=bm)
+    assert plan is not None and plan.run == run and plan.bm == bm
+    got = _conv_block_stream_model(x, params, 0.01, plan)
+    ref = convblock.conv_block_res_reference(x, params, 0.01)
+    tol = (1e-4, 2e-5) if dtype == "float32" else (2 ** -7, 2e-3)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=tol[0],
+                               atol=tol[1])
 
 
 # ------------------------- the redesigned kernels' index arithmetic, modelled

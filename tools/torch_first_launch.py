@@ -11,7 +11,10 @@ is the record of the hunt; ``res_chain``, the bfloat16 wgmma chain at the
 width of vocoder stage 0; ``res_chain_f32`` and ``res_shift_single_f32``,
 the float32 chain and single block of csrc/resstack_f32.cu, which stage
 their operands through a ``cp.async`` ring as the float32 upsample does,
-at the widths of vocoder stages 1 and 0. With BUILD_DIR the kernel
+at the widths of vocoder stages 1 and 0; ``conv_block_res_f32`` and
+``conv_block_res_bf16``, the ConvBlockRes kernel of csrc/convblock.cu
+(cp.async in float32, TMA and mbarriers in bfloat16) at the ResUNet's
+first level with its shortcut, batch 2. With BUILD_DIR the kernel
 libraries are built
 there (a new directory gives a cold build) instead of in the package's own
 build directory. The kernel's result
@@ -40,6 +43,7 @@ UPSAMPLE = dict(scale=7, cin=64, cout=32, t=100, b=2)
 CHAIN = dict(ch=512, t=300, b=1, dils=(1, 3))
 CHAIN_F32 = dict(ch=256, t=300, b=2, dils=(1, 3))
 SHIFT_F32 = dict(ch=512, t=300, b=2, d=81)
+CONV_BLOCK = dict(t=200, f=127, ci=64, co=32, b=2)
 
 
 def _upsample(torch):
@@ -122,9 +126,50 @@ def _res_shift_single_f32(torch):
             1e-4, 1e-4)
 
 
+def _conv_block_res(torch, dtype, rtol, atol):
+    """(kernel, card plain, CPU plain) outputs of one ConvBlockRes with the
+    1x1 shortcut."""
+    from voicefixer_tpu_torch.kernels.convblock import (
+        conv_block_res, conv_block_res_reference)
+    from voicefixer_tpu_torch.ops.conv import fold_bn_eval
+    gen = torch.Generator().manual_seed(0)
+    t, f, ci, co, b = (CONV_BLOCK[k] for k in ("t", "f", "ci", "co", "b"))
+
+    def bn(c):
+        return {"gamma": 1 + 0.1 * torch.randn((c,), generator=gen),
+                "beta": 0.1 * torch.randn((c,), generator=gen),
+                "mean": 0.05 * torch.randn((c,), generator=gen),
+                "var": 1 + 0.1 * torch.rand((c,), generator=gen)}
+    p = fold_bn_eval({
+        "bn1": bn(ci), "bn2": bn(co),
+        "conv1": {"w": torch.randn((3, 3, ci, co), generator=gen)
+                  / (9 * ci) ** 0.5},
+        "conv2": {"w": torch.randn((3, 3, co, co), generator=gen)
+                  / (9 * co) ** 0.5},
+        "shortcut": {"w": torch.randn((1, 1, ci, co), generator=gen)
+                     / ci ** 0.5,
+                     "b": 0.1 * torch.randn((co,), generator=gen)}})
+
+    def cast(tree, device):
+        return {k: cast(v, device) if isinstance(v, dict)
+                else v.to(device, dtype) for k, v in tree.items()}
+    x = torch.randn((b, t, f, ci), generator=gen).to(dtype)
+    ref = conv_block_res_reference(x, cast(p, "cpu"), 0.01).float()
+    pc, xc = cast(p, "cuda"), x.cuda()
+    return (conv_block_res(xc, pc, 0.01).float().cpu(),
+            conv_block_res_reference(xc, pc, 0.01).float().cpu(), ref, rtol,
+            atol)
+
+
 CASES = {"upsample": _upsample, "res_chain": _res_chain,
          "res_chain_f32": _res_chain_f32,
-         "res_shift_single_f32": _res_shift_single_f32}
+         "res_shift_single_f32": _res_shift_single_f32,
+         # float32 sums in another order; bfloat16: an ulp of a2 through
+         # conv2 (chip_smoke.py's tolerances)
+         "conv_block_res_f32": lambda torch: _conv_block_res(
+             torch, torch.float32, 1e-4, 1e-4),
+         "conv_block_res_bf16": lambda torch: _conv_block_res(
+             torch, torch.bfloat16, 2 ** -7, 2 ** -6)}
 
 
 def one(case: str, build_dir: str | None) -> int:

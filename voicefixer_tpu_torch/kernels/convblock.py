@@ -12,70 +12,230 @@ with res = x @ Wsc + bsc (the 1x1 shortcut on the un-normalised input) or x
 itself. x's type is float32 in parity mode and bfloat16 in production;
 products take operands of that type and accumulate in float32.
 
-The ResUNet routes a block here only on request
-(``ops.precision.conv_block_kernel``) and only when ``eligible`` takes it:
-at most MAX_CHANNELS channels in and out, as in the JAX package, and a row
-tile that fits a thread block's shared memory.
+The kernel reads (T, F) as one stream of T*(F + 1) rows. Each thread block
+owns a run of consecutive rows of one batch row and walks it in steps over
+two rings of rows in shared memory (a1 and a2), computing conv1's halo once
+a run; ``plan_stream`` picks the product width, the step and the run from
+the shared memory and the SM count, and ``walk`` gives the products a run
+executes. The ResUNet routes a block here only on
+request (``ops.precision.conv_block_kernel``) and only when ``eligible``
+takes it: at most MAX_CHANNELS channels in and out, as in the JAX package,
+and rings that fit a thread block's shared memory.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 
 from voicefixer_tpu_torch import kernels
 from voicefixer_tpu_torch.kernels import build
-from voicefixer_tpu_torch.kernels.resstack import (BM, MIN_EFFICIENCY,
-                                                   SMEM_BUDGETS, STAGE_BYTES,
-                                                   _lrelu)
+from voicefixer_tpu_torch.kernels.resstack import SMEM_LIMIT, _lrelu
 from voicefixer_tpu_torch.ops.conv import conv2d
-from voicefixer_tpu_torch.utils.weights import (pack_bn, pack_conv3x3,
-                                                pack_shortcut)
+from voicefixer_tpu_torch.utils.weights import pack_bn
 
 # widest block the kernel takes; wider ones stay on the library convolution
 MAX_CHANNELS = 128
-RES_PAD = 4  # of csrc/convblock.cu
+SMS = 132             # streaming multiprocessors of an H100 SXM
+K_STEP = 16           # channels of a K step; Ci and Co are rounded up to it
+F32_STAGES = 3        # of csrc/convblock.cu: the float32 weight ring
+F32_THREADS = 256
+F32_ROWS = (8, 4)     # rows of a thread's float32 tile, preferred first
+WG_ROWS = 64          # rows of a bfloat16 tile: one consumer warpgroup's
+WG_G = 128            # rows of a bfloat16 pass: two warpgroups
+WG_BK = 64            # K rows of a bfloat16 weight stage
+WG_STAGES = (4, 8)    # weight ring stages wanted, at most
+WG_MIN_STAGES = 2
+WG_MAX_STEP = 16 * WG_G
+# fixed cost of a product (copying a1 rows, barriers), in rows: a
+# tie-break between plans of about the same executed rows
+PRODUCT_ROWS = {4: 4, 2: 32}
 
 
-def tile_smem_bytes(f: int, co: int, tm: int, itemsize: int,
-                    shortcut: bool) -> int:
-    """Shared memory of one thread block: the staging tiles, a2 over the
-    tile and F + 2 rows a side (rows padded by 16 bytes), and the float32
-    shortcut tile."""
-    rows = tm + 2 * (f + 2)
-    return (STAGE_BYTES + rows * (co + 16 // itemsize) * itemsize
-            + (tm * (co + RES_PAD) * 4 if shortcut else 0))
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
 
 
-def plan_tile(f: int, co: int, itemsize: int, shortcut: bool):
-    """Rows of the flattened (T, F + 1) stream per thread block, or None
-    when no tile fits. Tiles make conv1's rows (tile plus halo) a whole
-    number of 64-row product tiles. The first of SMEM_BUDGETS (two thread
-    blocks an SM) that reaches MIN_EFFICIENCY useful product rows wins, else
-    the most efficient tile of the whole SM."""
+def _round_up(a: int, b: int) -> int:
+    return _ceil(a, b) * b
+
+
+def product_width(co: int) -> int:
+    """Columns of the kernel's product for Co output channels: 32, 64 or
+    128, the padding columns zero weights."""
+    return 32 if co <= 32 else 64 if co <= 64 else 128
+
+
+def walk(s0: int, s1: int, f: int, bm: int, tile: int, front: int):
+    """The products of the run [s0, s1), in csrc/convblock.cu's walk()
+    order: ("conv1", q0, rows) computes a2 rows [q0, q0 + rows), ("conv2",
+    q0, rows) output rows; rows are whole tiles, at most bm. conv1 starts
+    front + hb rows before s0 (hb = F + 2, a tap's reach) and first covers
+    the halo, up to s0 + hb; then each step computes the a2 rows its outputs
+    below s1 read, and the outputs."""
+    hb = f + 2
+    a2_end = s0 - hb - front
+    out = []
+    while a2_end < s0 + hb:
+        c1 = min(bm, _round_up(s0 + hb - a2_end, tile))
+        out.append(("conv1", a2_end, c1))
+        a2_end += c1
+    y = s0
+    while y < s1:
+        c2 = min(bm, _round_up(s1 - y, tile))
+        need = min(y + c2, s1) + hb
+        if a2_end < need:
+            c1 = min(bm, _round_up(need - a2_end, tile))
+            out.append(("conv1", a2_end, c1))
+            a2_end += c1
+        out.append(("conv2", y, c2))
+        y += c2
+    return out
+
+
+@dataclass(frozen=True)
+class Plan:
+    """How csrc/convblock.cu walks one block's stream of rows = T*(F + 1)
+    rows a batch row: runs of ``run`` output rows, one a thread block, each
+    walked (``walk``) in products of whole ``tile``-row tiles, at most
+    ``bm`` rows, over the a1 and a2 rings of ``ring1`` and ``ring2`` rows."""
+    np: int        # product columns
+    cp1: int       # Ci rounded up to K_STEP
+    cp2: int       # Co rounded up to K_STEP
+    bm: int        # rows of a step
+    tile: int      # rows of a product's granule
+    front: int     # a2 rows computed before the halo
+    ring1: int
+    ring2: int
+    run: int
+    runs: int      # runs a batch row
+    tr: int        # float32: rows of a thread's tile (0 in bfloat16)
+    stages: int    # bfloat16: weight ring stages (0 in float32)
+    smem: int      # bytes of dynamic shared memory
+    f: int
+
+    def products(self, length: int):
+        return walk(0, length, self.f, self.bm, self.tile, self.front)
+
+    def block_rows(self, rows: int) -> int:
+        """Product rows the busiest thread block executes (the first run)."""
+        return sum(r for _, _, r in self.products(min(self.run, rows)))
+
+    def executed_rows(self, rows: int) -> tuple:
+        """(conv1, conv2) product rows summed over a batch row's runs."""
+        last = rows - (self.runs - 1) * self.run
+        out = [0, 0]
+        for length, n in ((self.run, self.runs - 1), (last, 1)):
+            for kind, _, r in self.products(length):
+                out[kind == "conv2"] += n * r
+        return tuple(out)
+
+
+def rings(f: int, bm: int, tile: int, front: int) -> tuple:
+    """(ring1, ring2): the a1 ring holds a step and a tap's reach a side;
+    the a2 ring a step, a tap's reach behind it and the a2 rows conv1 has
+    computed ahead of the outputs."""
+    hb = f + 2
+    return bm + 2 * hb, bm + _round_up(2 * hb + front, tile) - front
+
+
+def f32_front(f: int, bm: int) -> int:
+    """float32 conv1 starts this many rows early, so that the halo is a
+    whole number of its bm-row tiles."""
+    return _round_up(2 * (f + 2), bm) - 2 * (f + 2)
+
+
+def f32_smem_bytes(np_: int, tr: int, cp1: int, cp2: int, f: int) -> int:
+    """The float32 kernel's shared memory: the weight ring and the two
+    rings of rows (K_STEP-rounded widths plus 4 floats)."""
+    bm = tr * 2048 // np_
+    r1, r2 = rings(f, bm, bm, f32_front(f, bm))
+    return 4 * (F32_STAGES * K_STEP * np_ + r1 * (cp1 + 4) + r2 * (cp2 + 4))
+
+
+def wgmma_smem_bytes(np_: int, bm: int, cp1: int, cp2: int, f: int,
+                     stages: int) -> int:
+    """The bfloat16 kernel's shared memory: alignment, the weight ring and
+    its barriers, and the two rings of rows (widths plus 8 bf16)."""
+    r1, r2 = rings(f, bm, WG_ROWS, 0)
+    return (1024 + stages * (WG_BK * np_ * 2 + 16)
+            + 2 * (r1 * (cp1 + 8) + r2 * (cp2 + 8)))
+
+
+def _geometries(f: int, ci: int, co: int, itemsize: int):
+    """(bm, tile, front, tr, stages, smem) of every layout that fits,
+    preferred first."""
+    np_ = product_width(co)
+    cp1, cp2 = _round_up(ci, K_STEP), _round_up(co, K_STEP)
+    out = []
+    if itemsize == 4:
+        for tr in F32_ROWS:
+            smem = f32_smem_bytes(np_, tr, cp1, cp2, f)
+            if smem <= SMEM_LIMIT:
+                bm = tr * 2048 // np_
+                out.append((bm, bm, f32_front(f, bm), tr, 0, smem))
+        return out
+    for want in (WG_STAGES[0], WG_MIN_STAGES):
+        for bm in range(WG_MAX_STEP, 0, -WG_G):
+            fixed = wgmma_smem_bytes(np_, bm, cp1, cp2, f, 0)
+            stages = min(WG_STAGES[1],
+                         (SMEM_LIMIT - fixed) // (WG_BK * np_ * 2 + 16))
+            if stages >= want:
+                out.append((bm, WG_ROWS, 0, 0, stages,
+                            wgmma_smem_bytes(np_, bm, cp1, cp2, f, stages)))
+        if out:
+            return out
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def plan_stream(t: int, f: int, ci: int, co: int, itemsize: int,
+                batch: int = 1, run: int | None = None,
+                bm: int | None = None):
+    """The kernel's plan for x [batch, t, f, ci] -> co channels of
+    ``itemsize`` bytes, or None when no layout fits. Among the layouts that
+    fit and the run lengths, the least rows an SM executes in series
+    (waves x the busiest block's product rows, plus PRODUCT_ROWS a product),
+    then the longer step. ``run`` and ``bm`` force those choices (tools,
+    tests)."""
+    rows = t * (f + 1)
+    np_ = product_width(co)
+    cp1, cp2 = _round_up(ci, K_STEP), _round_up(co, K_STEP)
     best = None
-    for budget in SMEM_BUDGETS:
-        k = 1
-        while True:
-            tm = k * BM - 2 * (f + 2)
-            if tile_smem_bytes(f, co, max(tm, 1), itemsize,
-                               shortcut) > budget:
-                break
-            if tm >= 1:
-                eff = 2 * tm / (k * BM + -(-tm // BM) * BM)
-                if best is None or eff > best[1]:
-                    best = (tm, eff)
-            k += 1
-        if best is not None and best[1] >= MIN_EFFICIENCY:
-            break
-    return None if best is None else best[0]
+    for step, tile, front, tr, stages, smem in _geometries(f, ci, co,
+                                                          itemsize):
+        if bm is not None and step != bm:
+            continue
+        if run is not None:
+            cands = {run}
+        else:  # per wave count, the shortest run that fills it
+            cands = {rows}
+            for waves in range(1, 9):
+                per_row = SMS * waves // batch
+                if per_row >= 1:
+                    cands.add(_ceil(rows, per_row))
+                    cands.add(_round_up(_ceil(rows, per_row), step))
+        for r in sorted(cands):
+            p = Plan(np_, cp1, cp2, step, tile, front,
+                     *rings(f, step, tile, front), r, _ceil(rows, r), tr,
+                     stages, smem, f)
+            prods = p.products(min(r, rows))
+            cost = (_ceil(batch * p.runs, SMS)
+                    * sum(n + PRODUCT_ROWS[itemsize] for _, _, n in prods))
+            key = (cost, -step, r)
+            if best is None or key < best[0]:
+                best = (key, p)
+    return None if best is None else best[1]
 
 
 def eligible(params: dict, x: torch.Tensor) -> bool:
     """True when the kernel takes this block: folded batch norms, 3x3
     convolutions, at most MAX_CHANNELS channels in and out (a multiple of 8
-    out in bfloat16), float32 or bfloat16, and a tile that fits."""
+    out in bfloat16), float32 or bfloat16, and rings that fit."""
     if "scale" not in params.get("bn1", {}) or x.dim() != 4:
         return False
     w1, w2 = params["conv1"]["w"], params["conv2"]["w"]
@@ -90,8 +250,33 @@ def eligible(params: dict, x: torch.Tensor) -> bool:
         return False
     if x.dtype == torch.bfloat16 and co % 8:
         return False
-    return plan_tile(x.shape[2], co, x.element_size(),
-                     "shortcut" in params) is not None
+    return plan_stream(x.shape[1], x.shape[2], ci, co,
+                       x.element_size()) is not None
+
+
+def pack_weights(params: dict, dtype: torch.dtype, np_: int):
+    """(w1, w2, bsc) as the kernel reads them: K rows (tap-major (dt, df),
+    then channel, Ci and Co rounded up to K_STEP) by np_ output columns,
+    zero past Ci, Co; the 1x1 shortcut as w2's last rows. float32 keeps
+    [K, np_]; bfloat16 is transposed to [np_, K], K contiguous, for the
+    TMA's K-major boxes. bsc is the shortcut's bias [Co] in dtype, or
+    None."""
+    co = params["conv1"]["w"].shape[3]
+
+    def k_rows(w):
+        cp = _ceil(w.shape[2], K_STEP) * K_STEP
+        w = F.pad(w.to(dtype), (0, np_ - co, 0, cp - w.shape[2]))
+        return w.reshape(-1, np_)
+
+    w1 = k_rows(params["conv1"]["w"])
+    w2 = k_rows(params["conv2"]["w"])
+    bsc = None
+    if "shortcut" in params:
+        w2 = torch.cat([w2, k_rows(params["shortcut"]["w"])])
+        bsc = params["shortcut"]["b"].to(dtype).contiguous()
+    if dtype == torch.bfloat16:
+        w1, w2 = w1.t(), w2.t()
+    return w1.contiguous(), w2.contiguous(), bsc
 
 
 def conv_block_res_reference(x: torch.Tensor, params: dict,
@@ -135,32 +320,42 @@ def conv_block_res(x: torch.Tensor, params: dict,
             "channels, float32 or bfloat16)")
     bsz, t, f, ci = x.shape
     co = params["conv1"]["w"].shape[3]
-    shortcut = "shortcut" in params
-    tm = plan_tile(f, co, x.element_size(), shortcut)
+    plan = plan_stream(t, f, ci, co, x.element_size(), bsz)
+    y = launch(x, params, slope, plan)
+    kernels.launches["conv_block_res"] += 1
+    return y
+
+
+def launch(x: torch.Tensor, params: dict, slope: float,
+           plan: Plan) -> torch.Tensor:
+    """One launch of csrc/convblock.cu under ``plan`` (``conv_block_res``
+    chooses it; tools time others). Raises on a CUDA error."""
     x = x.contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()
+    bsz, t, f, ci = x.shape
+    co = params["conv1"]["w"].shape[3]
     dt = x.dtype
-    w1 = pack_conv3x3(params["conv1"]["w"], dt)
-    w2 = pack_conv3x3(params["conv2"]["w"], dt)
-    wsc = pack_shortcut(params["shortcut"], dt) if shortcut else None
+    w1, w2, bsc = pack_weights(params, dt, plan.np)
     s1, t1 = pack_bn(params["bn1"])
     s2, t2 = pack_bn(params["bn2"])
     y = torch.empty((bsz, t, f, co), dtype=dt, device=x.device)
     lib = _lib()
-    rc = lib.vf_conv_block_res(
-        x.data_ptr(), y.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-        wsc.data_ptr() if shortcut else None, s1.data_ptr(), t1.data_ptr(),
-        s2.data_ptr(), t2.data_ptr(), bsz, t, f, ci, w1.shape[0] // 9, co,
-        tm, float(slope), int(dt == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with kernels.current_device(x.device):
+        rc = lib.vf_conv_block_res(
+            x.data_ptr(), y.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+            bsc.data_ptr() if bsc is not None else None, s1.data_ptr(),
+            t1.data_ptr(), s2.data_ptr(), t2.data_ptr(), bsz, t, f, ci, co,
+            plan.np, plan.run, plan.bm, plan.tr, plan.stages, float(slope),
+            int(dt == torch.bfloat16),
+            torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, rc, "conv_block_res")
-    kernels.launches["conv_block_res"] += 1
     return y
 
 
 def _lib():
     lib = build.load("convblock")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.vf_conv_block_res.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i,
-                                      i, i, i, f, i, p]
+    lib.vf_conv_block_res.argtypes = [p] * 9 + [i] * 10 + [f, i, p]
     lib.vf_conv_block_res.restype = i
     return lib
