@@ -122,6 +122,17 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int, group: str | None = None) -> float:
+    """Mean device time of one call of fn after a warm-up (torch.profiler
+    over reps calls): of its kernels of one ``_kernel_group``, or of all.
+    Unlike cuda_ms it leaves out the host's time between launches, which
+    sets the pace of a call whose kernels take less time than its Python."""
+    fn()
+    rows = _device_kernels(lambda: [fn() for _ in range(reps)])
+    return sum(ms for name, ms, _ in rows
+               if group is None or _kernel_group(name) == group) / reps
+
+
 def bound_ms(nbytes: float, flops: float, peak_flops: float):
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak_flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -188,12 +199,11 @@ def conv_block_executed_flops(t: int, f: int, ci: int, co: int,
     [batch, t, f, ci], discarded rows and padding included: conv1 over each
     run's halo and steps (9 taps of Ci rounded up to 16), conv2 and the
     shortcut's K rows over the steps, every product at the width rounded
-    up to 32, 64 or 128 columns (``kernels.convblock.plan_stream``)."""
+    up to 32, 64 or 128 columns, in bfloat16 its K to whole weight stages
+    (``kernels.convblock.plan_stream``, ``Plan.executed_flops``)."""
     from voicefixer_tpu_torch.kernels import convblock
     p = convblock.plan_stream(t, f, ci, co, itemsize, batch)
-    c1, c2 = p.executed_rows(t * (f + 1))
-    k2 = 9 * p.cp2 + (p.cp1 if ci != co else 0)
-    return batch * 2 * p.np * (c1 * 9 * p.cp1 + c2 * k2)
+    return batch * p.executed_flops(t * (f + 1), ci != co)
 
 
 def chain_weight_bytes(ch: int, t: int, dils, tm: int,
@@ -371,7 +381,8 @@ def phase_build():
         report = (build.BUILD / f"{name}.log")
         if report.exists():
             for line in report.read_text().splitlines():
-                if "registers" in line or "spill" in line:
+                if any(k in line for k in ("registers", "spill",
+                                           "Performance", "wgmma")):
                     log(f"  {name}: {line.strip()}")
 
 
@@ -743,7 +754,7 @@ def _conv_block_case(gen, device, dtype, t, f, ci, co, per_chunk):
             "fn": lambda: convblock.conv_block_res(x, p, slope),
             "plain": lambda: convblock.conv_block_res_reference(x, p, slope),
             "library": lambda: resunet._conv_block_res(p, x, slope),
-            "reps": 5, "per_chunk": per_chunk,
+            "reps": 5, "per_chunk": per_chunk, "device_group": K9_GROUP,
             "rtol": 1e-4 if dtype == "float32" else 2 ** -7,
             "atol": 1e-4 if dtype == "float32" else 2 ** -6,
             "bytes": work_bytes, "flops": flops,
@@ -828,6 +839,13 @@ def phase_kernels(device):
             except RuntimeError as e:
                 log(f"  library call unavailable: {str(e).splitlines()[0]}")
                 lib_ms = None
+            if c.get("device_group"):
+                # the kernel's and the library's own device time; the
+                # events above also time the host between launches
+                log(f"  {c['name']} {c['dtype']}: CUDA events kernel "
+                    f"{ms:.3f} ms, library {lib_ms} ms")
+                ms = device_ms(c["fn"], c["reps"], c["device_group"])
+                lib_ms = device_ms(c["library"], c["reps"])
             bms, by = bound_ms(c["bytes"], c["flops"], c["peak"])
             rate = ("" if not c.get("executed") else
                     f"; executed {c['executed'] / 1e9:.1f} GFLOP, "
@@ -835,8 +853,10 @@ def phase_kernels(device):
                     f"{c['flops'] / ms / 1e9:.1f} useful")
             if lib_ms:
                 rate += f"; {ms / lib_ms:.2f}x the library's time"
-            log(f"  {c['name']} {c['dtype']} {c['shape']}: kernel {ms:.3f} ms, "
-                f"plain {plain_ms:.3f} ms, library {lib_ms} ms, bound "
+            clock = " (device)" if c.get("device_group") else ""
+            log(f"  {c['name']} {c['dtype']} {c['shape']}: kernel {ms:.3f} ms"
+                f"{clock}, plain {plain_ms:.3f} ms, library {lib_ms} ms{clock}"
+                ", bound "
                 f"{bms:.4f} ms ({by}; {c['flops'] / 1e9:.2f} GFLOP, "
                 f"{c['bytes'] / 1e6:.1f} MB){rate}")
             rows.append({**c, "err": err, "ms": ms, "plain_ms": plain_ms,

@@ -15,6 +15,8 @@ residual path into outputs of any magnitude: those cases allow
 2^-7*max|ref| + 2^-7*|ref|.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -595,6 +597,27 @@ def test_conv_block_res_run_boundaries(cuda, t, f, ci, co, b, run, dtype):
     tol = (1e-4, 2e-5) if dtype == "float32" else (2 ** -7, 2e-3)
     torch.testing.assert_close(got.float(), ref.float(), rtol=tol[0],
                                atol=tol[1])
+
+
+@pytest.mark.parametrize("t,f,ci,co", [(200, 127, 32, 32),
+                                       (100, 63, 32, 64)])
+def test_conv_block_res_resident_weights(cuda, t, f, ci, co):
+    """The bfloat16 kernel with every weight stage held in shared memory
+    and loaded once a run (the variant tools/torch_convblock_variants.py
+    times against the ring), a run of several steps."""
+    gen = torch.Generator().manual_seed(16)
+    p = _conv_block_params(gen, ci, co, cuda, torch.bfloat16)
+    x = _randn(gen, (1, t, f, ci), 0.5).to(cuda, torch.bfloat16)
+    base = convblock.plan_stream(t, f, ci, co, 2, run=4 * 128, bm=128)
+    stages = convblock.wgmma_weight_stages(ci, co, ci != co)
+    plan = dataclasses.replace(
+        base, stages=stages, resident=1,
+        smem=convblock.wgmma_smem_bytes(base.np, base.bm, base.cp1,
+                                        base.cp2, f, stages))
+    got = convblock.launch(x, p, 0.01, plan)
+    ref = convblock.conv_block_res_reference(x, p, 0.01)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=2 ** -7,
+                               atol=2e-3)
 
 
 @pytest.mark.parametrize("case", ["conv_block_res_f32",

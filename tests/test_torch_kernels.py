@@ -556,6 +556,33 @@ def test_conv_block_not_eligible(why):
     assert not convblock.eligible(p, e(1, 16, 15, ci, dt=dt))
 
 
+def test_conv_block_packed_operands_are_reused_until_changed():
+    """The kernel's packed weights and batch norms are built once per
+    parameter tensors and type, rebuilt when a tensor changes in place or is
+    replaced, and dropped with the block's conv1 weight."""
+    import gc
+
+    from voicefixer_tpu_torch.ops.conv import fold_bn_eval
+
+    rng = np.random.default_rng(43)
+    p = fold_bn_eval(_tree(_conv_block_params(rng, 8, 16), torch.from_numpy))
+    first = convblock.packed(p, torch.bfloat16, 32)
+    assert convblock.packed(p, torch.bfloat16, 32) is first
+    assert convblock.packed(p, torch.float32, 32) is not first
+    p["conv2"]["w"].mul_(2)
+    again = convblock.packed(p, torch.bfloat16, 32)
+    assert again is not first
+    assert torch.equal(again[1], convblock.pack_weights(p, torch.bfloat16,
+                                                        32)[1])
+    p["bn1"] = {k: v.clone() for k, v in p["bn1"].items()}
+    assert convblock.packed(p, torch.bfloat16, 32) is not again
+    key = id(p["conv1"]["w"])
+    assert key in convblock._packed
+    del p, first, again
+    gc.collect()
+    assert key not in convblock._packed
+
+
 def _old_tile_cost(t, f, ci, co, itemsize, batch=1):
     """Product rows an SM executed in series under the tile-with-halo K9
     (before the streaming kernel): tm rows a thread block, conv1 over tm +

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """The ConvBlockRes kernel (csrc/convblock.cu, K9 conv_block_res) under
-other plans, on one CUDA card: times it at the shapes of the ResUNet's
-blocks in a 30 s chunk by CUDA events, each launch held to the plain
-version first.
+other plans and in copies with one choice changed, on one CUDA card: times
+it at the shapes of the ResUNet's blocks in a 30 s chunk (device time of
+its kernel, torch.profiler), each launch held to the plain version first.
 
     python3 tools/torch_convblock_variants.py [VARIANT ...]
 
@@ -11,10 +11,22 @@ Variants (all by default):
   one_step        runs of one step: conv1's halo again every step, as the
                   tile-with-halo kernel that came before it did
   runs_1/2/4      1, 2 or 4 runs an SM (132, 264 or 528 runs a batch row)
-  stages_2/4/8    bfloat16: a weight ring of 2, 4 or 8 stages where they
-                  fit (the planner takes up to 8)
+  stages_4/8      bfloat16: a weight ring of 4 or 8 stages where they fit
+                  (the planner takes up to 8)
   step_half       half the planner's step (bfloat16; float32 where the
                   thread tile allows it)
+  resident        bfloat16: every weight stage of both matrices held in
+                  shared memory and loaded once a run, where that fits
+  depth_3/4       bfloat16: a copy of the source with 3 or 4 weight stages'
+                  wgmmas in flight instead of 2 (DEPTH)
+  no_*            bfloat16: copies with one cost left out, which compute
+                  something else and are timed only: no_a_loads (A
+                  fragments not loaded), no_tap_math (every tap reads the
+                  first tap's rows), no_wgmma, no_epilogue (no
+                  a2 or output stores), no_a1 (no a1 rows copied)
+The copies are built under voicefixer_tpu_torch/build/variants_convblock/;
+their text hooks must match the kernel source, and the tool says which
+does not.
 Prints one line per (variant, type, shape) with the time, the executed
 TFLOP/s and the ratio to base, and the card's name and power limit first.
 """
@@ -31,8 +43,65 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 
-VARIANTS = ("base", "one_step", "runs_1", "runs_2", "runs_4", "stages_2",
-            "stages_4", "stages_8", "step_half")
+SRC = ROOT / "voicefixer_tpu_torch" / "csrc" / "convblock.cu"
+DEPTH = "constexpr int DEPTH = 2;"
+WGMMA = """            hopper::wgmma_m64k16_bf16_rs_kmajor<NP>(
+                acc, frag[d][kk], hopper::desc_advance(db, kk * 32),
+                stg > 0 || kk > 0);"""
+CUTS = {
+    "depth_3": [(DEPTH, DEPTH.replace("2", "3"))],
+    "depth_4": [(DEPTH, DEPTH.replace("2", "4"))],
+    "no_a_loads": [("          hopper::ldmatrix_x4(r, col + a_row + a_c0);",
+                    "          r[0] = r[1] = r[2] = r[3] = a_row + a_c0;")],
+    "no_tap_math": [("          if (++a_tap < 9) a_row = tap_row(a_tap);",
+                     "          ++a_tap;")],
+    "no_wgmma": [(WGMMA, "            acc[0] += __uint_as_float("
+                         "frag[d][kk][0] ^ frag[d][kk][3]);")],
+    "no_epilogue": [("      epi(t0, acc);",
+                     "      if (acc[0] == 1.2345e-30f) epi(t0, acc);")],
+    "no_a1": [("    a1_rows(a1_end, q0 + rows + hb - a1_end);", "")],
+}
+CHECKED = ("depth_3", "depth_4")  # the copies that compute the function
+VARIANTS = ("base", "one_step", "runs_1", "runs_2", "runs_4", "stages_4",
+            "stages_8", "step_half", "resident", *CUTS)
+
+
+def build(names):
+    """{name: loaded library} of the source copies among ``names``, built
+    in parallel."""
+    import ctypes
+
+    from voicefixer_tpu_torch.kernels import build as kb
+    from voicefixer_tpu_torch.kernels import convblock
+    out = kb.BUILD / "variants_convblock"
+    out.mkdir(parents=True, exist_ok=True)
+    src = SRC.read_text()
+    procs = {}
+    for name in names:
+        if name not in CUTS:
+            continue
+        text = src
+        for old, new in CUTS[name]:
+            if old not in text:
+                raise RuntimeError(f"{name}: the kernel source no longer has "
+                                   f"{old.strip()!r}")
+            text = text.replace(old, new)
+        cu = out / f"{name}.cu"
+        cu.write_text(text)
+        cmd = [kb.nvcc(), *kb.FLAGS, "-I", str(SRC.parent), "-o",
+               str(out / f"{name}.so"), str(cu)]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT)
+    libs = {}
+    for name, p in procs.items():
+        log = p.communicate()[0].decode(errors="replace")
+        if p.returncode:
+            raise RuntimeError(f"{name}: nvcc failed\n{log}")
+        for line in log.splitlines():
+            if "C7515" in line or "registers" in line:
+                print(f"  {name}: {line.strip()}", flush=True)
+        libs[name] = convblock.bind(ctypes.CDLL(str(out / f"{name}.so")))
+    return libs
 
 
 def plan_of(name: str, t: int, f: int, ci: int, co: int, itemsize: int):
@@ -49,6 +118,8 @@ def plan_of(name: str, t: int, f: int, ci: int, co: int, itemsize: int):
         per_row = cb.SMS * int(name[5:])
         return cb.plan_stream(t, f, ci, co, itemsize,
                               run=-(-rows // per_row), bm=base.bm)
+    if name in CUTS:
+        return base if itemsize == 2 else None
     if name.startswith("stages_"):
         stages = int(name[7:])
         if itemsize != 2 or stages == base.stages:
@@ -58,6 +129,23 @@ def plan_of(name: str, t: int, f: int, ci: int, co: int, itemsize: int):
         if smem > cb.SMEM_LIMIT:
             return None
         return dataclasses.replace(base, stages=stages, smem=smem)
+    if name == "resident":
+        if itemsize != 2:
+            return None
+        stages = cb.wgmma_weight_stages(ci, co, ci != co)
+        smem = cb.wgmma_smem_bytes(base.np, base.bm, base.cp1, base.cp2, f,
+                                   stages)
+        bm = base.bm
+        while smem > cb.SMEM_LIMIT and bm > cb.WG_G:
+            bm -= cb.WG_G
+            smem = cb.wgmma_smem_bytes(base.np, bm, base.cp1, base.cp2, f,
+                                       stages)
+        if smem > cb.SMEM_LIMIT:
+            return None
+        p = cb.plan_stream(t, f, ci, co, itemsize, run=base.run, bm=bm)
+        if p is None:  # the step fits only with the resident ring
+            return None
+        return dataclasses.replace(p, stages=stages, resident=1, smem=smem)
     if name == "step_half":
         half = base.bm // 2
         if itemsize == 2 and half % cb.WG_G:
@@ -65,13 +153,6 @@ def plan_of(name: str, t: int, f: int, ci: int, co: int, itemsize: int):
         p = cb.plan_stream(t, f, ci, co, itemsize, bm=half)
         return p if p is not None and p.bm == half else None
     raise ValueError(name)
-
-
-def executed(plan, t: int, f: int, ci: int, co: int) -> int:
-    """FLOPs the kernel runs under ``plan`` (chip_smoke's count)."""
-    c1, c2 = plan.executed_rows(t * (f + 1))
-    k2 = 9 * plan.cp2 + (plan.cp1 if ci != co else 0)
-    return 2 * plan.np * (c1 * 9 * plan.cp1 + c2 * k2)
 
 
 def main() -> int:
@@ -90,6 +171,7 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
     print(f"card: {card}", flush=True)
+    libs = build(names)
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(cs.SEED)
     cases = []
@@ -110,17 +192,19 @@ def main() -> int:
                     print(f"  {name:10s} {shape}: does not apply or fit",
                           flush=True)
                     continue
-                go = lambda plan=plan: convblock.launch(x, p, slope, plan)  # noqa: E731
-                cs.compare(f"{name} {shape}", go(), ref, c["rtol"],
-                           c["atol"])
-                ms = cs.cuda_ms(go, 5, warmup=1)
+                go = lambda plan=plan, lib=libs.get(name): (  # noqa: E731
+                    convblock.launch(x, p, slope, plan, lib))
+                if name not in CUTS or name in CHECKED:
+                    cs.compare(f"{name} {shape}", go(), ref, c["rtol"],
+                               c["atol"])
+                ms = cs.device_ms(go, 5, cs.K9_GROUP)
                 base_ms = base_ms or ms
                 totals[name, dtype] = totals.get((name, dtype), 0.0) + k * ms
+                flops = plan.executed_flops(t * (f + 1), ci != co)
                 print(f"  {name:10s} {shape}: {ms:.3f} ms (run {plan.run}, "
                       f"step {plan.bm}, stages {plan.stages}), "
-                      f"{executed(plan, t, f, ci, co) / ms / 1e9:.1f} "
-                      f"TFLOP/s executed, {ms / base_ms:.2f} of base",
-                      flush=True)
+                      f"{flops / ms / 1e9:.1f} TFLOP/s executed, "
+                      f"{ms / base_ms:.2f} of base", flush=True)
             del ref
     for (name, dtype), ms in sorted(totals.items()):
         print(f"  {name:10s} {dtype}: {ms:.3f} ms over the 24 blocks "

@@ -86,6 +86,8 @@ struct Args {
   int front;        // a2 rows computed before the halo (see walk())
   int ring1, ring2; // rows of the a1 and a2 rings
   int stages;       // bfloat16: stages of the weight ring
+  int resident;     // bfloat16: the ring holds every stage of both
+                    // matrices, each loaded once a run
   float slope;
 };
 
@@ -514,6 +516,8 @@ constexpr int ROWS = 64;                     // rows of a warpgroup's tile
 constexpr int G = ROWS * CONSUMERS;          // rows of a pass
 constexpr int KS = 4;                        // wgmma k-steps of a stage
 constexpr int BK = 16 * KS;                  // K rows of a stage
+constexpr int DEPTH = 2;                     // stages in flight at once:
+                                             // the ring needs as many
 
 // bf16 between ring rows: 16 bytes of padding put ldmatrix's eight rows on
 // eight bank groups
@@ -550,6 +554,11 @@ conv_block_wgmma_kernel(const __grid_constant__ CUtensorMap map_w1,
   const int ld1 = ld_of(p.cp1), ld2 = ld_of(p.cp2);
   bf16* a1 = reinterpret_cast<bf16*>(empty + stages);  // [ring1][ld1]
   bf16* a2 = a1 + p.ring1 * ld1;                       // [ring2][ld2]
+  // the folded batch norms, zero past ci and co: [cp1], [cp1], [cp2], [cp2]
+  float* bn_s1 = reinterpret_cast<float*>(a2 + p.ring2 * ld2);
+  float* bn_t1 = bn_s1 + p.cp1;
+  float* bn_s2 = bn_t1 + p.cp1;
+  float* bn_t2 = bn_s2 + p.cp2;
   const Stream st{p.f + 1, p.f, p.t_len * (p.f + 1)};
   const int hb = p.f + 2;
   const int s0 = blockIdx.x * p.run;
@@ -591,9 +600,14 @@ conv_block_wgmma_kernel(const __grid_constant__ CUtensorMap map_w1,
             ++it;
           }
       };
-      walk(s0, s1, hb, origin2, bm, ROWS,
-           [&](int, int rows) { feed(&map_w1, n_st1, rows); },
-           [&](int, int rows) { feed(&map_w2, n_st2, rows); });
+      if (p.resident) {  // stage k of w1 in slot k, of w2 in n_st1 + k
+        feed(&map_w1, n_st1, ROWS);
+        feed(&map_w2, n_st2, ROWS);
+      } else {
+        walk(s0, s1, hb, origin2, bm, ROWS,
+             [&](int, int rows) { feed(&map_w1, n_st1, rows); },
+             [&](int, int rows) { feed(&map_w2, n_st2, rows); });
+      }
     }
     return;
   }
@@ -608,27 +622,29 @@ conv_block_wgmma_kernel(const __grid_constant__ CUtensorMap map_w1,
   bf16* yb = static_cast<bf16*>(p.y) + blockIdx.y * pixels * co;
   const bf16* bsc = static_cast<const bf16*>(p.bsc);
 
-  float acc[NP / 2];
-#pragma unroll
-  for (int q = 0; q < NP / 2; ++q) acc[q] = 0.f;
-  uint32_t fa[KS][4], fb[KS][4];
-  int s = 0, prev_s = 0;
+  int s = 0;
   uint32_t phase = 0;
   auto release = [&](int stage) {
-    if (lane == 0) hopper::mbar_arrive(&empty[stage]);
+    if (lane == 0 && !p.resident) hopper::mbar_arrive(&empty[stage]);
   };
 
   // The 64-row tiles of rows [q0, q0 + rows), two a pass, each pass against
   // every stage of one weight matrix (ktot K rows: 9 taps of cp channels
   // from `ring`, then for conv2 with a shortcut cp1 channels of x); then
-  // epi(t0) with t0 this warpgroup's first tile row. A warpgroup without a
-  // tile in a pass still takes and hands back every stage.
+  // epi(t0, acc) with t0 this warpgroup's first tile row. The accumulators
+  // live in one pass only and are fenced before its first wgmma and after
+  // its last wait, so that ptxas keeps the wgmmas pipelined (nothing but a
+  // wgmma defines them in between). A warpgroup without a
+  // tile in a pass still takes and hands back every stage. With resident
+  // weights, the matrix's stages sit in slots slot0 .. slot0 + n_st - 1,
+  // complete from their first phase on, and are never handed back.
   auto product = [&](int q0, int rows, int n_st, int ktot, int cp,
                      const bf16* ring, int ld, int ring_rows, int origin,
-                     auto epi) {
+                     int slot0, auto epi) {
     const int ring_k = 9 * cp;
     const int tiles = rows / ROWS;
     for (int ps = 0; ps < passes(rows); ++ps) {
+      if (p.resident) s = slot0, phase = 0;
       const int ti = ps * CONSUMERS + wgi;
       if (ti >= tiles) {
         for (int stg = 0; stg < n_st; ++stg) {
@@ -639,6 +655,12 @@ conv_block_wgmma_kernel(const __grid_constant__ CUtensorMap map_w1,
         continue;
       }
       const int t0 = q0 + ti * ROWS;
+      float acc[NP / 2];
+#pragma unroll
+      for (int q = 0; q < NP / 2; ++q) {
+        acc[q] = 0.f;
+        hopper::fence_operand(acc[q]);
+      }
       // this lane's ldmatrix row at the centre tap and its column half
       const int cslot = wrap(t0 + 16 * wq + lane % 16 - origin, ring_rows);
       const bf16* col = ring + 8 * (lane / 16);
@@ -651,105 +673,146 @@ conv_block_wgmma_kernel(const __grid_constant__ CUtensorMap map_w1,
           xo[h] = st.inside(q) ? st.pixel(q) * ci : 0;  // else never stored
         }
       }
-      auto load_a = [&](int k, uint32_t (&r)[4]) {
-        if (k < ring_k) {
-          const int tap = k / cp, c0 = k - tap * cp;
-          int slot = cslot + tap_offset(tap, st.fp);
-          slot = slot < 0 ? slot + ring_rows
-                          : (slot >= ring_rows ? slot - ring_rows : slot);
-          hopper::ldmatrix_x4(r, col + slot * ld + c0);
-        } else {
-          const int c = k - ring_k + 2 * (lane % 4);
+      // The k-steps in order: taps 0..8 of cp channels from the ring, then
+      // (tap 9) the shortcut's cp1 channels of x, then zeros against the
+      // map's zero fill. The ring row of this lane at the current tap moves
+      // once a tap, not once a k-step: no division on the k-step's path.
+      auto tap_row = [&](int tap) {
+        const int r = cslot + tap_offset(tap, st.fp);
+        return (r < 0 ? r + ring_rows : (r >= ring_rows ? r - ring_rows : r))
+               * ld;
+      };
+      int a_tap = 0, a_c0 = 0, a_row = tap_row(0);
+      const int sc_width = ktot - ring_k;  // 0 or cp1
+      auto load_a = [&](uint32_t (&r)[4]) {
+        if (a_tap < 9) {
+          hopper::ldmatrix_x4(r, col + a_row + a_c0);
+        } else if (a_c0 < sc_width) {
+          const int c = a_c0 + 2 * (lane % 4);
           r[0] = x_pair(xb + xo[0], c, ci);
           r[1] = x_pair(xb + xo[1], c, ci);
           r[2] = x_pair(xb + xo[0], c + 8, ci);
           r[3] = x_pair(xb + xo[1], c + 8, ci);
+        } else {
+          r[0] = r[1] = r[2] = r[3] = 0u;
+        }
+        a_c0 += 16;
+        if (a_tap < 9 && a_c0 == cp) {
+          a_c0 = 0;
+          if (++a_tap < 9) a_row = tap_row(a_tap);
         }
       };
-      // one stage: A of its k-steps into `cur`, its wgmmas; then the
-      // previous stage's products are retired and that stage handed back
-      auto step_one = [&](int stg, uint32_t (&cur)[KS][4],
-                          uint32_t (&prev)[KS][4]) {
+      // The stages of the pass, DEPTH of them in flight: stage stg loads
+      // its A into fragment set stg % DEPTH and issues its KS wgmmas; then
+      // the stage issued DEPTH - 1 before it is retired (wait_group) and its
+      // slot handed back. Every stage issues all KS wgmmas (a last stage's
+      // k-steps past K multiply zeros): no wgmma sits under a branch.
+      uint32_t frag[DEPTH][KS][4];
+      int slot[DEPTH];
+      for (int base = 0; base < n_st; base += DEPTH) {
 #pragma unroll
-        for (int kk = 0; kk < KS; ++kk)
-          if (stg * BK + 16 * kk < ktot) load_a(stg * BK + 16 * kk, cur[kk]);
-        hopper::mbar_wait(&full[s], phase);
-        hopper::wgmma_fence();
-        const uint64_t db =
-            hopper::smem_desc_sw128(wring + s * STAGE_BYTES, 16, 1024);
+        for (int d = 0; d < DEPTH; ++d) {
+          const int stg = base + d;
+          if (stg >= n_st) break;
 #pragma unroll
-        for (int kk = 0; kk < KS; ++kk)
-          if (stg * BK + 16 * kk < ktot)
-            hopper::wgmma_m64k16_bf16_rs_kmajor<NP>(
-                acc, cur[kk], hopper::desc_advance(db, kk * 32),
-                stg > 0 || kk > 0);
-        hopper::wgmma_commit();
-        if (stg > 0) {
-          hopper::wgmma_wait<1>();
+          for (int kk = 0; kk < KS; ++kk) load_a(frag[d][kk]);
+          hopper::mbar_wait(&full[s], phase);
+          hopper::wgmma_fence();
+          const uint64_t db =
+              hopper::smem_desc_sw128(wring + s * STAGE_BYTES, 16, 1024);
 #pragma unroll
           for (int kk = 0; kk < KS; ++kk)
+            hopper::wgmma_m64k16_bf16_rs_kmajor<NP>(
+                acc, frag[d][kk], hopper::desc_advance(db, kk * 32),
+                stg > 0 || kk > 0);
+          hopper::wgmma_commit();
+          slot[d] = s;
+          if (++s == stages) s = 0, phase ^= 1;
+          if (stg >= DEPTH - 1) {
+            const int old = (d + 1) % DEPTH;  // set of stg - DEPTH + 1
+            hopper::wgmma_wait<DEPTH - 1>();
 #pragma unroll
-            for (int q = 0; q < 4; ++q) hopper::fence_operand(prev[kk][q]);
-          release(prev_s);
+            for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+              for (int q = 0; q < 4; ++q)
+                hopper::fence_operand(frag[old][kk][q]);
+            release(slot[old]);
+          }
         }
-        prev_s = s;
-        if (++s == stages) s = 0, phase ^= 1;
-      };
-      int stg = 0;
-      for (; stg + 1 < n_st; stg += 2) {
-        step_one(stg, fa, fb);
-        step_one(stg + 1, fb, fa);
       }
-      if (stg < n_st) step_one(stg, fa, fb);
       hopper::wgmma_wait<0>();
 #pragma unroll
       for (int q = 0; q < NP / 2; ++q) hopper::fence_operand(acc[q]);
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
+      for (int d = 0; d < DEPTH; ++d) {
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          hopper::fence_operand(fa[kk][q]);
-          hopper::fence_operand(fb[kk][q]);
-        }
-      release(prev_s);
-      epi(t0);
+        for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) hopper::fence_operand(frag[d][kk][q]);
+        // the last stage that used set d, if it is not handed back yet
+        const int last = n_st - 1 - ((n_st - 1 - d) % DEPTH + DEPTH) % DEPTH;
+        if (last >= 0 && last >= n_st - DEPTH + 1) release(slot[d]);
+      }
+      epi(t0, acc);
     }
   };
 
-  // a1 rows [q0, q0 + cnt): x, the batch norm and LeakyReLU, rounded once;
-  // zeros outside the stream and past ci
+  for (int c = tid; c < p.cp1; c += 128 * CONSUMERS) {
+    bn_s1[c] = c < ci ? p.s1[c] : 0.f;
+    bn_t1[c] = c < ci ? p.t1[c] : 0.f;
+  }
+  for (int c = tid; c < p.cp2; c += 128 * CONSUMERS) {
+    bn_s2[c] = c < co ? p.s2[c] : 0.f;
+    bn_t2[c] = c < co ? p.t2[c] : 0.f;
+  }
+
+  // a1 rows [q0, q0 + cnt), a row a thread: x, the batch norm and
+  // LeakyReLU, rounded once; zeros outside the stream and past ci. Four
+  // 16-byte loads are in flight before any is used.
   auto a1_rows = [&](int q0, int cnt) {
     const int per = p.cp1 / 8;
-    for (int e = tid; e < cnt * per; e += 128 * CONSUMERS) {
-      const int r = e / per, c = (e - r * per) * 8;
+    for (int r = tid; r < cnt; r += 128 * CONSUMERS) {
       const int q = q0 + r;
-      float v[8];
+      const bool in = st.inside(q);
+      const bf16* src = xb + (in ? st.pixel(q) * ci : 0);
+      bf16* dst = a1 + wrap(q - origin1, p.ring1) * ld1;
+      for (int v0 = 0; v0 < per; v0 += 4) {
+        uint4 raw[4];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] = 0.f;
-      if (c < ci && st.inside(q)) {
-        const bf16* src = xb + st.pixel(q) * ci + c;
-        if (ci % 8 == 0) {
-          const uint4 raw = *reinterpret_cast<const uint4*>(src);
-          const bf16* h = reinterpret_cast<const bf16*>(&raw);
+        for (int u = 0; u < 4; ++u) {
+          const int c = (v0 + u) * 8;
+          raw[u] = make_uint4(0, 0, 0, 0);
+          if (!in || v0 + u >= per || c >= ci) continue;
+          if (ci % 8 == 0) {
+            raw[u] = *reinterpret_cast<const uint4*>(src + c);
+          } else {
+            bf16* h = reinterpret_cast<bf16*>(&raw[u]);
 #pragma unroll
-          for (int j = 0; j < 8; ++j) v[j] = to_float(h[j]);
-        } else {
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            v[j] = c + j < ci ? to_float(src[j]) : 0.f;
+            for (int j = 0; j < 8; ++j)
+              if (c + j < ci) h[j] = src[c + j];
+          }
         }
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          v[j] = c + j < ci
-                     ? bn_act(v[j], p.s1[c + j], p.t1[c + j], slope) : 0.f;
-      }
-      uint4 out;
-      __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&out);
+        for (int u = 0; u < 4; ++u) {
+          const int c = (v0 + u) * 8;
+          if (v0 + u >= per) break;
+          const bf16* h = reinterpret_cast<const bf16*>(&raw[u]);
+          uint4 out;
+          __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&out);
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        o[j] = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
-      *reinterpret_cast<uint4*>(a1 + wrap(q - origin1, p.ring1) * ld1 + c) =
-          out;
+          for (int j = 0; j < 4; ++j) {
+            const float2 sc =
+                *reinterpret_cast<const float2*>(bn_s1 + c + 2 * j);
+            const float2 sh =
+                *reinterpret_cast<const float2*>(bn_t1 + c + 2 * j);
+            o[j] = __floats2bfloat162_rn(
+                in ? bn_act(to_float(h[2 * j]), sc.x, sh.x, slope) : 0.f,
+                in ? bn_act(to_float(h[2 * j + 1]), sc.y, sh.y, slope)
+                   : 0.f);
+          }
+          *reinterpret_cast<uint4*>(dst + c) = out;
+        }
+      }
     }
   };
 
@@ -761,27 +824,30 @@ conv_block_wgmma_kernel(const __grid_constant__ CUtensorMap map_w1,
     a1_rows(a1_end, q0 + rows + hb - a1_end);
     a1_end = q0 + rows + hb;
     consumer_sync();
-    product(q0, rows, n_st1, ktot1, p.cp1, a1, ld1, p.ring1, origin1,
-            [&](int t0) {
+    product(q0, rows, n_st1, ktot1, p.cp1, a1, ld1, p.ring1, origin1, 0,
+            [&](int t0, const float(&acc)[NP / 2]) {
+              // columns past co: zero weights and a zero batch norm
               const int r0 = t0 + 16 * wq + lane / 4;
+              const int slot0 = wrap(r0 - origin2, p.ring2);
 #pragma unroll
               for (int h = 0; h < 2; ++h) {
                 const int q = r0 + 8 * h;
                 const bool in = st.inside(q);
-                bf16* row = a2 + wrap(q - origin2, p.ring2) * ld2;
+                const int sl = slot0 + 8 * h;
+                bf16* row = a2 + (sl >= p.ring2 ? sl - p.ring2 : sl) * ld2;
 #pragma unroll
                 for (int j = 0; j < NP / 8; ++j) {
                   const int n = 8 * j + 2 * (lane % 4);
                   if (n >= p.cp2) continue;
-                  const float v0 = in && n < co
-                      ? bn_act(acc[4 * j + 2 * h], p.s2[n], p.t2[n], slope)
-                      : 0.f;
-                  const float v1 = in && n + 1 < co
-                      ? bn_act(acc[4 * j + 2 * h + 1], p.s2[n + 1],
-                               p.t2[n + 1], slope)
-                      : 0.f;
+                  const float2 sc = *reinterpret_cast<const float2*>(bn_s2 + n);
+                  const float2 sh = *reinterpret_cast<const float2*>(bn_t2 + n);
                   *reinterpret_cast<__nv_bfloat162*>(row + n) =
-                      __floats2bfloat162_rn(v0, v1);
+                      __floats2bfloat162_rn(
+                          in ? bn_act(acc[4 * j + 2 * h], sc.x, sh.x, slope)
+                             : 0.f,
+                          in ? bn_act(acc[4 * j + 2 * h + 1], sc.y, sh.y,
+                                      slope)
+                             : 0.f);
                 }
               }
             });
@@ -789,24 +855,31 @@ conv_block_wgmma_kernel(const __grid_constant__ CUtensorMap map_w1,
   // conv2 (and the shortcut) over output rows [o0, o0 + rows)
   auto conv2 = [&](int o0, int rows) {
     consumer_sync();  // a2 is whole before conv2 reads it
-    product(o0, rows, n_st2, ktot2, p.cp2, a2, ld2, p.ring2, origin2,
-            [&](int t0) {
+    product(o0, rows, n_st2, ktot2, p.cp2, a2, ld2, p.ring2, origin2, n_st1,
+            [&](int t0, const float(&acc)[NP / 2]) {
       const int r0 = t0 + 16 * wq + lane / 4;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int q = r0 + 8 * h;
         if (q >= s1 || !st.inside(q)) continue;
         const long long pix = st.pixel(q);
+        const bf16* res = bsc ? bsc : xb + pix * ci;  // ci == co
+        // every residual load of the row in flight before the stores
+        __nv_bfloat162 r[NP / 8];
 #pragma unroll
         for (int j = 0; j < NP / 8; ++j) {
           const int n = 8 * j + 2 * (lane % 4);
-          if (n >= co) continue;  // co is even: n + 1 < co too
-          const float2 r = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(
-                  bsc ? bsc + n : xb + pix * ci + n));
+          if (n < co)  // co is even: n + 1 < co too
+            r[j] = *reinterpret_cast<const __nv_bfloat162*>(res + n);
+        }
+#pragma unroll
+        for (int j = 0; j < NP / 8; ++j) {
+          const int n = 8 * j + 2 * (lane % 4);
+          if (n >= co) continue;
+          const float2 rf = __bfloat1622float2(r[j]);
           *reinterpret_cast<__nv_bfloat162*>(yb + pix * co + n) =
-              __floats2bfloat162_rn(acc[4 * j + 2 * h] + r.x,
-                                    acc[4 * j + 2 * h + 1] + r.y);
+              __floats2bfloat162_rn(acc[4 * j + 2 * h] + rf.x,
+                                    acc[4 * j + 2 * h + 1] + rf.y);
         }
       }
     });
@@ -817,7 +890,8 @@ conv_block_wgmma_kernel(const __grid_constant__ CUtensorMap map_w1,
 size_t smem_bytes(const Args& p, int np, int stages) {
   return 1024 + static_cast<size_t>(stages) * (BK * np * 2 + 16) +
          2 * (static_cast<size_t>(p.ring1) * ld_of(p.cp1) +
-              static_cast<size_t>(p.ring2) * ld_of(p.cp2));
+              static_cast<size_t>(p.ring2) * ld_of(p.cp2)) +
+         8 * (p.cp1 + p.cp2);
 }
 
 template <int NP>
@@ -842,7 +916,10 @@ int launch(const Args& p, int batch, int runs, cudaStream_t stream) {
 }
 
 int dispatch(const Args& p, int np, int batch, int runs, cudaStream_t s) {
-  if (p.co % 8 || p.bm % G || p.tile != ROWS || p.stages < 2)
+  const int n_st = (9 * p.cp1 + BK - 1) / BK +
+                   (9 * p.cp2 + (p.bsc ? p.cp1 : 0) + BK - 1) / BK;
+  if (p.co % 8 || p.bm % G || p.tile != ROWS || p.stages < DEPTH ||
+      (p.resident && p.stages != n_st))
     return cudaErrorInvalidValue;
   if (np == 32) return launch<32>(p, batch, runs, s);
   if (np == 64) return launch<64>(p, batch, runs, s);
@@ -864,15 +941,18 @@ int dispatch(const Args& p, int np, int batch, int runs, cudaStream_t s) {
 // folded batch norms. run: output rows of the (t_len * (f + 1))-row stream a
 // thread block owns; bm: rows of a step (float32: tr * 2048 / np; bfloat16:
 // a multiple of 128); tr: float32 rows a thread (8 or 4); stages: bfloat16
-// weight ring stages. Returns cudaErrorInvalidValue for arguments it does not
-// take, rings that do not fit shared memory included.
+// weight ring stages; resident: bfloat16 with stages = every K stage of w1
+// and w2, each loaded once a run. Returns cudaErrorInvalidValue for
+// arguments it does not take, rings that do not fit shared memory
+// included.
 extern "C" int vf_conv_block_res(const void* x, void* y, const void* w1,
                                  const void* w2, const void* bsc,
                                  const float* s1, const float* t1,
                                  const float* s2, const float* t2, int batch,
                                  int t_len, int f, int ci, int co, int np,
                                  int run, int bm, int tr, int stages,
-                                 float slope, int bf16, void* stream) {
+                                 int resident, float slope, int bf16,
+                                 void* stream) {
   if (batch < 1 || batch > 65535 || t_len < 1 || f < 1 || ci < 1 ||
       ci > 128 || co < 1 || co > np || run < 1 || bm < 1 ||
       (bsc == nullptr && ci != co))
@@ -892,6 +972,7 @@ extern "C" int vf_conv_block_res(const void* x, void* y, const void* w1,
   p.ring1 = bm + 2 * hb;
   p.ring2 = bm + round_up(2 * hb + p.front, p.tile) - p.front;
   p.stages = stages;
+  p.resident = resident;
   p.slope = slope;
   const long long runs = (rows + run - 1) / run;
   auto s = static_cast<cudaStream_t>(stream);

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
 from dataclasses import dataclass
 
 import torch
@@ -49,7 +50,7 @@ WG_ROWS = 64          # rows of a bfloat16 tile: one consumer warpgroup's
 WG_G = 128            # rows of a bfloat16 pass: two warpgroups
 WG_BK = 64            # K rows of a bfloat16 weight stage
 WG_STAGES = (4, 8)    # weight ring stages wanted, at most
-WG_MIN_STAGES = 2
+WG_MIN_STAGES = 2     # of csrc/convblock.cu: DEPTH stages in flight
 WG_MAX_STEP = 16 * WG_G
 # fixed cost of a product (copying a1 rows, barriers), in rows: a
 # tie-break between plans of about the same executed rows
@@ -117,6 +118,7 @@ class Plan:
     stages: int    # bfloat16: weight ring stages (0 in float32)
     smem: int      # bytes of dynamic shared memory
     f: int
+    resident: int = 0  # bfloat16: the ring holds every weight stage
 
     def products(self, length: int):
         return walk(0, length, self.f, self.bm, self.tile, self.front)
@@ -124,6 +126,17 @@ class Plan:
     def block_rows(self, rows: int) -> int:
         """Product rows the busiest thread block executes (the first run)."""
         return sum(r for _, _, r in self.products(min(self.run, rows)))
+
+    def executed_flops(self, rows: int, shortcut: bool) -> int:
+        """FLOPs the kernel runs over a batch row, discarded rows and
+        padding included: conv1 (9 taps of cp1) and conv2 (9 taps of cp2,
+        then the shortcut's cp1) at np columns; in bfloat16 a product's K
+        is whole WG_BK-deep weight stages."""
+        c1, c2 = self.executed_rows(rows)
+        k1, k2 = 9 * self.cp1, 9 * self.cp2 + (self.cp1 if shortcut else 0)
+        if self.stages:
+            k1, k2 = _round_up(k1, WG_BK), _round_up(k2, WG_BK)
+        return 2 * self.np * (c1 * k1 + c2 * k2)
 
     def executed_rows(self, rows: int) -> tuple:
         """(conv1, conv2) product rows summed over a batch row's runs."""
@@ -160,10 +173,18 @@ def f32_smem_bytes(np_: int, tr: int, cp1: int, cp2: int, f: int) -> int:
 def wgmma_smem_bytes(np_: int, bm: int, cp1: int, cp2: int, f: int,
                      stages: int) -> int:
     """The bfloat16 kernel's shared memory: alignment, the weight ring and
-    its barriers, and the two rings of rows (widths plus 8 bf16)."""
+    its barriers, the two rings of rows (widths plus 8 bf16) and the folded
+    batch norms (float32)."""
     r1, r2 = rings(f, bm, WG_ROWS, 0)
     return (1024 + stages * (WG_BK * np_ * 2 + 16)
-            + 2 * (r1 * (cp1 + 8) + r2 * (cp2 + 8)))
+            + 2 * (r1 * (cp1 + 8) + r2 * (cp2 + 8)) + 8 * (cp1 + cp2))
+
+
+def wgmma_weight_stages(ci: int, co: int, shortcut: bool) -> int:
+    """WG_BK-deep stages of w1 and w2 together: a resident ring's size."""
+    cp1, cp2 = _round_up(ci, K_STEP), _round_up(co, K_STEP)
+    return (_ceil(9 * cp1, WG_BK)
+            + _ceil(9 * cp2 + (cp1 if shortcut else 0), WG_BK))
 
 
 def _geometries(f: int, ci: int, co: int, itemsize: int):
@@ -279,6 +300,46 @@ def pack_weights(params: dict, dtype: torch.dtype, np_: int):
     return w1.contiguous(), w2.contiguous(), bsc
 
 
+# id(conv1 weight) -> (weak reference to it, {(dtype, np): packed}): the
+# operands packed for a block's parameters, dropped when the weight dies
+_packed: dict = {}
+
+
+def _leaves(params: dict) -> list:
+    out = [params["conv1"]["w"], params["conv2"]["w"],
+           params["bn1"]["scale"], params["bn1"]["shift"],
+           params["bn2"]["scale"], params["bn2"]["shift"]]
+    if "shortcut" in params:
+        out += [params["shortcut"]["w"], params["shortcut"]["b"]]
+    return out
+
+
+def packed(params: dict, dtype: torch.dtype, np_: int) -> tuple:
+    """(w1, w2, bsc, s1, t1, s2, t2): ``pack_weights`` and the folded batch
+    norms as the kernel reads them. Packed once and reused while the same
+    parameter tensors, unchanged in place, come back: inference calls a
+    block with the same weights every time, and packing on every call cost
+    more than the kernel on the bfloat16 path."""
+    leaves = _leaves(params)
+    stamp = [t._version if not t.is_inference() else 0 for t in leaves]
+    key = id(leaves[0])
+    entry = _packed.get(key)
+    if entry is None or entry[0]() is not leaves[0]:
+        entry = (weakref.ref(leaves[0], lambda _, k=key: _packed.pop(k, None)),
+                 {})
+        _packed[key] = entry
+    store = entry[1]
+    hit = store.get((dtype, np_))
+    if (hit is not None and hit[1] == stamp
+            and all(r() is t for r, t in zip(hit[0], leaves))):
+        return hit[2]
+    with torch.no_grad():
+        ops = (*pack_weights(params, dtype, np_), *pack_bn(params["bn1"]),
+               *pack_bn(params["bn2"]))
+    store[dtype, np_] = ([weakref.ref(t) for t in leaves], stamp, ops)
+    return ops
+
+
 def conv_block_res_reference(x: torch.Tensor, params: dict,
                              slope: float) -> torch.Tensor:
     """Plain version of ``conv_block_res``, rounding where the kernel does."""
@@ -326,36 +387,38 @@ def conv_block_res(x: torch.Tensor, params: dict,
     return y
 
 
-def launch(x: torch.Tensor, params: dict, slope: float,
-           plan: Plan) -> torch.Tensor:
+def launch(x: torch.Tensor, params: dict, slope: float, plan: Plan,
+           lib: ctypes.CDLL | None = None) -> torch.Tensor:
     """One launch of csrc/convblock.cu under ``plan`` (``conv_block_res``
-    chooses it; tools time others). Raises on a CUDA error."""
+    chooses it; tools time others, and copies of the library bound by
+    ``bind``). Raises on a CUDA error."""
     x = x.contiguous()
     if x.data_ptr() % 16:
         x = x.clone()
     bsz, t, f, ci = x.shape
     co = params["conv1"]["w"].shape[3]
     dt = x.dtype
-    w1, w2, bsc = pack_weights(params, dt, plan.np)
-    s1, t1 = pack_bn(params["bn1"])
-    s2, t2 = pack_bn(params["bn2"])
+    w1, w2, bsc, s1, t1, s2, t2 = packed(params, dt, plan.np)
     y = torch.empty((bsz, t, f, co), dtype=dt, device=x.device)
-    lib = _lib()
-    with kernels.current_device(x.device):
-        rc = lib.vf_conv_block_res(
-            x.data_ptr(), y.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-            bsc.data_ptr() if bsc is not None else None, s1.data_ptr(),
-            t1.data_ptr(), s2.data_ptr(), t2.data_ptr(), bsz, t, f, ci, co,
-            plan.np, plan.run, plan.bm, plan.tr, plan.stages, float(slope),
-            int(dt == torch.bfloat16),
-            torch.cuda.current_stream(x.device).cuda_stream)
+    lib = lib or _lib()
+    rc = lib.vf_conv_block_res(
+        x.data_ptr(), y.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+        bsc.data_ptr() if bsc is not None else None, s1.data_ptr(),
+        t1.data_ptr(), s2.data_ptr(), t2.data_ptr(), bsz, t, f, ci, co,
+        plan.np, plan.run, plan.bm, plan.tr, plan.stages, plan.resident,
+        float(slope), int(dt == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, rc, "conv_block_res")
     return y
 
 
 def _lib():
-    lib = build.load("convblock")
+    return bind(build.load("convblock"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares vf_conv_block_res's arguments on a loaded library."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.vf_conv_block_res.argtypes = [p] * 9 + [i] * 10 + [f, i, p]
+    lib.vf_conv_block_res.argtypes = [p] * 9 + [i] * 11 + [f, i, p]
     lib.vf_conv_block_res.restype = i
     return lib
