@@ -2,7 +2,8 @@
 """The ConvBlockRes kernel (csrc/convblock.cu, K9 conv_block_res) under
 other plans and in copies with one choice changed, on one CUDA card: times
 it at the shapes of the ResUNet's blocks in a 30 s chunk (device time of
-its kernel, torch.profiler), each launch held to the plain version first.
+its kernel, torch.profiler), each variant that computes K9 held to the
+plain version first.
 
     python3 tools/torch_convblock_variants.py [VARIANT ...]
 
@@ -19,11 +20,18 @@ Variants (all by default):
                   shared memory and loaded once a run, where that fits
   depth_3/4       bfloat16: a copy of the source with 3 or 4 weight stages'
                   wgmmas in flight instead of 2 (DEPTH)
+  sc_tile         float32, blocks with the 1x1 shortcut: a copy that
+                  computes the shortcut first as a product of its own into a
+                  float32 tile in shared memory (BM x (np + 4)), which
+                  conv2's epilogue adds, in place of conv2's last K steps,
+                  at the planner's step or half of it, where the tile fits
+                  (compare with step_half where the step is halved)
   no_*            bfloat16: copies with one cost left out, which compute
                   something else and are timed only: no_a_loads (A
                   fragments not loaded), no_tap_math (every tap reads the
-                  first tap's rows), no_wgmma, no_epilogue (no
-                  a2 or output stores), no_a1 (no a1 rows copied)
+                  first tap's rows), no_wgmma, no_epilogue (no a2 or
+                  output stores), no_a1 (no a1 rows copied); f32_no_epilogue
+                  and f32_no_a1 the same in float32
 The copies are built under voicefixer_tpu_torch/build/variants_convblock/;
 their text hooks must match the kernel source, and the tool says which
 does not.
@@ -61,7 +69,49 @@ CUTS = {
                      "      if (acc[0] == 1.2345e-30f) epi(t0, acc);")],
     "no_a1": [("    a1_rows(a1_end, q0 + rows + hb - a1_end);", "")],
 }
-CHECKED = ("depth_3", "depth_4")  # the copies that compute the function
+F32_CONV2 = """    product<NP, TR>(
+        wring, w2, steps2, kc2, a2, ld2, p.ring2, origin2, o0, p, st, xb,
+        [] {},
+        [&](int m, int n, float (&v)[4]) {
+          const int q = o0 + m;
+          if (q >= s1 || n >= co || !st.inside(q)) return;
+          const long long pix = st.pixel(q);
+          float r[4];
+          if (bsc) load4(bsc + n, co - n, vec_y, r);"""
+CUTS["sc_tile"] = [
+    ("  float* a2 = a1 + p.ring1 * ld1;                // [ring2][ld2]\n",
+     "  float* a2 = a1 + p.ring1 * ld1;                // [ring2][ld2]\n"
+     "  float* sct = a2 + p.ring2 * ld2;  // [BM][NP + 4]\n"),
+    (F32_CONV2, """    if (bsc)
+      product<NP, TR>(
+          wring, w2 + static_cast<long long>(9 * p.cp2) * NP, kc1, 0, a2,
+          ld2, p.ring2, origin2, o0, p, st, xb, [] {},
+          [&](int m, int n, float (&v)[4]) {
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+              sct[m * (NP + 4) + n + u] =
+                  v[u] + (n + u < co ? bsc[n + u] : 0.f);
+          });
+    product<NP, TR>(
+        wring, w2, 9 * kc2, kc2, a2, ld2, p.ring2, origin2, o0, p, st, xb,
+        [] {},
+        [&](int m, int n, float (&v)[4]) {
+          const int q = o0 + m;
+          if (q >= s1 || n >= co || !st.inside(q)) return;
+          const long long pix = st.pixel(q);
+          float r[4];
+          if (bsc) load4(sct + m * (NP + 4) + n, co - n, vec_y, r);"""),
+    (" * ld_of(p.cp2));\n}",
+     " * ld_of(p.cp2) +\n          static_cast<size_t>(p.bm) * (np + 4));\n}"),
+]
+CUTS["f32_no_epilogue"] = [
+    ("      epi(ty + NY * i, 4 * tx + g * 4 * NX, v);",
+     "      if (v[0] == 1.2345e-30f)\n"
+     "        epi(ty + NY * i, 4 * tx + g * 4 * NX, v);")]
+CUTS["f32_no_a1"] = [("    a1_rows(fresh, cnt, false);\n", ""),
+                     ("        [&] { a1_rows(fresh, cnt, true); },",
+                      "        [] {},")]
+CHECKED = ("depth_3", "depth_4", "sc_tile")  # copies that compute K9
 VARIANTS = ("base", "one_step", "runs_1", "runs_2", "runs_4", "stages_4",
             "stages_8", "step_half", "resident", *CUTS)
 
@@ -118,6 +168,17 @@ def plan_of(name: str, t: int, f: int, ci: int, co: int, itemsize: int):
         per_row = cb.SMS * int(name[5:])
         return cb.plan_stream(t, f, ci, co, itemsize,
                               run=-(-rows // per_row), bm=base.bm)
+    if name == "sc_tile":  # the planner's step, else half of it, if fits
+        if itemsize != 4 or ci == co:
+            return None
+        for bm in (base.bm, base.bm // 2):
+            q = cb.plan_stream(t, f, ci, co, itemsize, bm=bm)
+            if q is not None and q.bm == bm and (
+                    q.smem + 4 * bm * (q.np + 4) <= cb.SMEM_LIMIT):
+                return q
+        return None
+    if name.startswith("f32_"):
+        return base if itemsize == 4 else None
     if name in CUTS:
         return base if itemsize == 2 else None
     if name.startswith("stages_"):
@@ -194,9 +255,16 @@ def main() -> int:
                     continue
                 go = lambda plan=plan, lib=libs.get(name): (  # noqa: E731
                     convblock.launch(x, p, slope, plan, lib))
+                try:
+                    got = go()
+                except RuntimeError as e:  # a copy's rings do not fit
+                    print(f"  {name:10s} {shape}: not launched ({e})",
+                          flush=True)
+                    continue
                 if name not in CUTS or name in CHECKED:
-                    cs.compare(f"{name} {shape}", go(), ref, c["rtol"],
+                    cs.compare(f"{name} {shape}", got, ref, c["rtol"],
                                c["atol"])
+                del got
                 ms = cs.device_ms(go, 5, cs.K9_GROUP)
                 base_ms = base_ms or ms
                 totals[name, dtype] = totals.get((name, dtype), 0.0) + k * ms

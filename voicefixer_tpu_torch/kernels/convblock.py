@@ -44,7 +44,6 @@ MAX_CHANNELS = 128
 SMS = 132             # streaming multiprocessors of an H100 SXM
 K_STEP = 16           # channels of a K step; Ci and Co are rounded up to it
 F32_STAGES = 3        # of csrc/convblock.cu: the float32 weight ring
-F32_THREADS = 256
 F32_ROWS = (8, 4)     # rows of a thread's float32 tile, preferred first
 WG_ROWS = 64          # rows of a bfloat16 tile: one consumer warpgroup's
 WG_G = 128            # rows of a bfloat16 pass: two warpgroups
@@ -318,8 +317,8 @@ def packed(params: dict, dtype: torch.dtype, np_: int) -> tuple:
     """(w1, w2, bsc, s1, t1, s2, t2): ``pack_weights`` and the folded batch
     norms as the kernel reads them. Packed once and reused while the same
     parameter tensors, unchanged in place, come back: inference calls a
-    block with the same weights every time, and packing on every call cost
-    more than the kernel on the bfloat16 path."""
+    block with the same weights every time, and packing on every call took
+    more host time than the bfloat16 kernel takes on the card."""
     leaves = _leaves(params)
     stamp = [t._version if not t.is_inference() else 0 for t in leaves]
     key = id(leaves[0])
