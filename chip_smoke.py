@@ -199,15 +199,18 @@ def f32_executed_flops(ch: int, t: int, dils, tm) -> int:
 
 
 def conv_block_executed_flops(t: int, f: int, ci: int, co: int,
-                              itemsize: int, batch: int = 1) -> int:
+                              itemsize: int, batch: int = 1,
+                              sms: int | None = None) -> int:
     """FLOPs that the ConvBlockRes kernel (csrc/convblock.cu) runs on
-    [batch, t, f, ci], discarded rows and padding included: conv1 over each
-    run's halo and steps (9 taps of Ci rounded up to 16), conv2 and the
-    shortcut's K rows over the steps, every product at the width rounded
-    up to 32, 64 or 128 columns, in bfloat16 its K to whole weight stages
-    (``kernels.convblock.plan_stream``, ``Plan.executed_flops``)."""
+    [batch, t, f, ci] on a card of ``sms`` SMs (default
+    ``kernels.convblock.SMS``), discarded rows and padding included: conv1
+    over each run's halo and steps (9 taps of Ci rounded up to 16), conv2
+    and the shortcut's K rows over the steps, every product at the width
+    rounded up to 32, 64 or 128 columns, in bfloat16 its K to whole weight
+    stages (``kernels.convblock.plan_stream``, ``Plan.executed_flops``)."""
     from voicefixer_tpu_torch.kernels import convblock
-    p = convblock.plan_stream(t, f, ci, co, itemsize, batch)
+    p = convblock.plan_stream(t, f, ci, co, itemsize, batch,
+                              sms=sms or convblock.SMS)
     return batch * p.executed_flops(t * (f + 1), ci != co)
 
 
@@ -736,13 +739,16 @@ def _conv_block_case(gen, device, dtype, t, f, ci, co, per_chunk):
         p["shortcut"] = {"w": rnd((1, 1, ci, co), ci ** -0.5),
                          "b": 0.1 * rnd((co,))}
     p = tree_map(lambda v: v.to(device, dt), fold_bn_eval(p))
+    # the operands packed once, as VoiceFixer(conv_block_kernel=True) does
+    p = resunet.pack_conv_blocks({"block": p})["block"]
     x = rnd((1, t, f, ci)).to(device, dt)
     slope = C.unet.leaky_slope
     if not convblock.eligible(p, x):
         raise AssertionError(f"conv_block_res does not take [{t}, {f}] "
                              f"{ci}->{co} {dtype}")
     flops, work_bytes = conv_block_work(t, f, ci, co, x.element_size())
-    plan = convblock.plan_stream(t, f, ci, co, x.element_size())
+    sms = convblock.sm_count(x.device)
+    plan = convblock.plan_stream(t, f, ci, co, x.element_size(), sms=sms)
     layout = (f"{plan.tr} x 8 a thread" if plan.tr
               else f"{plan.stages} weight stages")
     # bfloat16: the output is rounded once; a2 is rounded where the plain
@@ -754,7 +760,7 @@ def _conv_block_case(gen, device, dtype, t, f, ci, co, per_chunk):
                      f"{plan.runs} runs of {plan.run} rows, steps of "
                      f"{plan.bm}, {plan.np} columns, {layout}",
             "executed": conv_block_executed_flops(t, f, ci, co,
-                                                  x.element_size()),
+                                                  x.element_size(), sms=sms),
             "args": (x, p, slope),
             "fn": lambda: convblock.conv_block_res(x, p, slope),
             "plain": lambda: convblock.conv_block_res_reference(x, p, slope),
@@ -844,13 +850,6 @@ def phase_kernels(device):
             except RuntimeError as e:
                 log(f"  library call unavailable: {str(e).splitlines()[0]}")
                 lib_ms = None
-            if c.get("device_group"):
-                # the kernel's and the library's own device time; the
-                # events above also time the host between launches
-                log(f"  {c['name']} {c['dtype']}: CUDA events kernel "
-                    f"{ms:.3f} ms, library {lib_ms} ms")
-                ms = device_ms(c["fn"], c["reps"], c["device_group"])
-                lib_ms = device_ms(c["library"], c["reps"])
             bms, by = bound_ms(c["bytes"], c["flops"], c["peak"])
             rate = ("" if not c.get("executed") else
                     f"; executed {c['executed'] / 1e9:.1f} GFLOP, "
@@ -858,14 +857,23 @@ def phase_kernels(device):
                     f"{c['flops'] / ms / 1e9:.1f} useful")
             if lib_ms:
                 rate += f"; {ms / lib_ms:.2f}x the library's time"
-            clock = " (device)" if c.get("device_group") else ""
-            log(f"  {c['name']} {c['dtype']} {c['shape']}: kernel {ms:.3f} ms"
-                f"{clock}, plain {plain_ms:.3f} ms, library {lib_ms} ms{clock}"
-                ", bound "
+            log(f"  {c['name']} {c['dtype']} {c['shape']}: kernel {ms:.3f} ms, "
+                f"plain {plain_ms:.3f} ms, library {lib_ms} ms, bound "
                 f"{bms:.4f} ms ({by}; {c['flops'] / 1e9:.2f} GFLOP, "
                 f"{c['bytes'] / 1e6:.1f} MB){rate}")
+            dev_ms = lib_dev_ms = None
+            if c.get("device_group"):
+                # besides the events, which also time the host between
+                # launches: the kernel's and the library's device time
+                dev_ms = device_ms(c["fn"], c["reps"], c["device_group"])
+                lib_dev_ms = device_ms(c["library"], c["reps"])
+                log(f"  {c['name']} {c['dtype']} {c['shape']}: device time "
+                    f"kernel {dev_ms:.3f} ms, library {lib_dev_ms:.3f} ms"
+                    f"; {c['executed'] / dev_ms / 1e9:.1f} TFLOP/s executed; "
+                    f"{dev_ms / lib_dev_ms:.2f}x the library's time")
             rows.append({**c, "err": err, "ms": ms, "plain_ms": plain_ms,
-                         "lib_ms": lib_ms, "bound_ms": bms, "bound_by": by})
+                         "lib_ms": lib_ms, "bound_ms": bms, "bound_by": by,
+                         "dev_ms": dev_ms, "lib_dev_ms": lib_dev_ms})
     return rows
 
 
@@ -1121,16 +1129,18 @@ def phase_conv_block_path(vf, wav, outs, device):
             _timed_restore(mode, "fused conv blocks", cb, wav, device)
             with tf32_off(), torch.inference_mode():
                 x, _ = _denoised_mel(vf, wav, device)
-                unet = lambda: resunet.apply(  # noqa: E731
-                    vf.params["unet"], x, vf.config.unet)
+                # the default instance's tree, and the opt-in's with the
+                # kernel's operands packed at construction
+                unet = lambda tree: lambda: resunet.apply(  # noqa: E731
+                    tree["unet"], x, vf.config.unet)
                 # summed kernel time: CUDA events around this stage's many
                 # small launches also time the host
-                busy = lambda: sum(r[1] for r in _device_kernels(unet))  # noqa: E731
-                lib_ms = busy()
+                busy = lambda fn: sum(r[1] for r in _device_kernels(fn))  # noqa: E731
+                lib_ms = busy(unet(vf.params))
                 with conv_block_kernel():
-                    k_ms = busy()
+                    k_ms = busy(unet(cb.params))
                     # raises when no kernel of the group is seen
-                    k9 = device_ms(unet, 1, K9_GROUP)
+                    k9 = device_ms(unet(cb.params), 1, K9_GROUP)
             log(f"  {mode} resunet stage, summed kernel ms (profiler, 30 s): "
                 f"{k_ms:.2f} with {want['conv_block_res']} blocks through "
                 f"conv_block_res ({k9:.2f} ms in the kernel), {lib_ms:.2f} on "
@@ -1388,6 +1398,9 @@ def main() -> int:
                 "library_ms": (None if None in [r["lib_ms"] for r in rs]
                                else total("lib_ms")),
             })
+            if rs[0]["dev_ms"] is not None:  # K9: device time beside events
+                record[-1].update(device_ms=total("dev_ms"),
+                                  library_device_ms=total("lib_dev_ms"))
     log(f"== done in {time.perf_counter() - t_start:.1f} s; times are per "
         "30 s chunk (B=1), summed over the launches that the kernel's path "
         "makes (the default path; res_stream: the sharded path; "

@@ -15,8 +15,6 @@ residual path into outputs of any magnitude: those cases allow
 2^-7*max|ref| + 2^-7*|ref|.
 """
 
-import dataclasses
-
 import pytest
 import torch
 
@@ -599,25 +597,41 @@ def test_conv_block_res_run_boundaries(cuda, t, f, ci, co, b, run, dtype):
                                atol=tol[1])
 
 
-@pytest.mark.parametrize("t,f,ci,co", [(200, 127, 32, 32),
-                                       (100, 63, 32, 64)])
-def test_conv_block_res_resident_weights(cuda, t, f, ci, co):
-    """The bfloat16 kernel with every weight stage held in shared memory
-    and loaded once a run (the variant tools/torch_convblock_variants.py
-    times against the ring), a run of several steps."""
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_conv_block_res_packed_operands(cuda, dtype):
+    """A block whose operands its owner packed once
+    (``resunet.pack_conv_blocks``, as ``VoiceFixer(conv_block_kernel=True)``
+    does) gives the result of the same block packed at the call."""
+    from voicefixer_tpu_torch.models import resunet
     gen = torch.Generator().manual_seed(16)
-    p = _conv_block_params(gen, ci, co, cuda, torch.bfloat16)
-    x = _randn(gen, (1, t, f, ci), 0.5).to(cuda, torch.bfloat16)
-    base = convblock.plan_stream(t, f, ci, co, 2, run=4 * 128, bm=128)
-    stages = convblock.wgmma_weight_stages(ci, co, ci != co)
-    plan = dataclasses.replace(
-        base, stages=stages, resident=1,
-        smem=convblock.wgmma_smem_bytes(base.np, base.bm, base.cp1,
-                                        base.cp2, f, stages))
-    got = convblock.launch(x, p, 0.01, plan)
+    dt = getattr(torch, dtype)
+    p = _conv_block_params(gen, 32, 64, cuda, torch.float32)
+    x = _randn(gen, (2, 40, 31, 32), 0.5).to(cuda, dt)
+    packed = resunet.pack_conv_blocks({"b": p})["b"]
+    assert convblock.operands(packed, dt) is packed["packed"][dtype]
+    cast = resunet._cast(p, dt)
+    got = convblock.conv_block_res(x, resunet._cast(packed, dt), 0.01)
+    want = convblock.conv_block_res(x, cast, 0.01)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("t,f,ci,co,dtype", [(12, 64, 128, 128, "float32"),
+                                             (4, 621, 32, 32, "bfloat16")])
+def test_conv_block_res_at_the_rings_limit(cuda, t, f, ci, co, dtype):
+    """The widest F that ``eligible`` takes for these widths: rings that
+    fill the shared memory."""
+    gen = torch.Generator().manual_seed(17)
+    dt = getattr(torch, dtype)
+    p = _conv_block_params(gen, ci, co, cuda, dt)
+    x = _randn(gen, (1, t, f, ci), 0.5).to(cuda, dt)
+    assert convblock.eligible(p, x)
+    wider = torch.empty((1, t, f + 1, ci), device="meta", dtype=dt)
+    assert not convblock.eligible(p, wider)
+    got = convblock.conv_block_res(x, p, 0.01)
     ref = convblock.conv_block_res_reference(x, p, 0.01)
-    torch.testing.assert_close(got.float(), ref.float(), rtol=2 ** -7,
-                               atol=2e-3)
+    tol = (1e-4, 2e-5) if dtype == "float32" else (2 ** -7, 2e-3)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=tol[0],
+                               atol=tol[1])
 
 
 @pytest.mark.parametrize("case", ["conv_block_res_f32",

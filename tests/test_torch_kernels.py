@@ -531,14 +531,23 @@ def test_conv_block_eligible_takes_the_full_width_blocks(t, f, ci, co, dtype):
                for _, _, n in plan.products(plan.run))
 
 
+# the widest F whose two rings fit shared memory, per type and widths
+RINGS_LIMIT = {"float32": (128, 128, 64), "bfloat16": (32, 32, 621)}
+
+
 @pytest.mark.parametrize("why", ["wide", "unfolded", "k1", "ragged_bf16",
-                                 "identity_mismatch"])
+                                 "identity_mismatch", "rings_float32",
+                                 "rings_bfloat16"])
 def test_conv_block_not_eligible(why):
     e = lambda *s, dt=torch.float32: torch.empty(  # noqa: E731
         s, device="meta", dtype=dt)
-    ci, co, dt = 32, 32, torch.float32
+    ci, co, dt, f = 32, 32, torch.float32, 15
     if why == "wide":
         ci = co = 256
+    if why.startswith("rings_"):
+        dt = getattr(torch, why[6:])
+        ci, co, f = RINGS_LIMIT[why[6:]]
+        f += 1
     if why == "ragged_bf16":
         co, dt = 12, torch.bfloat16
     if why == "identity_mismatch":
@@ -553,34 +562,80 @@ def test_conv_block_not_eligible(why):
         p["bn1"] = {"gamma": e(ci), "beta": e(ci), "mean": e(ci), "var": e(ci)}
     if why == "k1":
         p["conv1"]["w"] = e(1, 1, ci, co)
-    assert not convblock.eligible(p, e(1, 16, 15, ci, dt=dt))
+    assert not convblock.eligible(p, e(1, 16, f, ci, dt=dt))
 
 
-def test_conv_block_packed_operands_are_reused_until_changed():
-    """The kernel's packed weights and batch norms are built once per
-    parameter tensors and type, rebuilt when a tensor changes in place or is
-    replaced, and dropped with the block's conv1 weight."""
-    import gc
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_conv_block_eligible_at_the_rings_limit(dtype):
+    """The kernel holds rings of a step and 2(F + 2) rows of a1 and a2, so
+    ``eligible`` takes blocks up to an F set by the widths and the type
+    (test_conv_block_not_eligible refuses one more): narrower in F than the
+    tile-with-halo kernel it replaced took, wider than the ResUNet's F =
+    127 at 32 channels, 63 at 64 and 31 at 128."""
+    dt = getattr(torch, dtype)
+    ci, co, f = RINGS_LIMIT[dtype]
+    e = lambda *s: torch.empty(s, device="meta", dtype=dt)  # noqa: E731
+    p = {"bn1": {"scale": e(ci), "shift": e(ci)},
+         "conv1": {"w": e(3, 3, ci, co)},
+         "bn2": {"scale": e(co), "shift": e(co)},
+         "conv2": {"w": e(3, 3, co, co)}}
+    assert convblock.eligible(p, e(1, 16, f, ci))
+    assert convblock.plan_stream(16, f, ci, co, dt.itemsize).smem <= \
+        resstack.SMEM_LIMIT
 
+
+def test_conv_block_plan_follows_the_sm_count():
+    """A card with fewer SMs gets runs that still fill one wave."""
+    rows = 3008 * 128
+    for sms in (132, 114):
+        plan = convblock.plan_stream(3008, 127, 2, 32, 4, sms=sms)
+        assert plan.runs <= sms and plan.run == -(-rows // sms)
+    assert convblock.sm_count(torch.device("cpu")) == convblock.SMS
+
+
+def test_conv_block_operands_packed_once_by_the_owner():
+    """``resunet.pack_conv_blocks`` gives every ConvBlockRes the kernel can
+    take its operands, packed once a type from the block as
+    ``resunet.apply`` casts it; ``convblock.operands`` returns those and
+    packs a block without them anew; apply's cast leaves them as they are,
+    and the output is the same."""
+    from voicefixer_tpu_torch.config import tiny_test_config
+    from voicefixer_tpu_torch.models import resunet
     from voicefixer_tpu_torch.ops.conv import fold_bn_eval
+    from voicefixer_tpu_torch.ops.precision import (conv_block_kernel,
+                                                    precision)
 
-    rng = np.random.default_rng(43)
-    p = fold_bn_eval(_tree(_conv_block_params(rng, 8, 16), torch.from_numpy))
-    first = convblock.packed(p, torch.bfloat16, 32)
-    assert convblock.packed(p, torch.bfloat16, 32) is first
-    assert convblock.packed(p, torch.float32, 32) is not first
-    p["conv2"]["w"].mul_(2)
-    again = convblock.packed(p, torch.bfloat16, 32)
-    assert again is not first
-    assert torch.equal(again[1], convblock.pack_weights(p, torch.bfloat16,
-                                                        32)[1])
-    p["bn1"] = {k: v.clone() for k, v in p["bn1"].items()}
-    assert convblock.packed(p, torch.bfloat16, 32) is not again
-    key = id(p["conv1"]["w"])
-    assert key in convblock._packed
-    del p, first, again
-    gc.collect()
-    assert key not in convblock._packed
+    cfg = tiny_test_config().unet
+    tree = fold_bn_eval(resunet.init(cfg, torch.Generator().manual_seed(0)))
+    done = resunet.pack_conv_blocks(tree)
+    names = [("enc1", "block1"), ("enc2", "block1"), ("center",),
+             ("dec1", "block2"), ("dec2", "block2"), ("after1",)]
+    for name in names:
+        block, packed = tree, done
+        for k in name:
+            block, packed = block[k], packed[k]
+        for dt, key in convblock.DTYPE_KEYS.items():
+            ops = convblock.operands(packed, dt)
+            assert ops is packed["packed"][key]
+            cast = resunet._cast(block, dt)
+            want = convblock.pack_operands(cast, dt)
+            fresh = convblock.operands(cast, dt)
+            assert ops.keys() == want.keys() == fresh.keys()
+            for k in ops:
+                assert torch.equal(ops[k], want[k])
+                assert torch.equal(fresh[k], want[k])
+            # the batch norms as production's cast rounds them, in float32
+            assert ops["s1"].dtype == torch.float32
+            assert torch.equal(ops["s1"], block["bn1"]["scale"].to(dt).float())
+        assert resunet._cast(packed, torch.bfloat16)["packed"] is \
+            packed["packed"]
+    assert "packed" not in done["dec1"] and "packed" not in done["after2"]
+    x = torch.from_numpy(_rand(np.random.default_rng(44), (1, 20, 128, 2)))
+    for mode in ("parity", "production"):
+        with precision(mode), conv_block_kernel():
+            torch.testing.assert_close(resunet.apply(done, x, cfg),
+                                       resunet.apply(tree, x, cfg),
+                                       rtol=0, atol=0)
 
 
 def _old_tile_cost(t, f, ci, co, itemsize, batch=1):

@@ -16,8 +16,9 @@ Variants (all by default):
                   (the planner takes up to 8)
   step_half       half the planner's step (bfloat16; float32 where the
                   thread tile allows it)
-  resident        bfloat16: every weight stage of both matrices held in
-                  shared memory and loaded once a run, where that fits
+  resident        bfloat16: a copy that holds every weight stage of both
+                  matrices in shared memory, loaded once a run and never
+                  handed back, where that fits (Co <= 64)
   depth_3/4       bfloat16: a copy of the source with 3 or 4 weight stages'
                   wgmmas in flight instead of 2 (DEPTH)
   sc_tile         float32, blocks with the 1x1 shortcut: a copy that
@@ -111,9 +112,21 @@ CUTS["f32_no_epilogue"] = [
 CUTS["f32_no_a1"] = [("    a1_rows(fresh, cnt, false);\n", ""),
                      ("        [&] { a1_rows(fresh, cnt, true); },",
                       "        [] {},")]
-CHECKED = ("depth_3", "depth_4", "sc_tile")  # copies that compute K9
+CUTS["resident"] = [
+    ('''      walk(s0, s1, hb, origin2, bm, ROWS,
+           [&](int, int rows) { feed(&map_w1, n_st1, rows); },
+           [&](int, int rows) { feed(&map_w2, n_st2, rows); });''',
+     '''      feed(&map_w1, n_st1, ROWS);  // stage k of w1 in slot k, of w2
+      feed(&map_w2, n_st2, ROWS);  // in slot n_st1 + k'''),
+    ("    if (lane == 0) hopper::mbar_arrive(&empty[stage]);",
+     "    (void)stage;"),
+    ("    for (int ps = 0; ps < passes(rows); ++ps) {\n",
+     "    for (int ps = 0; ps < passes(rows); ++ps) {\n"
+     "      s = ring == a1 ? 0 : n_st1, phase = 0;\n"),
+]
+CHECKED = ("depth_3", "depth_4", "sc_tile", "resident")  # compute K9
 VARIANTS = ("base", "one_step", "runs_1", "runs_2", "runs_4", "stages_4",
-            "stages_8", "step_half", "resident", *CUTS)
+            "stages_8", "step_half", *CUTS)
 
 
 def build(names):
@@ -179,6 +192,24 @@ def plan_of(name: str, t: int, f: int, ci: int, co: int, itemsize: int):
         return None
     if name.startswith("f32_"):
         return base if itemsize == 4 else None
+    if name == "resident":  # a ring of every stage of w1 and w2
+        if itemsize != 2:
+            return None
+        k2 = 9 * base.cp2 + (base.cp1 if ci != co else 0)
+        stages = -(-9 * base.cp1 // cb.WG_BK) + -(-k2 // cb.WG_BK)
+        bm = base.bm
+        while True:
+            smem = cb.wgmma_smem_bytes(base.np, bm, base.cp1, base.cp2, f,
+                                       stages)
+            if smem <= cb.SMEM_LIMIT or bm <= cb.WG_G:
+                break
+            bm -= cb.WG_G
+        if smem > cb.SMEM_LIMIT:
+            return None
+        p = cb.plan_stream(t, f, ci, co, itemsize, run=base.run, bm=bm)
+        if p is None:  # the step fits only with the resident ring
+            return None
+        return dataclasses.replace(p, stages=stages, smem=smem)
     if name in CUTS:
         return base if itemsize == 2 else None
     if name.startswith("stages_"):
@@ -190,23 +221,6 @@ def plan_of(name: str, t: int, f: int, ci: int, co: int, itemsize: int):
         if smem > cb.SMEM_LIMIT:
             return None
         return dataclasses.replace(base, stages=stages, smem=smem)
-    if name == "resident":
-        if itemsize != 2:
-            return None
-        stages = cb.wgmma_weight_stages(ci, co, ci != co)
-        smem = cb.wgmma_smem_bytes(base.np, base.bm, base.cp1, base.cp2, f,
-                                   stages)
-        bm = base.bm
-        while smem > cb.SMEM_LIMIT and bm > cb.WG_G:
-            bm -= cb.WG_G
-            smem = cb.wgmma_smem_bytes(base.np, bm, base.cp1, base.cp2, f,
-                                       stages)
-        if smem > cb.SMEM_LIMIT:
-            return None
-        p = cb.plan_stream(t, f, ci, co, itemsize, run=base.run, bm=bm)
-        if p is None:  # the step fits only with the resident ring
-            return None
-        return dataclasses.replace(p, stages=stages, resident=1, smem=smem)
     if name == "step_half":
         half = base.bm // 2
         if itemsize == 2 and half % cb.WG_G:

@@ -86,8 +86,6 @@ struct Args {
   int front;        // a2 rows computed before the halo (see walk())
   int ring1, ring2; // rows of the a1 and a2 rings
   int stages;       // bfloat16: stages of the weight ring
-  int resident;     // bfloat16: the ring holds every stage of both
-                    // matrices, each loaded once a run
   float slope;
 };
 
@@ -600,14 +598,9 @@ conv_block_wgmma_kernel(const __grid_constant__ CUtensorMap map_w1,
             ++it;
           }
       };
-      if (p.resident) {  // stage k of w1 in slot k, of w2 in n_st1 + k
-        feed(&map_w1, n_st1, ROWS);
-        feed(&map_w2, n_st2, ROWS);
-      } else {
-        walk(s0, s1, hb, origin2, bm, ROWS,
-             [&](int, int rows) { feed(&map_w1, n_st1, rows); },
-             [&](int, int rows) { feed(&map_w2, n_st2, rows); });
-      }
+      walk(s0, s1, hb, origin2, bm, ROWS,
+           [&](int, int rows) { feed(&map_w1, n_st1, rows); },
+           [&](int, int rows) { feed(&map_w2, n_st2, rows); });
     }
     return;
   }
@@ -625,7 +618,7 @@ conv_block_wgmma_kernel(const __grid_constant__ CUtensorMap map_w1,
   int s = 0;
   uint32_t phase = 0;
   auto release = [&](int stage) {
-    if (lane == 0 && !p.resident) hopper::mbar_arrive(&empty[stage]);
+    if (lane == 0) hopper::mbar_arrive(&empty[stage]);
   };
 
   // The 64-row tiles of rows [q0, q0 + rows), two a pass, each pass against
@@ -635,16 +628,13 @@ conv_block_wgmma_kernel(const __grid_constant__ CUtensorMap map_w1,
   // live in one pass only and are fenced before its first wgmma and after
   // its last wait, so that ptxas keeps the wgmmas pipelined (nothing but a
   // wgmma defines them in between). A warpgroup without a
-  // tile in a pass still takes and hands back every stage. With resident
-  // weights, the matrix's stages sit in slots slot0 .. slot0 + n_st - 1,
-  // complete from their first phase on, and are never handed back.
+  // tile in a pass still takes and hands back every stage.
   auto product = [&](int q0, int rows, int n_st, int ktot, int cp,
                      const bf16* ring, int ld, int ring_rows, int origin,
-                     int slot0, auto epi) {
+                     auto epi) {
     const int ring_k = 9 * cp;
     const int tiles = rows / ROWS;
     for (int ps = 0; ps < passes(rows); ++ps) {
-      if (p.resident) s = slot0, phase = 0;
       const int ti = ps * CONSUMERS + wgi;
       if (ti >= tiles) {
         for (int stg = 0; stg < n_st; ++stg) {
@@ -824,7 +814,7 @@ conv_block_wgmma_kernel(const __grid_constant__ CUtensorMap map_w1,
     a1_rows(a1_end, q0 + rows + hb - a1_end);
     a1_end = q0 + rows + hb;
     consumer_sync();
-    product(q0, rows, n_st1, ktot1, p.cp1, a1, ld1, p.ring1, origin1, 0,
+    product(q0, rows, n_st1, ktot1, p.cp1, a1, ld1, p.ring1, origin1,
             [&](int t0, const float(&acc)[NP / 2]) {
               // columns past co: zero weights and a zero batch norm
               const int r0 = t0 + 16 * wq + lane / 4;
@@ -855,7 +845,7 @@ conv_block_wgmma_kernel(const __grid_constant__ CUtensorMap map_w1,
   // conv2 (and the shortcut) over output rows [o0, o0 + rows)
   auto conv2 = [&](int o0, int rows) {
     consumer_sync();  // a2 is whole before conv2 reads it
-    product(o0, rows, n_st2, ktot2, p.cp2, a2, ld2, p.ring2, origin2, n_st1,
+    product(o0, rows, n_st2, ktot2, p.cp2, a2, ld2, p.ring2, origin2,
             [&](int t0, const float(&acc)[NP / 2]) {
       const int r0 = t0 + 16 * wq + lane / 4;
 #pragma unroll
@@ -916,10 +906,7 @@ int launch(const Args& p, int batch, int runs, cudaStream_t stream) {
 }
 
 int dispatch(const Args& p, int np, int batch, int runs, cudaStream_t s) {
-  const int n_st = (9 * p.cp1 + BK - 1) / BK +
-                   (9 * p.cp2 + (p.bsc ? p.cp1 : 0) + BK - 1) / BK;
-  if (p.co % 8 || p.bm % G || p.tile != ROWS || p.stages < DEPTH ||
-      (p.resident && p.stages != n_st))
+  if (p.co % 8 || p.bm % G || p.tile != ROWS || p.stages < DEPTH)
     return cudaErrorInvalidValue;
   if (np == 32) return launch<32>(p, batch, runs, s);
   if (np == 64) return launch<64>(p, batch, runs, s);
@@ -941,18 +928,15 @@ int dispatch(const Args& p, int np, int batch, int runs, cudaStream_t s) {
 // folded batch norms. run: output rows of the (t_len * (f + 1))-row stream a
 // thread block owns; bm: rows of a step (float32: tr * 2048 / np; bfloat16:
 // a multiple of 128); tr: float32 rows a thread (8 or 4); stages: bfloat16
-// weight ring stages; resident: bfloat16 with stages = every K stage of w1
-// and w2, each loaded once a run. Returns cudaErrorInvalidValue for
-// arguments it does not take, rings that do not fit shared memory
-// included.
+// weight ring stages. Returns cudaErrorInvalidValue for arguments it does
+// not take, rings that do not fit shared memory included.
 extern "C" int vf_conv_block_res(const void* x, void* y, const void* w1,
                                  const void* w2, const void* bsc,
                                  const float* s1, const float* t1,
                                  const float* s2, const float* t2, int batch,
                                  int t_len, int f, int ci, int co, int np,
                                  int run, int bm, int tr, int stages,
-                                 int resident, float slope, int bf16,
-                                 void* stream) {
+                                 float slope, int bf16, void* stream) {
   if (batch < 1 || batch > 65535 || t_len < 1 || f < 1 || ci < 1 ||
       ci > 128 || co < 1 || co > np || run < 1 || bm < 1 ||
       (bsc == nullptr && ci != co))
@@ -972,7 +956,6 @@ extern "C" int vf_conv_block_res(const void* x, void* y, const void* w1,
   p.ring1 = bm + 2 * hb;
   p.ring2 = bm + round_up(2 * hb + p.front, p.tile) - p.front;
   p.stages = stages;
-  p.resident = resident;
   p.slope = slope;
   const long long runs = (rows + run - 1) / run;
   auto s = static_cast<cudaStream_t>(stream);

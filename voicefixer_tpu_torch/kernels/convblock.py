@@ -27,7 +27,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import weakref
 from dataclasses import dataclass
 
 import torch
@@ -41,7 +40,7 @@ from voicefixer_tpu_torch.utils.weights import pack_bn
 
 # widest block the kernel takes; wider ones stay on the library convolution
 MAX_CHANNELS = 128
-SMS = 132             # streaming multiprocessors of an H100 SXM
+SMS = 132             # SMs of an H100 SXM: plan_stream's default
 K_STEP = 16           # channels of a K step; Ci and Co are rounded up to it
 F32_STAGES = 3        # of csrc/convblock.cu: the float32 weight ring
 F32_ROWS = (8, 4)     # rows of a thread's float32 tile, preferred first
@@ -117,7 +116,6 @@ class Plan:
     stages: int    # bfloat16: weight ring stages (0 in float32)
     smem: int      # bytes of dynamic shared memory
     f: int
-    resident: int = 0  # bfloat16: the ring holds every weight stage
 
     def products(self, length: int):
         return walk(0, length, self.f, self.bm, self.tile, self.front)
@@ -179,13 +177,6 @@ def wgmma_smem_bytes(np_: int, bm: int, cp1: int, cp2: int, f: int,
             + 2 * (r1 * (cp1 + 8) + r2 * (cp2 + 8)) + 8 * (cp1 + cp2))
 
 
-def wgmma_weight_stages(ci: int, co: int, shortcut: bool) -> int:
-    """WG_BK-deep stages of w1 and w2 together: a resident ring's size."""
-    cp1, cp2 = _round_up(ci, K_STEP), _round_up(co, K_STEP)
-    return (_ceil(9 * cp1, WG_BK)
-            + _ceil(9 * cp2 + (cp1 if shortcut else 0), WG_BK))
-
-
 def _geometries(f: int, ci: int, co: int, itemsize: int):
     """(bm, tile, front, tr, stages, smem) of every layout that fits,
     preferred first."""
@@ -215,13 +206,13 @@ def _geometries(f: int, ci: int, co: int, itemsize: int):
 @functools.lru_cache(maxsize=256)
 def plan_stream(t: int, f: int, ci: int, co: int, itemsize: int,
                 batch: int = 1, run: int | None = None,
-                bm: int | None = None):
+                bm: int | None = None, sms: int = SMS):
     """The kernel's plan for x [batch, t, f, ci] -> co channels of
-    ``itemsize`` bytes, or None when no layout fits. Among the layouts that
-    fit and the run lengths, the least rows an SM executes in series
-    (waves x the busiest block's product rows, plus PRODUCT_ROWS a product),
-    then the longer step. ``run`` and ``bm`` force those choices (tools,
-    tests)."""
+    ``itemsize`` bytes on a card of ``sms`` SMs, or None when no layout
+    fits. Among the layouts that fit and the run lengths, the least rows an
+    SM executes in series (waves x the busiest block's product rows, plus
+    PRODUCT_ROWS a product), then the longer step. ``run`` and ``bm`` force
+    those choices (tools, tests)."""
     rows = t * (f + 1)
     np_ = product_width(co)
     cp1, cp2 = _round_up(ci, K_STEP), _round_up(co, K_STEP)
@@ -235,7 +226,7 @@ def plan_stream(t: int, f: int, ci: int, co: int, itemsize: int,
         else:  # per wave count, the shortest run that fills it
             cands = {rows}
             for waves in range(1, 9):
-                per_row = SMS * waves // batch
+                per_row = sms * waves // batch
                 if per_row >= 1:
                     cands.add(_ceil(rows, per_row))
                     cands.add(_round_up(_ceil(rows, per_row), step))
@@ -244,7 +235,7 @@ def plan_stream(t: int, f: int, ci: int, co: int, itemsize: int,
                      *rings(f, step, tile, front), r, _ceil(rows, r), tr,
                      stages, smem, f)
             prods = p.products(min(r, rows))
-            cost = (_ceil(batch * p.runs, SMS)
+            cost = (_ceil(batch * p.runs, sms)
                     * sum(n + PRODUCT_ROWS[itemsize] for _, _, n in prods))
             key = (cost, -step, r)
             if best is None or key < best[0]:
@@ -299,44 +290,39 @@ def pack_weights(params: dict, dtype: torch.dtype, np_: int):
     return w1.contiguous(), w2.contiguous(), bsc
 
 
-# id(conv1 weight) -> (weak reference to it, {(dtype, np): packed}): the
-# operands packed for a block's parameters, dropped when the weight dies
-_packed: dict = {}
+DTYPE_KEYS = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 
 
-def _leaves(params: dict) -> list:
-    out = [params["conv1"]["w"], params["conv2"]["w"],
-           params["bn1"]["scale"], params["bn1"]["shift"],
-           params["bn2"]["scale"], params["bn2"]["shift"]]
-    if "shortcut" in params:
-        out += [params["shortcut"]["w"], params["shortcut"]["b"]]
+def pack_operands(params: dict, dtype: torch.dtype) -> dict:
+    """The block's operands as the kernel reads them in ``dtype``: "w1",
+    "w2" and, with the shortcut, "bsc" from ``pack_weights`` at the
+    product's width; "s1", "t1", "s2", "t2" the folded batch norms
+    (float32)."""
+    co = params["conv1"]["w"].shape[3]
+    with torch.no_grad():
+        w1, w2, bsc = pack_weights(params, dtype, product_width(co))
+        s1, t1 = pack_bn(params["bn1"])
+        s2, t2 = pack_bn(params["bn2"])
+    out = {"w1": w1, "w2": w2, "s1": s1, "t1": t1, "s2": s2, "t2": t2}
+    if bsc is not None:
+        out["bsc"] = bsc
     return out
 
 
-def packed(params: dict, dtype: torch.dtype, np_: int) -> tuple:
-    """(w1, w2, bsc, s1, t1, s2, t2): ``pack_weights`` and the folded batch
-    norms as the kernel reads them. Packed once and reused while the same
-    parameter tensors, unchanged in place, come back: inference calls a
-    block with the same weights every time, and packing on every call took
-    more host time than the bfloat16 kernel takes on the card."""
-    leaves = _leaves(params)
-    stamp = [t._version if not t.is_inference() else 0 for t in leaves]
-    key = id(leaves[0])
-    entry = _packed.get(key)
-    if entry is None or entry[0]() is not leaves[0]:
-        entry = (weakref.ref(leaves[0], lambda _, k=key: _packed.pop(k, None)),
-                 {})
-        _packed[key] = entry
-    store = entry[1]
-    hit = store.get((dtype, np_))
-    if (hit is not None and hit[1] == stamp
-            and all(r() is t for r, t in zip(hit[0], leaves))):
-        return hit[2]
-    with torch.no_grad():
-        ops = (*pack_weights(params, dtype, np_), *pack_bn(params["bn1"]),
-               *pack_bn(params["bn2"]))
-    store[dtype, np_] = ([weakref.ref(t) for t in leaves], stamp, ops)
-    return ops
+def operands(params: dict, dtype: torch.dtype) -> dict:
+    """The operands that the parameters' owner packed once under "packed"
+    (``models.resunet.pack_conv_blocks``), else ``pack_operands`` now."""
+    done = params.get("packed", {}).get(DTYPE_KEYS[dtype])
+    return done if done is not None else pack_operands(params, dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """SMs of a CUDA device (the planner's run length and waves follow
+    them); SMS elsewhere."""
+    if device.type != "cuda":
+        return SMS
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def conv_block_res_reference(x: torch.Tensor, params: dict,
@@ -380,7 +366,8 @@ def conv_block_res(x: torch.Tensor, params: dict,
             "channels, float32 or bfloat16)")
     bsz, t, f, ci = x.shape
     co = params["conv1"]["w"].shape[3]
-    plan = plan_stream(t, f, ci, co, x.element_size(), bsz)
+    plan = plan_stream(t, f, ci, co, x.element_size(), bsz,
+                       sms=sm_count(x.device))
     y = launch(x, params, slope, plan)
     kernels.launches["conv_block_res"] += 1
     return y
@@ -397,14 +384,14 @@ def launch(x: torch.Tensor, params: dict, slope: float, plan: Plan,
     bsz, t, f, ci = x.shape
     co = params["conv1"]["w"].shape[3]
     dt = x.dtype
-    w1, w2, bsc, s1, t1, s2, t2 = packed(params, dt, plan.np)
+    ops = operands(params, dt)
     y = torch.empty((bsz, t, f, co), dtype=dt, device=x.device)
     lib = lib or _lib()
     rc = lib.vf_conv_block_res(
-        x.data_ptr(), y.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-        bsc.data_ptr() if bsc is not None else None, s1.data_ptr(),
-        t1.data_ptr(), s2.data_ptr(), t2.data_ptr(), bsz, t, f, ci, co,
-        plan.np, plan.run, plan.bm, plan.tr, plan.stages, plan.resident,
+        x.data_ptr(), y.data_ptr(), ops["w1"].data_ptr(),
+        ops["w2"].data_ptr(), ops["bsc"].data_ptr() if "bsc" in ops else None,
+        *(ops[k].data_ptr() for k in ("s1", "t1", "s2", "t2")), bsz, t, f,
+        ci, co, plan.np, plan.run, plan.bm, plan.tr, plan.stages,
         float(slope), int(dt == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, rc, "conv_block_res")
@@ -418,6 +405,6 @@ def _lib():
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declares vf_conv_block_res's arguments on a loaded library."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.vf_conv_block_res.argtypes = [p] * 9 + [i] * 11 + [f, i, p]
+    lib.vf_conv_block_res.argtypes = [p] * 9 + [i] * 10 + [f, i, p]
     lib.vf_conv_block_res.restype = i
     return lib

@@ -39,6 +39,36 @@ def _conv_block_res(p: dict, x: torch.Tensor, slope: float) -> torch.Tensor:
     return x + h
 
 
+def _cast(tree, dtype: torch.dtype):
+    """tree's tensors in dtype; the fused kernel's operands ("packed", one
+    set a type) as they are."""
+    if isinstance(tree, dict):
+        return {k: v if k == "packed" else _cast(v, dtype)
+                for k, v in tree.items()}
+    return tree_map(lambda t: t.to(dtype), tree)
+
+
+def pack_conv_blocks(params: dict) -> dict:
+    """A copy of the tree in which every folded ConvBlockRes of 3x3
+    convolutions and at most ``convblock.MAX_CHANNELS`` channels carries
+    the fused kernel's operands under "packed": packed once a type, from
+    the block as ``apply`` casts it (``convblock.pack_operands``). The
+    kernel packs a block without them on every call. Like the folded batch
+    norms, they do not follow a later in-place change of the weights."""
+    if not isinstance(params, dict):
+        return params
+    out = {k: pack_conv_blocks(v) for k, v in params.items()
+           if k != "packed"}
+    w = out.get("conv1", {}).get("w")
+    if (w is not None and "conv2" in out and "scale" in out.get("bn1", {})
+            and "scale" in out.get("bn2", {})
+            and tuple(w.shape[:2]) == (3, 3)
+            and max(w.shape[2:]) <= convblock.MAX_CHANNELS):
+        out["packed"] = {key: convblock.pack_operands(_cast(out, dt), dt)
+                         for dt, key in convblock.DTYPE_KEYS.items()}
+    return out
+
+
 def _encoder_block(p: dict, x: torch.Tensor, slope: float, n_blocks: int):
     for i in range(n_blocks):
         x = _conv_block_res(p[f"block{i + 1}"], x, slope)
@@ -66,7 +96,7 @@ def apply(params: dict, x: torch.Tensor, cfg: ResUNetConfig) -> torch.Tensor:
     in_dtype = x.dtype
     adt = activation_dtype()
     if adt != x.dtype:
-        params = tree_map(lambda t: t.to(adt), params)
+        params = _cast(params, adt)
         x = x.to(adt)
     origin_t = x.shape[1]
     ratio = cfg.downsample_ratio

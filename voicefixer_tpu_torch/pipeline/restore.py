@@ -11,7 +11,7 @@ import torch
 
 from voicefixer_tpu_torch import kernels
 from voicefixer_tpu_torch.config import DEFAULT_CONFIG, VoiceFixerConfig
-from voicefixer_tpu_torch.models import analysis
+from voicefixer_tpu_torch.models import analysis, resunet
 from voicefixer_tpu_torch.models import vocoder as vocoder_model
 from voicefixer_tpu_torch.ops.conv import fold_bn_eval
 from voicefixer_tpu_torch.ops.norm import from_log
@@ -92,7 +92,8 @@ class VoiceFixer:
 
     conv_block_kernel: route the ResUNet blocks that
     ``kernels.convblock.eligible`` takes to the fused ConvBlockRes kernel
-    instead of the library convolutions. Off by default, as in the JAX
+    instead of the library convolutions, their operands packed once here
+    (``resunet.pack_conv_blocks``). Off by default, as in the JAX
     package."""
 
     def __init__(self, params: dict, vocoder_params: dict,
@@ -103,6 +104,9 @@ class VoiceFixer:
         self.conv_block_kernel = bool(conv_block_kernel)
         self.params = fold_bn_eval(
             tree_map(lambda t: t.to(self.device), params))
+        if self.conv_block_kernel:
+            self.params["unet"] = resunet.pack_conv_blocks(
+                self.params["unet"])
         self.model_devices = None
         if model_devices is not None and len(model_devices) > 1:
             self.model_devices = tuple(resolve_device(d)
