@@ -61,7 +61,7 @@ SOURCES = {
     "upsample": "voicefixer_tpu_torch/csrc/upsample.cu",
     "res_chain": "voicefixer_tpu_torch/csrc/resstack_f32.cu",
     "res_shift_single": "voicefixer_tpu_torch/csrc/resstack_f32.cu",
-    "up_res_stream": "voicefixer_tpu_torch/csrc/resstream.cu",
+    "up_res_stream": "voicefixer_tpu_torch/csrc/resstack_f32.cu",
     "res_stream": "voicefixer_tpu_torch/csrc/resstream.cu",
     "gru_seq": "voicefixer_tpu_torch/csrc/gru_bidir.cu",
     "conv_block_res": "voicefixer_tpu_torch/csrc/convblock.cu",
@@ -70,6 +70,7 @@ SOURCES = {
 SOURCES_BF16 = {
     "res_chain": "voicefixer_tpu_torch/csrc/resstack_wgmma.cu",
     "res_shift_single": "voicefixer_tpu_torch/csrc/resstack.cu",
+    "up_res_stream": "voicefixer_tpu_torch/csrc/resstack_wgmma.cu",
 }
 KERNELS = tuple(SOURCES)
 # slopes of the vocoder's LeakyReLUs: inside a ResStack, after a stage
@@ -185,17 +186,60 @@ def res_work(ch: int, t: int, n_blocks: int, size: int):
 
 def f32_executed_flops(ch: int, t: int, dils, tm) -> int:
     """FLOPs that the float32 ResStack kernels (csrc/resstack_f32.cu) run
-    on [1, t, ch], discarded rows included: every product is 64-row tiles
-    of 6*C^2 FLOP a row. A single block (tm None) computes h over 64 rows
-    for 62 output rows; a chain computes block i's h over tm + 2*E[i+1] + 2
-    rows and its output over tm + 2*E[i+1]."""
+    on [1, t, ch], discarded rows included: every product is BM-row tiles
+    (``resstack.f32_tile``) of 6*C^2 FLOP a row. A single block (tm None)
+    computes h over BM rows for BM - 2 output rows; a chain computes block
+    i's h over tm + 2*E[i+1] + 2 rows and its output over tm + 2*E[i+1]."""
     from voicefixer_tpu_torch.kernels import resstack
-    per_row = 6 * ch * ch * resstack.BM
+    bm = resstack.f32_tile(ch)[0]
+    per_row = 6 * ch * ch * bm
     if tm is None:
-        return -(-t // (resstack.BM - 2)) * 2 * per_row
-    tiles = sum(-(-(tm + 2 * eo + k) // resstack.BM)
+        return -(-t // (bm - 2)) * 2 * per_row
+    tiles = sum(-(-(tm + 2 * eo + k) // bm)
                 for eo in resstack.chain_extents(dils)[1:] for k in (2, 0))
     return -(-t // tm) * tiles * per_row
+
+
+def up_res_executed_flops(cin: int, cout: int, s: int, t_in: int,
+                          itemsize: int) -> int:
+    """FLOPs that up_res_stream's kernels run on [1, t_in, cin] -> [1,
+    t_in*s, cout] (``resstream.up_plan``), discarded rows and padding
+    included. The first group: per time tile, its upsample's rows q of the
+    slab (per phase whole tiles of rows q, K = 2 * Cin) and its blocks'
+    halo recompute; later groups: chains, and single blocks of BM - 2 output
+    rows from BM-row tiles. float32 (csrc/resstack_f32.cu): BM-row tiles of
+    N = C (``f32_tile``). bfloat16: 64-row wgmma tiles of N = C rounded up
+    to 64, K per tap likewise (Cin for the upsample), the busy warpgroups'
+    only (csrc/resstack_wgmma.cu); its single blocks are resblock.cuh's
+    shift_kernel, 64-row tiles for 62 outputs."""
+    from voicefixer_tpu_torch.kernels import resstack, resstream
+    dils = resstack.stack_dilations(8)
+    t = t_in * s
+    pad = s // 2 + s % 2
+    groups = resstream.up_plan(cin, cout, s, dils, itemsize)
+    if itemsize == 4:
+        bm, n, kp, kin = resstack.f32_tile(cout)[0], cout, cout, cin
+    else:
+        bm, n = resstack.WG_ROWS, resstack.wg_cols(cout)
+        kp, kin = -(-cout // 64) * 64, -(-cin // 64) * 64
+    total = 0
+    for i0, i1, tm in groups:
+        if tm is None:
+            rows = 64 if itemsize == 2 else bm
+            total += -(-t // (rows - 2)) * 2 * rows * 6 * cout * cout
+            continue
+        ext = resstack.chain_extents(dils[i0:i1])
+        tiles = -(-t // tm)
+        conv_rows = sum(-(-(tm + 2 * eo + k) // bm) * bm
+                        for eo in ext[1:] for k in (2, 0))
+        total += tiles * conv_rows * 2 * 3 * kp * n
+        if i0 == 0:
+            for j in range(tiles):
+                slab0 = j * tm - ext[0]
+                q_lo = (slab0 + pad) // s
+                nq = (slab0 + tm + 2 * ext[0] - 1 + pad) // s - q_lo + 1
+                total += s * -(-nq // bm) * bm * 2 * 2 * kin * n
+    return total
 
 
 def conv_block_executed_flops(t: int, f: int, ci: int, co: int,
@@ -668,17 +712,19 @@ def _up_res_case(gen, device, dtype, cin, cout, s, t, main_path=True):
                                padding=pad, output_padding=s % 2)
         return _cudnn_blocks(u.transpose(1, 2), bank, dils, SLOPE_ACT)
 
-    groups = resstack.plan_stack(cout, dils, x.element_size(),
-                                 first_chain=True)
+    groups = resstream.up_plan(cin, cout, s, dils, x.element_size())
     writes, reads = resstream.passes(groups)
     flops, work_bytes = up_res_work(t, s, cin, cout, 8, x.element_size())
     return {"name": "up_res_stream", "dtype": dtype, "main_path": main_path,
             "shape": f"[1, {t}, {cin}] -> [1, {t * s}, {cout}], groups "
-                     f"{[g[:2] for g in groups]}: the full-rate signal is "
+                     f"{list(groups)}: the full-rate signal is "
                      f"written {writes}x and read {reads}x",
+            "executed": up_res_executed_flops(cin, cout, s, t,
+                                              x.element_size()),
             "fn": lambda: resstream.up_res_stream(*args),
             "plain": lambda: resstream.up_res_stream_reference(*args),
-            "library": library, "reps": 3, "per_chunk": 1,
+            "library": library, "reps": 3, "per_chunk": 1, "device": True,
+            "split": True,
             **_res_tol(dtype, 8), "bytes": work_bytes, "flops": flops,
             "peak": PEAK_FP32 if dtype == "float32" else PEAK_BF16}
 
@@ -765,7 +811,8 @@ def _conv_block_case(gen, device, dtype, t, f, ci, co, per_chunk):
             "fn": lambda: convblock.conv_block_res(x, p, slope),
             "plain": lambda: convblock.conv_block_res_reference(x, p, slope),
             "library": lambda: resunet._conv_block_res(p, x, slope),
-            "reps": 5, "per_chunk": per_chunk, "device_group": K9_GROUP,
+            "reps": 5, "per_chunk": per_chunk, "device": True,
+            "device_group": K9_GROUP,
             "rtol": 1e-4 if dtype == "float32" else 2 ** -7,
             "atol": 1e-4 if dtype == "float32" else 2 ** -6,
             "bytes": work_bytes, "flops": flops,
@@ -862,19 +909,44 @@ def phase_kernels(device):
                 f"{bms:.4f} ms ({by}; {c['flops'] / 1e9:.2f} GFLOP, "
                 f"{c['bytes'] / 1e6:.1f} MB){rate}")
             dev_ms = lib_dev_ms = None
-            if c.get("device_group"):
+            if c.get("device"):
                 # besides the events, which also time the host between
-                # launches: the kernel's and the library's device time
-                dev_ms = device_ms(c["fn"], c["reps"], c["device_group"])
+                # launches: the kernel's and the library's device time (of
+                # the kernel's group, or of every kernel of its call)
+                dev_ms = device_ms(c["fn"], c["reps"], c.get("device_group"))
                 lib_dev_ms = device_ms(c["library"], c["reps"])
                 log(f"  {c['name']} {c['dtype']} {c['shape']}: device time "
                     f"kernel {dev_ms:.3f} ms, library {lib_dev_ms:.3f} ms"
                     f"; {c['executed'] / dev_ms / 1e9:.1f} TFLOP/s executed; "
                     f"{dev_ms / lib_dev_ms:.2f}x the library's time")
+            if c.get("split"):
+                _launch_split(c)
             rows.append({**c, "err": err, "ms": ms, "plain_ms": plain_ms,
                          "lib_ms": lib_ms, "bound_ms": bms, "bound_by": by,
                          "dev_ms": dev_ms, "lib_dev_ms": lib_dev_ms})
     return rows
+
+
+def _launch_split(c):
+    """Device time of one call of a stage's kernels by launch kind: the
+    x + sin(x) pre-pass, the chain kernels (up_res_stream's first, with
+    the upsample, is the only chain of its full-width plans) and the
+    single-block kernels (profiler, mean of three calls)."""
+    kinds = {"pre-pass": 0.0, "chain": 0.0, "single blocks": 0.0}
+    launches = dict.fromkeys(kinds, 0)
+    c["fn"]()
+    for name, ms, n in _device_kernels(lambda: [c["fn"]() for _ in
+                                                range(3)]):
+        kind = ("pre-pass" if "sin_residual" in name else
+                "chain" if "chain" in name else
+                "single blocks" if "shift" in name else None)
+        if kind is None:
+            continue
+        kinds[kind] += ms / 3
+        launches[kind] += n // 3
+    log(f"  {c['name']} {c['dtype']} {c['shape'].split(',')[0]} by launch "
+        "(device time): " + ", ".join(
+            f"{k} {v:.3f} ms ({launches[k]}x)" for k, v in kinds.items()))
 
 
 def _snr_db(prod, ref):
@@ -1195,21 +1267,22 @@ K9_GROUP = "K9 conv_block_res"
 
 
 def _kernel_group(name: str) -> str:
-    # chain_kernel<T, BN, UP>: UP is the fused upsample front of K4; K4's
-    # later groups and all of K7's launch chain_kernel and shift_kernel, as
-    # K3 does in bfloat16; K2 in bfloat16 is chain_wgmma_kernel, K2 and K3
-    # in float32 chain_f32_kernel and shift_f32_kernel
+    # K2 in bfloat16 and K4's first group in bfloat16 (with the upsample)
+    # are chain_wgmma_kernel; K2, K3 and K4 in float32 chain_f32_kernel and
+    # shift_f32_kernel; K4's bfloat16 single blocks, K3-bf16 and all of K7
+    # launch resblock.cuh's shift_kernel and chain_kernel
     for key, group in (("stft_mel", "K5 stft_mel"),
                        ("gru_bidir", "K6 gru_bidir"),
                        ("gru_seq", "K8 gru_seq"),
                        ("conv_block_", K9_GROUP),
                        ("sin_residual", "x+sin(x) pre-pass of K1 and K4"),
                        ("upsample", "K1 upsample"),
-                       ("chain_wgmma_kernel", "K2-bf16 chain_wgmma_kernel"),
-                       ("chain_f32_kernel", "K2-f32 chain_f32_kernel"),
-                       ("shift_f32_kernel", "K3-f32 shift_f32_kernel"),
-                       ("chain_kernel", "K4/K7 chain_kernel"),
-                       ("shift_kernel", "K3-bf16/K4/K7 shift_kernel"),
+                       ("chain_wgmma_kernel",
+                        "K2-bf16/K4-bf16 chain_wgmma_kernel"),
+                       ("chain_f32_kernel", "K2-f32/K4-f32 chain_f32_kernel"),
+                       ("shift_f32_kernel", "K3-f32/K4-f32 shift_f32_kernel"),
+                       ("chain_kernel", "K7 chain_kernel"),
+                       ("shift_kernel", "K3-bf16/K4-bf16/K7 shift_kernel"),
                        ("nchwToNhwc", "layout copies"),
                        ("nhwcToNchw", "layout copies"),
                        ("fprop", "cuDNN conv"), ("implicit", "cuDNN conv"),
@@ -1398,7 +1471,7 @@ def main() -> int:
                 "library_ms": (None if None in [r["lib_ms"] for r in rs]
                                else total("lib_ms")),
             })
-            if rs[0]["dev_ms"] is not None:  # K9: device time beside events
+            if rs[0]["dev_ms"] is not None:  # K4, K9: device time too
                 record[-1].update(device_ms=total("dev_ms"),
                                   library_device_ms=total("lib_dev_ms"))
     log(f"== done in {time.perf_counter() - t_start:.1f} s; times are per "

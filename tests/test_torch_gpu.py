@@ -325,7 +325,19 @@ def test_res_shift_single_kernel(cuda, ch, t, b, dil, dtype):
     (8, 16, 3, 11, 2, "float32"),       # every dilation beyond the signal
     (128, 64, 3, 3001, 2, "bfloat16"),
     (256, 128, 3, 1000, 1, "bfloat16"),
-    (40, 24, 7, 97, 1, "bfloat16"),
+    (40, 24, 7, 97, 1, "bfloat16"),     # C = 24 pads N with zero weights
+    # the full-width plans (stages 2 and 3) at a short T whose last tile
+    # ends mid-tile, in both types; batch 2; C = 24 and a signal shorter
+    # than every dilation in bfloat16. Every first tile's slab starts
+    # before q = 0.
+    (256, 128, 3, 1000, 1, "float32"),
+    (128, 64, 3, 1001, 1, "float32"),
+    (128, 64, 3, 1001, 1, "bfloat16"),
+    (256, 128, 3, 501, 2, "float32"),
+    (256, 128, 3, 501, 2, "bfloat16"),
+    (128, 64, 3, 700, 2, "float32"),
+    (32, 24, 3, 333, 2, "bfloat16"),
+    (8, 16, 3, 11, 2, "bfloat16"),
 ])
 def test_up_res_stream_kernel(cuda, cin, cout, scale, t, b, dtype):
     gen = torch.Generator().manual_seed(5)
@@ -640,6 +652,23 @@ def test_conv_block_res_first_launch_after_cold_build(cuda, case):
     """The ConvBlockRes kernel in either type, whose weights and rows go
     through cp.async (float32) or TMA and mbarriers (bfloat16), as the first
     launch of two new processes, each straight after a cold build
+    (tools/torch_first_launch.py --case CASE)."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    tool = Path(__file__).resolve().parent.parent / "tools" / \
+        "torch_first_launch.py"
+    run = subprocess.run([sys.executable, str(tool), "--case", case,
+                          "--loop", "2"], capture_output=True, text=True)
+    assert run.returncode == 0, run.stdout + run.stderr
+
+
+@pytest.mark.parametrize("case", ["up_res_stream_f32",
+                                  "up_res_stream_bf16"])
+def test_up_res_stream_first_launch_after_cold_build(cuda, case):
+    """The fused stage in either type, whose first group takes its operands
+    through cp.async (float32) or TMA and mbarriers (bfloat16), as the
+    first launch of two new processes, each straight after a cold build
     (tools/torch_first_launch.py --case CASE)."""
     import subprocess
     import sys

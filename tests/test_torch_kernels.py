@@ -1068,15 +1068,32 @@ def test_mel_fbank_is_cached_per_config_and_device():
 
 # --------------------------------------------- the bfloat16 chain's schedule
 
+def _up_source(x_src):
+    """a = x + sin(x) in float32, rounded to x's type: the pre-pass."""
+    xf = x_src.float()
+    return (xf + torch.sin(xf)).to(x_src.dtype).float()
+
+
+def _up_rows(slab0, slab_rows, scale):
+    """(q_lo, nq, pad): the rows q whose phases cover a slab."""
+    pad = scale // 2 + scale % 2
+    q_lo = (slab0 + pad) // scale
+    return q_lo, (slab0 + slab_rows - 1 + pad) // scale - q_lo + 1, pad
+
+
 def _chain_wgmma_model(x, w1s, b1s, w2s, b2s, dils, slope, final_slope, tm,
-                       bounds=None):
+                       bounds=None, up=None):
     """What csrc/resstack_wgmma.cu does, in plain torch: per (batch row,
-    time tile), the slab (zero outside
-    the window and in the columns [C, cp)), then per block and product the
-    (64-row tile, 256-column chunk) pairs two passes at a time, A rows at
-    their tap offsets clamped to the source (conv1's LeakyReLU rounded to
-    bfloat16), B as the tensor maps read w (zero past C), and the two
-    epilogues with their masks. Shared memory the kernel never writes is
+    time tile), the slab (zero outside the window and in the columns [C,
+    cp)), then per block and product the (64-row tile, column chunk) pairs
+    two to a pass, A rows at their tap offsets clamped to the source
+    (conv1's LeakyReLU rounded to bfloat16), B as the tensor maps read w
+    (zero past C), and the two epilogues with their masks. With ``up`` =
+    (x_src, w_up, b_up, scale) the slab is the upsample's instead: the
+    source rows q_lo - 1 .. q_hi of a = x + sin(x) (zero outside the
+    signal and past Cin), per phase its 64-row tiles of rows q two to a
+    pass, two taps at rows q and q - 1, and the epilogue's masks (zero
+    outside [0, T*s) and past C). Shared memory the kernel never writes is
     NaN here, so that a read of it shows; every output row must be written
     exactly once."""
     bsz, t, ch = x.shape
@@ -1084,30 +1101,64 @@ def _chain_wgmma_model(x, w1s, b1s, w2s, b2s, dils, slope, final_slope, tm,
     lo, hi = resstack.clamp_bounds(bounds, t)
     ext = resstack.chain_extents(dils)
     cp = -(-ch // resstack.WG_ALIGN) * resstack.WG_ALIGN
-    chunks = -(-ch // resstack.WG_COLS)
-    rows_tile, cols = resstack.WG_ROWS, resstack.WG_COLS
+    cols = resstack.wg_cols(ch)
+    chunks = -(-ch // cols)
+    rows_tile = resstack.WG_ROWS
     e0 = ext[0]
     slab_rows = tm + 2 * e0
     tiles = -(-t // tm)
     bf = lambda v: v.to(torch.bfloat16).float()  # noqa: E731
     lrelu = lambda v, a: torch.where(v > 0, v, a * v)  # noqa: E731
 
-    def wmap(w):
-        m = torch.zeros((3 * n, cp, chunks * cols))
-        m[:, :ch, :ch] = w.float().reshape(3 * n, ch, ch)
+    def wmap(w, k, mats):
+        """[mats, k rounded up, chunks * cols]: zero past the tensor"""
+        m = torch.zeros((mats, -(-k // resstack.WG_ALIGN) * resstack.WG_ALIGN,
+                         chunks * cols))
+        m[:, :k, :ch] = w.float().reshape(mats, k, ch)
         return m
 
-    wmaps = (wmap(w1s), wmap(w2s))
+    wmaps = (wmap(w1s, ch, 3 * n), wmap(w2s, ch, 3 * n))
     bias = (b1s.float(), b2s.float())
+    if up is not None:
+        x_src, w_up, b_up, scale = up
+        a_src = _up_source(x_src)
+        t_in, cin = x_src.shape[1:]
+        up_map = wmap(w_up, cin, 2 * scale)
+        cinp = up_map.shape[1]
     y = torch.full((bsz, t, ch), float("nan"))
     written = torch.zeros((bsz, t), dtype=torch.int64)
     for bi in range(bsz):
         for tile in range(tiles):
             t0 = tile * tm
-            slab = torch.zeros((slab_rows, cp))
-            pos = torch.arange(slab_rows) + t0 - e0
-            ok = (pos >= lo) & (pos < hi)
-            slab[ok, :ch] = x[bi, pos[ok]].float()
+            if up is None:
+                slab = torch.zeros((slab_rows, cp))
+                pos = torch.arange(slab_rows) + t0 - e0
+                ok = (pos >= lo) & (pos < hi)
+                slab[ok, :ch] = x[bi, pos[ok]].float()
+            else:
+                slab = torch.full((slab_rows, cp), float("nan"))
+                q_lo, nq, pad = _up_rows(t0 - e0, slab_rows, scale)
+                src = torch.zeros((nq + 1, cinp))
+                q = torch.arange(nq + 1) + q_lo - 1
+                ok = (q >= 0) & (q < t_in)
+                src[ok, :cin] = a_src[bi, q[ok]]
+                q_tiles = -(-nq // rows_tile)
+                for rho in range(scale):
+                    for m in range(q_tiles):   # two to a pass
+                        r = 1 + m * rows_tile + torch.arange(rows_tile)
+                        acc = sum(src[(r - tap).clamp(0, nq)]
+                                  @ up_map[rho + tap * scale]
+                                  for tap in range(2))
+                        qr = m * rows_tile + torch.arange(rows_tile)
+                        pos = (q_lo + qr) * scale + rho - pad
+                        srow = pos - (t0 - e0)
+                        keep = (qr < nq) & (srow >= 0) & (srow < slab_rows)
+                        inside = ((pos >= 0) & (pos < t))[keep][:, None]
+                        v = acc[keep][:, :cp]
+                        v[:, :ch] = v[:, :ch] + b_up.float()
+                        v = torch.where(inside & (torch.arange(cp) < ch),
+                                        v, 0.0)
+                        slab[srow[keep]] = bf(v)
             h = torch.full((tm + 2 * ext[1] + 2, cp), float("nan"))
             h[:, ch:] = 0.0
             for i, d in enumerate(dils):
@@ -1192,22 +1243,94 @@ def test_chain_wgmma_schedule(ch, t, b, dils, tm, bounds):
                   chained=len(dils))
 
 
-@pytest.mark.parametrize("ch,itemsize,want", [
-    (64, 2, ((0, 4, 170), (4, 5, None), (5, 6, None), (6, 7, None),
-             (7, 8, None))),
-    (64, 4, ((0, 3, 98), (3, 4, None), (4, 5, None), (5, 6, None),
-             (6, 7, None), (7, 8, None))),
-    (128, 2, ((0, 3, 98), (3, 4, None), (4, 5, None), (5, 6, None),
-              (6, 7, None), (7, 8, None))),
-    (128, 4, ((0, 2, 54), (2, 3, None), (3, 4, None), (4, 5, None),
-              (5, 6, None), (6, 7, None), (7, 8, None))),
+_SINGLES = lambda i: tuple((j, j + 1, None) for j in range(i, 8))  # noqa: E731
+
+
+@pytest.mark.parametrize("ch,itemsize,want,cin", [
+    pytest.param(64, 2, ((0, 4, 170),) + _SINGLES(4), None, id="64-2-want0"),
+    pytest.param(64, 4, ((0, 3, 98),) + _SINGLES(3), None, id="64-4-want1"),
+    pytest.param(128, 2, ((0, 3, 98),) + _SINGLES(3), None,
+                 id="128-2-want2"),
+    pytest.param(128, 4, ((0, 2, 54),) + _SINGLES(2), None,
+                 id="128-4-want3"),
+    # up_res_stream, planned for its own kernels with the upsample counted
+    pytest.param(64, 2, ((0, 4, 554),) + _SINGLES(4), 128, id="up-64-2"),
+    pytest.param(64, 4, ((0, 3, 226),) + _SINGLES(3), 128, id="up-64-4"),
+    pytest.param(128, 2, ((0, 4, 234),) + _SINGLES(4), 256, id="up-128-2"),
+    pytest.param(128, 4, ((0, 1, 126), (1, 3, 106)) + _SINGLES(3), 256,
+                 id="up-128-4"),
 ])
-def test_plan_stack_fused_widths_unchanged(ch, itemsize, want):
-    """The fused stages (K4, K7) run the WMMA chain kernel and keep its
-    plan, with and without a chain first."""
+def test_plan_stack_fused_widths_unchanged(ch, itemsize, want, cin):
+    """The fused widths' plans. K7 (res_stream, no cin) runs the WMMA chain
+    kernel and keeps its plan, with and without a chain first. K4
+    (up_res_stream, Cin = cin at scale 3) plans for the wgmma or FMA chain
+    at N = C with the upsample's shared memory and work in its first
+    group."""
+    from voicefixer_tpu_torch.kernels import resstream
+
     dils = resstack.stack_dilations(8)
-    assert resstack.plan_stack(ch, dils, itemsize) == want
-    assert resstack.plan_stack(ch, dils, itemsize, first_chain=True) == want
+    if cin is None:
+        assert resstack.plan_stack(ch, dils, itemsize) == want
+        assert resstack.plan_stack(ch, dils, itemsize,
+                                   first_chain=True) == want
+    else:
+        assert resstream.up_plan(cin, ch, 3, dils, itemsize) == want
+
+
+# (Cin, Cout, scale) of every up_res_stream the tests and the full width run
+# (bfloat16 takes widths in multiples of 8)
+UP_SHAPES = [(256, 128, 3), (128, 64, 3), (128, 128, 3), (32, 24, 3),
+             (4, 2, 7), (8, 16, 3), (40, 24, 7), (32, 16, 3), (64, 32, 3)]
+
+
+@pytest.mark.parametrize("cin,cout,scale,itemsize", [
+    (*shape, size) for shape in UP_SHAPES for size in (4, 2)
+    if size == 4 or not (shape[0] % 8 or shape[1] % 8)])
+def test_up_res_stream_groups_fit(cin, cout, scale, itemsize):
+    """Every group of up_res_stream fits one thread block's shared memory
+    with the upsample's source rows counted in the first (bfloat16: at
+    least WG_MIN_RING 64-deep ring stages beside them), chains reach the
+    efficiency promised, and the first group is a chain; the kernels' own
+    formulas (csrc/resstack_wgmma.cu's launch_chain, csrc/resstack_f32.cu's
+    launch_chain) agree with the planner's."""
+    from voicefixer_tpu_torch.kernels import resstream
+
+    dils = resstack.stack_dilations(8)
+    groups = resstream.up_plan(cin, cout, scale, dils, itemsize)
+    assert groups[0][2] is not None
+    assert [g[0] for g in groups] == [0] + [g[1] for g in groups[:-1]]
+    route = "wgmma" if itemsize == 2 else "f32"
+    for i0, i1, tm in groups:
+        if tm is None:
+            continue
+        up = (cin, scale) if i0 == 0 else None
+        sub = dils[i0:i1]
+        e = resstack.chain_extents(sub)
+        smem = resstack.route_smem_bytes(route, cout, sub, tm, itemsize, up)
+        assert smem <= resstack.SMEM_LIMIT
+        if route == "wgmma":
+            # the kernel's count: slab, the larger of h and the source
+            # rows, 1 KB of alignment, MIN_STAGES 32-deep stages of N
+            ld = -(-cout // 64) * 64 + 8
+            src = 0 if up is None else (
+                ((tm + 2 * e[0] - 1) // scale + 3) * (-(-cin // 64) * 64 + 8)
+                * 2)
+            fixed = (tm + 2 * e[0]) * ld * 2 + max(
+                (tm + 2 * e[1] + 2) * ld * 2, src)
+            assert smem == 1024 + 2 * (32 * resstack.wg_cols(cout) * 2
+                                       + 16) + fixed
+            # a ring of WG_MIN_RING 64-deep stages is left beside them
+            assert resstack.wgmma_ring(cout, sub, tm, up) >= (
+                64, resstack.WG_MIN_RING)
+        else:
+            bm, bn = resstack.f32_tile(cout)
+            rows = 2 * tm + 2 * e[0] + 2 * e[1] + 2
+            assert smem == 4 * (3 * (bm * 20 + 16 * bn)
+                                + rows * (-(-cout // 16) * 16 + 4))
+        if i1 - i0 > 1:
+            tile = resstack.chain_tile(cout, sub, itemsize, route=route,
+                                       up=up)
+            assert tile[0] == tm and tile[1] >= resstack.MIN_EFFICIENCY
 
 
 @pytest.mark.parametrize("ch", [256, 512])
@@ -1230,57 +1353,61 @@ def test_plan_stack_wgmma_groups_fit(ch):
 
 # ------------------------------------------- the float32 kernels' schedule
 
-F32_STAGES, F32_BM, F32_BN, F32_BK = resstack.F32_STAGES, 64, 256, 16
+F32_STAGES, F32_BK = resstack.F32_STAGES, 16
 _A_GLOBAL, _A_SLAB, _A_DIRECT = "global", "slab", "direct"
 
 
-def _f32_product(mode, src, row0, step, lo, hi, w, ch, n0, slope):
-    """One tap product of csrc/resstack_f32.cu, in plain torch: the 64 x 256
-    tile at columns n0 over K steps (tap, 16 channels), each staged into ring
-    slot step % F32_STAGES, F32_STAGES - 1 steps ahead, the weights and (from
-    global memory) the rows of x as the copies leave them: zero outside [lo,
-    hi) and past C. conv1's LeakyReLU is applied to a staged A tile once,
-    the slab's rows as they are staged; h (``_A_DIRECT``) is read in place,
-    rows past hi read row hi - 1. Slots never written are NaN."""
-    kc = -(-ch // F32_BK)
-    steps = 3 * kc
-    ring_a = torch.full((F32_STAGES, F32_BM, F32_BK), float("nan"))
-    ring_b = torch.full((F32_STAGES, F32_BK, F32_BN), float("nan"))
-    r = torch.arange(F32_BM)
+def _f32_product(mode, src, row0, step, lo, hi, w, k, n, n0, slope):
+    """One tap product of csrc/resstack_f32.cu, in plain torch: the BM x BN
+    tile (``resstack.f32_tile(n)``) at columns n0 of the N = n outputs, K
+    steps (tap, 16 channels) over the len(w) taps of k rows (w[j]: [k, n]),
+    each staged into ring slot step % F32_STAGES, F32_STAGES - 1 steps
+    ahead, the weights and (from global memory) the A rows as the copies
+    leave them: zero outside [lo, hi) and past k. Tile row r of tap j is
+    source row row0 + r + j * step. conv1's LeakyReLU is applied to a
+    staged A tile once, the slab's rows as they are staged; h
+    (``_A_DIRECT``) is read in place, rows past hi read row hi - 1. Slots
+    never written are NaN."""
+    bm, bn = resstack.f32_tile(n)
+    kc = -(-k // F32_BK)
+    steps = len(w) * kc
+    ring_a = torch.full((F32_STAGES, bm, F32_BK), float("nan"))
+    ring_b = torch.full((F32_STAGES, F32_BK, bn), float("nan"))
+    r = torch.arange(bm)
     lrelu = lambda v: torch.where(v > 0, v, slope * v)  # noqa: E731
 
     def tile(p, source, c0):
         """A tile: rows p of source (zero outside [lo, hi)), channels c0 ..
-        c0 + 15 (zero past C)."""
+        c0 + 15 (zero past k)."""
         ok = ((p >= lo) & (p < hi))[:, None]
-        a = source[p.clamp(lo, hi - 1), c0:min(c0 + F32_BK, ch)]
+        a = source[p.clamp(lo, hi - 1), c0:min(c0 + F32_BK, k)]
         return F.pad(torch.where(ok, a, 0.0), (0, F32_BK - a.shape[1]))
 
     def load(it):
         s, (tap, ci) = it % F32_STAGES, divmod(it, kc)
         c0 = ci * F32_BK
-        b = torch.zeros((F32_BK, F32_BN))
-        kk = torch.arange(c0, min(c0 + F32_BK, ch))
-        nn = torch.arange(n0, min(n0 + F32_BN, ch))
+        b = torch.zeros((F32_BK, bn))
+        kk = torch.arange(c0, min(c0 + F32_BK, k))
+        nn = torch.arange(n0, min(n0 + bn, n))
         b[:len(kk), :len(nn)] = w[tap][kk][:, nn]
         ring_b[s] = b
         if mode == _A_GLOBAL:
-            ring_a[s] = tile(row0 + r + (tap - 1) * step, src, c0)
+            ring_a[s] = tile(row0 + r + tap * step, src, c0)
 
     for it in range(min(F32_STAGES - 1, steps)):
         load(it)
-    acc = torch.zeros((F32_BM, F32_BN))
+    acc = torch.zeros((bm, bn))
     for it in range(steps):
         s, (tap, ci) = it % F32_STAGES, divmod(it, kc)
         c0 = ci * F32_BK
         if mode == _A_GLOBAL:
             ring_a[s] = lrelu(ring_a[s])
         elif mode == _A_SLAB:
-            ring_a[s] = lrelu(tile(row0 + r + (tap - 1) * step, src, c0))
+            ring_a[s] = lrelu(tile(row0 + r + tap * step, src, c0))
         if it + F32_STAGES - 1 < steps:
             load(it + F32_STAGES - 1)
         if mode == _A_DIRECT:
-            rows = (row0 + r + (tap - 1) * step).clamp(max=hi - 1)
+            rows = (row0 + r + tap * step).clamp(max=hi - 1)
             a = src[rows][:, c0:c0 + F32_BK]
         else:
             a = ring_a[s]
@@ -1293,38 +1420,39 @@ def _f32_ld(ch):
 
 
 def _f32_cols(ch, n0):
-    return torch.arange(n0, min(n0 + F32_BN, ch))
+    return torch.arange(n0, min(n0 + resstack.f32_tile(ch)[1], ch))
 
 
 def _shift_f32_model(x, w1, b1, w2, b2, d, slope, final_slope, bounds):
     """What csrc/resstack_f32.cu's shift kernel does, per (batch row,
-    62-row tile): h over 64 rows (NaN where unwritten, padding columns
+    BM - 2-row tile): h over BM rows (NaN where unwritten, padding columns
     zero), conv1 from x at its tap offsets, conv2 from h in place, both
     epilogues with their masks. Every output row is written exactly once."""
     bsz, t, ch = x.shape
+    bm, bn = resstack.f32_tile(ch)
     lo, hi = resstack.clamp_bounds(bounds, t)
     lrelu = lambda v, a: torch.where(v > 0, v, a * v)  # noqa: E731
     y = torch.full((bsz, t, ch), float("nan"))
     written = torch.zeros((bsz, t), dtype=torch.int64)
-    r = torch.arange(F32_BM)
+    r = torch.arange(bm)
     for bi in range(bsz):
-        for t0 in range(0, t, F32_BM - 2):
-            h = torch.full((F32_BM, _f32_ld(ch)), float("nan"))
+        for t0 in range(0, t, bm - 2):
+            h = torch.full((bm, _f32_ld(ch)), float("nan"))
             h[:, ch:] = 0.0
-            for n0 in range(0, ch, F32_BN):
-                acc = _f32_product(_A_GLOBAL, x[bi], t0 - 1, d, lo, hi,
-                                   w1, ch, n0, slope)
+            for n0 in range(0, ch, bn):
+                acc = _f32_product(_A_GLOBAL, x[bi], t0 - 1 - d, d, lo, hi,
+                                   w1, ch, ch, n0, slope)
                 nc = _f32_cols(ch, n0)
                 pos = t0 - 1 + r
                 inside = ((pos >= lo) & (pos < hi))[:, None]
                 h[:, nc] = torch.where(
                     inside, lrelu(acc[:, :len(nc)] + b1[nc], slope), 0.0)
-            for n0 in range(0, ch, F32_BN):
-                acc = _f32_product(_A_DIRECT, h, 1, 1, 0, F32_BM, w2,
-                                   ch, n0, slope)
+            for n0 in range(0, ch, bn):
+                acc = _f32_product(_A_DIRECT, h, 0, 1, 0, bm, w2, ch, ch, n0,
+                                   slope)
                 nc = _f32_cols(ch, n0)
                 pos = t0 + r
-                keep = (r < F32_BM - 2) & (pos < t)
+                keep = (r < bm - 2) & (pos < t)
                 pos = pos[keep]
                 inside = ((pos >= lo) & (pos < hi))[:, None]
                 v = torch.where(inside, acc[keep][:, :len(nc)] + b2[nc]
@@ -1339,14 +1467,18 @@ def _shift_f32_model(x, w1, b1, w2, b2, d, slope, final_slope, bounds):
 
 
 def _chain_f32_model(x, w1s, b1s, w2s, b2s, dils, slope, final_slope, tm,
-                     bounds):
+                     bounds, up=None):
     """What csrc/resstack_f32.cu's chain kernel does, per (batch row, time
     tile): the slab (zero outside the window; padding columns NaN), then
-    per block conv1 from the slab over 64-row tiles and column passes, and
+    per block conv1 from the slab over BM-row tiles and column passes, and
     conv2 from h in place, written over the slab or, for the last block, to
     the tile's output rows. h is NaN where unwritten, its padding columns
-    zero."""
+    zero. With ``up`` = (x_src, w_up, b_up, scale) the slab is the
+    upsample's: per BM-row tile of rows q and phase, a two-tap product from
+    a = x + sin(x) in global memory (rows q and q - 1, zero outside the
+    signal, slope 1), its epilogue's masks (zero outside [0, T*s))."""
     bsz, t, ch = x.shape
+    bm, bn = resstack.f32_tile(ch)
     n = len(dils)
     lo, hi = resstack.clamp_bounds(bounds, t)
     ext = resstack.chain_extents(dils)
@@ -1355,24 +1487,48 @@ def _chain_f32_model(x, w1s, b1s, w2s, b2s, dils, slope, final_slope, tm,
     lrelu = lambda v, a: torch.where(v > 0, v, a * v)  # noqa: E731
     y = torch.full((bsz, t, ch), float("nan"))
     written = torch.zeros((bsz, t), dtype=torch.int64)
-    r = torch.arange(F32_BM)
+    r = torch.arange(bm)
+    if up is not None:
+        x_src, w_up, b_up, scale = up
+        a_src = _up_source(x_src)
+        t_in, cin = x_src.shape[1:]
     for bi in range(bsz):
         for t0 in range(0, t, tm):
             slab = torch.full((slab_rows, _f32_ld(ch)), float("nan"))
-            pos = torch.arange(slab_rows) + t0 - e0
-            ok = (pos >= lo) & (pos < hi)
-            slab[:, :ch] = 0.0
-            slab[ok, :ch] = x[bi, pos[ok]]
+            if up is None:
+                pos = torch.arange(slab_rows) + t0 - e0
+                ok = (pos >= lo) & (pos < hi)
+                slab[:, :ch] = 0.0
+                slab[ok, :ch] = x[bi, pos[ok]]
+            else:
+                q_lo, nq, pad = _up_rows(t0 - e0, slab_rows, scale)
+                for m0 in range(0, nq, bm):
+                    for rho in range(scale):
+                        for n0 in range(0, ch, bn):
+                            acc = _f32_product(
+                                _A_GLOBAL, a_src[bi], q_lo + m0, -1, 0, t_in,
+                                (w_up[rho], w_up[rho + scale]), cin, ch, n0,
+                                1.0)
+                            nc = _f32_cols(ch, n0)
+                            pos = (q_lo + m0 + r) * scale + rho - pad
+                            srow = pos - (t0 - e0)
+                            keep = ((m0 + r < nq) & (srow >= 0)
+                                    & (srow < slab_rows))
+                            inside = ((pos >= lo) & (pos < hi))[keep][:, None]
+                            slab[srow[keep][:, None], nc] = torch.where(
+                                inside, acc[keep][:, :len(nc)] + b_up[nc],
+                                0.0)
             h = torch.full((tm + 2 * ext[1] + 2, _f32_ld(ch)), float("nan"))
             h[:, ch:] = 0.0
             for i, d in enumerate(dils):
                 eo = ext[i + 1]
                 h_rows, y_rows = tm + 2 * eo + 2, tm + 2 * eo
-                for m0 in range(0, h_rows, F32_BM):
-                    for n0 in range(0, ch, F32_BN):
+                for m0 in range(0, h_rows, bm):
+                    for n0 in range(0, ch, bn):
                         acc = _f32_product(_A_SLAB, slab,
-                                           e0 - eo - 1 + m0, d, 0, slab_rows,
-                                           w1s[i], ch, n0, slope)
+                                           e0 - eo - 1 + m0 - d, d, 0,
+                                           slab_rows, w1s[i], ch, ch, n0,
+                                           slope)
                         nc = _f32_cols(ch, n0)
                         hr = m0 + r
                         keep = hr < h_rows
@@ -1381,10 +1537,10 @@ def _chain_f32_model(x, w1s, b1s, w2s, b2s, dils, slope, final_slope, tm,
                         h[hr[keep][:, None], nc] = torch.where(
                             inside, lrelu(acc[keep][:, :len(nc)]
                                           + b1s[i][nc], slope), 0.0)
-                for m0 in range(0, y_rows, F32_BM):
-                    for n0 in range(0, ch, F32_BN):
-                        acc = _f32_product(_A_DIRECT, h, m0 + 1, 1, 0,
-                                           h_rows, w2s[i], ch, n0, slope)
+                for m0 in range(0, y_rows, bm):
+                    for n0 in range(0, ch, bn):
+                        acc = _f32_product(_A_DIRECT, h, m0, 1, 0, h_rows,
+                                           w2s[i], ch, ch, n0, slope)
                         nc = _f32_cols(ch, n0)
                         yr = m0 + r
                         yr = yr[yr < y_rows]
@@ -1458,3 +1614,73 @@ def test_chain_f32_schedule(ch, t, b, dils, tm, bounds):
     ref = res_chain_reference(x, *bank, dils, 0.2, 0.3, bounds)
     np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-4,
                                atol=2e-5)
+
+
+def _up_case(rng, b, t_in, cin, cout, scale, n, fix=lambda a: a):
+    """x_src, w_up, b_up and a bank of n blocks, numpy-seeded."""
+    x = torch.from_numpy(fix(_rand(rng, (b, t_in, cin))))
+    w_up = torch.from_numpy(fix(_rand(rng, (2 * scale, cin, cout),
+                                      0.7 / (2 * cin) ** 0.5)))
+    b_up = torch.from_numpy(fix(_rand(rng, (cout,), 0.05)))
+    sc = 1 / (3 * cout) ** 0.5
+    bank = [torch.from_numpy(fix(_rand(rng, shape, s)))
+            for shape, s in (((n, 3, cout, cout), sc), ((n, cout), 0.05),
+                             ((n, 3, cout, cout), sc), ((n, cout), 0.05))]
+    return x, w_up, b_up, bank
+
+
+@pytest.mark.parametrize("cin,cout,scale,t_in,b,dils,tm", [
+    (32, 24, 3, 40, 2, (1, 3), None),     # ragged C and Cin; batch 2
+    (4, 2, 7, 9, 1, (1, 3, 9), 17),       # C = 2: scalar copies; s = 7
+    (16, 64, 3, 30, 1, (1, 3, 9), None),  # C = 64: a 128-row tile
+    (24, 128, 2, 20, 1, (1,), 50),        # even scale: pad 1
+    (8, 16, 3, 3, 1, (27, 81), None),     # every tap beyond the signal
+])
+def test_up_chain_f32_schedule(cin, cout, scale, t_in, b, dils, tm):
+    """The float32 chain with the upsample in front: its source rows q and
+    phases, tiles of rows q, the slab's masks at the signal's ends and the
+    first rows of every batch row, against the plain version."""
+    from voicefixer_tpu_torch.kernels.resstream import up_res_stream_reference
+
+    rng = np.random.default_rng(29)
+    x, w_up, b_up, bank = _up_case(rng, b, t_in, cin, cout, scale, len(dils))
+    if tm is None:
+        tm = resstack.chain_tile(cout, dils, 4, route="f32",
+                                 up=(cin, scale))[0]
+    got = _chain_f32_model(torch.zeros((b, t_in * scale, cout)), *bank, dils,
+                           0.2, 0.3, tm, None, up=(x, w_up, b_up, scale))
+    ref = up_res_stream_reference(x, w_up, b_up, *bank, dils, scale, 0.2,
+                                  0.3)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-4,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("cin,cout,scale,t_in,b,dils,tm", [
+    (32, 24, 3, 40, 2, (1, 3), None),     # C pads N to 64; batch 2
+    (64, 128, 3, 50, 1, (1, 3, 9), 98),   # N = 128, three tiles of rows q
+    (72, 64, 7, 12, 1, (1, 3), 40),       # Cin ragged against the box
+    (8, 16, 3, 3, 1, (27, 81), None),     # every tap beyond the signal
+])
+def test_up_chain_wgmma_schedule(cin, cout, scale, t_in, b, dils, tm):
+    """The bfloat16 chain with the upsample in front: its source rows
+    (where h will be), phases and passes of rows q, the slab's masks and
+    the row above each tile's first, against the plain version (bfloat16
+    values on both sides, the chained tolerance)."""
+    from voicefixer_tpu_torch.kernels.resstream import up_res_stream_reference
+
+    rng = np.random.default_rng(31)
+    x, w_up, b_up, bank = _up_case(rng, b, t_in, cin, cout, scale, len(dils),
+                                   _bf16_exact)
+    x, w_up, b_up = (v.to(torch.bfloat16) for v in (x, w_up, b_up))
+    bank = [v.to(torch.bfloat16) for v in bank]
+    if tm is None:
+        tm = resstack.chain_tile(cout, dils, 2, route="wgmma",
+                                 up=(cin, scale))[0]
+    assert resstack.wgmma_smem_bytes(cout, dils, tm, up=(cin, scale)) \
+        <= resstack.SMEM_LIMIT
+    got = _chain_wgmma_model(torch.zeros((b, t_in * scale, cout)), *bank,
+                             dils, 0.2, 0.3, tm, up=(x, w_up, b_up, scale))
+    ref = up_res_stream_reference(x, w_up, b_up, *bank, dils, scale, 0.2,
+                                  0.3)
+    _assert_close(got, jnp.asarray(ref.float().numpy()), 2 ** -7, 1e-3,
+                  chained=len(dils))

@@ -29,7 +29,7 @@ from voicefixer_tpu_torch.utils.weights import (count_leaves,
                                                from_jax_params,
                                                load_pytree_npz, pack_bn,
                                                pack_conv3x3, pack_shortcut,
-                                               pack_up_weights, res_bank)
+                                               res_bank)
 
 
 def _fill(tree, rng, name=""):
@@ -166,28 +166,6 @@ def test_res_bank_matches_jax_stack_w():
                                       np.asarray(ref))
         np.testing.assert_array_equal(
             bs.numpy(), np.stack([b[key]["b"] for b in jblocks]))
-
-
-@pytest.mark.parametrize("scale,cin,cout", [(3, 8, 128), (7, 16, 4)])
-def test_pack_up_weights_matches_jax_packing(scale, cin, cout):
-    """The polyphase [2*Cin, s*Cout] matrix is the ``wk`` that the JAX
-    package's ``up_res_stream`` packs for its kernel in the layout without
-    the lane fold (rows: a[q] taps then a[q-1] taps; columns: phase-major),
-    and multiplies out to the transposed convolution's two taps."""
-    rng = np.random.default_rng(0)
-    w = rng.standard_normal((2 * scale, cin, cout)).astype(np.float32)
-    wb = w.reshape(2, scale, cin, 1, cout).transpose(3, 0, 2, 1, 4)
-    ref = wb.reshape(2 * cin, scale * cout)
-    got = pack_up_weights(torch.from_numpy(w), scale)
-    np.testing.assert_array_equal(got.numpy(), ref)
-    a = rng.standard_normal((2, cin)).astype(np.float32)  # a[q], a[q-1]
-    z = a.reshape(-1) @ ref
-    for rho in range(scale):
-        np.testing.assert_allclose(
-            z[rho * cout:(rho + 1) * cout],
-            a[0] @ w[rho] + a[1] @ w[rho + scale], rtol=1e-5, atol=1e-5)
-    with pytest.raises(ValueError):
-        pack_up_weights(torch.from_numpy(w), scale + 1)
 
 
 def test_port_imports_no_jax():

@@ -14,7 +14,11 @@ their operands through a ``cp.async`` ring as the float32 upsample does,
 at the widths of vocoder stages 1 and 0; ``conv_block_res_f32`` and
 ``conv_block_res_bf16``, the ConvBlockRes kernel of csrc/convblock.cu
 (cp.async in float32, TMA and mbarriers in bfloat16) at the ResUNet's
-first level with its shortcut, batch 2. With BUILD_DIR the kernel
+first level with its shortcut, batch 2; ``up_res_stream_f32`` and
+``up_res_stream_bf16``, the whole fused stage 2 (256 -> 128, x3) on a
+short signal, batch 2, whose first group takes the upsample's operands by
+cp.async (float32) or its weights by TMA and mbarriers (bfloat16) and
+whose later groups run the single-block kernels. With BUILD_DIR the kernel
 libraries are built
 there (a new directory gives a cold build) instead of in the package's own
 build directory. The kernel's result
@@ -44,6 +48,7 @@ CHAIN = dict(ch=512, t=300, b=1, dils=(1, 3))
 CHAIN_F32 = dict(ch=256, t=300, b=2, dils=(1, 3))
 SHIFT_F32 = dict(ch=512, t=300, b=2, d=81)
 CONV_BLOCK = dict(t=200, f=127, ci=64, co=32, b=2)
+UP_RES = dict(cin=256, cout=128, scale=3, t=200, b=2)
 
 
 def _upsample(torch):
@@ -161,6 +166,38 @@ def _conv_block_res(torch, dtype, rtol, atol):
             atol)
 
 
+def _up_res_stream(torch, dtype):
+    """(kernel, card plain, CPU plain) outputs of up_res_stream. float32:
+    1e-4 (sums in another order); bfloat16: one ulp of the largest
+    intermediate through the eight chained blocks (2^-7 * max|ref| +
+    2^-7 * |ref|)."""
+    from voicefixer_tpu_torch.kernels.resstream import (
+        up_res_stream, up_res_stream_reference)
+    gen = torch.Generator().manual_seed(0)
+    cin, cout, s, t, b = (UP_RES[k]
+                          for k in ("cin", "cout", "scale", "t", "b"))
+    dils = tuple(3 ** i for i in range(8))
+    x = torch.randn((b, t, cin), generator=gen)
+    w = 0.7 / (2 * cin) ** 0.5 * torch.randn((2 * s, cin, cout),
+                                             generator=gen)
+    bias = 0.05 * torch.randn((cout,), generator=gen)
+    sc = 0.5 / (3 * cout) ** 0.5
+    bank = [sc * torch.randn((8, 3, cout, cout), generator=gen),
+            0.05 * torch.randn((8, cout), generator=gen),
+            sc * torch.randn((8, 3, cout, cout), generator=gen),
+            0.05 * torch.randn((8, cout), generator=gen)]
+    args = [v.to(dtype) for v in (x, w, bias, *bank)]
+    ref = up_res_stream_reference(*args, dils, s, 0.01, 0.2).float()
+    on_card = [v.cuda() for v in args]
+    got = up_res_stream(*on_card, dils, s, 0.01, 0.2)
+    plain = up_res_stream_reference(*on_card, dils, s, 0.01, 0.2)
+    if dtype == torch.float32:
+        rtol, atol = 1e-4, 1e-4
+    else:
+        rtol, atol = 2 ** -7, 2 ** -7 * float(ref.abs().max())
+    return (got.float().cpu(), plain.float().cpu(), ref, rtol, atol)
+
+
 CASES = {"upsample": _upsample, "res_chain": _res_chain,
          "res_chain_f32": _res_chain_f32,
          "res_shift_single_f32": _res_shift_single_f32,
@@ -169,7 +206,11 @@ CASES = {"upsample": _upsample, "res_chain": _res_chain,
          "conv_block_res_f32": lambda torch: _conv_block_res(
              torch, torch.float32, 1e-4, 1e-4),
          "conv_block_res_bf16": lambda torch: _conv_block_res(
-             torch, torch.bfloat16, 2 ** -7, 2 ** -6)}
+             torch, torch.bfloat16, 2 ** -7, 2 ** -6),
+         "up_res_stream_f32": lambda torch: _up_res_stream(torch,
+                                                           torch.float32),
+         "up_res_stream_bf16": lambda torch: _up_res_stream(torch,
+                                                            torch.bfloat16)}
 
 
 def one(case: str, build_dir: str | None) -> int:

@@ -3,12 +3,12 @@
 // multiplies with wgmma: mbarrier init / arrive / expect-tx / wait, the TMA
 // tile load, a 16-byte cp.async with zero fill, wgmma fence / commit / wait,
 // the shared-memory matrix descriptor for the 128-byte swizzle, the wgmma
-// shapes (m64n128k16 with both operands in shared memory; m64n256k16 with A
-// in registers, loaded by ldmatrix, and B N-major; m64n{32,64,128}k16 with A
-// in registers and B K-major), setmaxnreg, and a host helper that encodes a
-// CUtensorMap for a three-dimensional bf16 tensor.
+// shapes (m64n128k16 with both operands in shared memory; m64n{64,128,256}k16
+// with A in registers, loaded by ldmatrix, and B N-major; m64n{32,64,128}k16
+// with A in registers and B K-major), setmaxnreg, and a host helper that
+// encodes a CUtensorMap for a three-dimensional bf16 tensor.
 //
-// Users: upsample.cu (K1), resstack_wgmma.cu (K2 in bfloat16) and
+// Users: upsample.cu (K1), resstack_wgmma.cu (K2 and K4 in bfloat16) and
 // convblock.cu (K9 in bfloat16).
 //
 // cuTensorMapEncodeTiled lives in libcuda, not in the CUDA runtime: it is
@@ -335,6 +335,74 @@ __device__ __forceinline__ void wgmma_m64k16_bf16_rs_kmajor<128>(
       "%56, %57, %58, %59, %60, %61, %62, %63"
       "}, "
       "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate));
+}
+
+// d[64 x N] (+)= A[64 x 16] * B[16 x N], bf16 in, float32 out, for N = 64
+// and 128: A from registers as for wgmma_m64n256k16_bf16_rs, B MN-major
+// from shared memory (the transpose bit), as TMA boxes of 64 columns by k
+// rows in the 128-byte swizzle leave a row-major [K][N] weight (the
+// descriptor's leading byte offset steps from one 64-column box to the
+// next). The accumulator layout is that of wgmma_m64k16_bf16_rs_kmajor<N>.
+__device__ __forceinline__ void wgmma_m64n64k16_bf16_rs_nmajor(
+    float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_m64n128k16_bf16_rs_nmajor(
+    float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),

@@ -1,5 +1,6 @@
-// The vocoder's ResStack block, shared by csrc/resstack.cu and
-// csrc/resstream.cu:
+// The vocoder's ResStack block as the first port wrote it, shared by
+// csrc/resstack.cu (K3's bfloat16 single block, also K4's bfloat16 single
+// blocks) and csrc/resstream.cu (K7 res_stream):
 //
 //   a  = lrelu(x, slope)                          float32, cast to T
 //   h  = sum_j a[t + (j-1)*d] @ W1[j] + b1        j = 0..2, float32 sums
@@ -18,8 +19,8 @@
 // whose A rows come from global memory or from a slab in shared memory
 // through one descriptor (RowSrc), with the LeakyReLU applied as the rows
 // are staged, and whose results leave through an epilogue functor. The
-// dilated conv, the undilated conv and the polyphase upsample (two taps at
-// rows q and q-1) are the same routine with other offsets.
+// dilated conv and the undilated conv are the same routine with other
+// offsets.
 //
 // Two kernels are built from it:
 //   shift_kernel  one block; the +-d taps are read at row offsets straight
@@ -29,10 +30,7 @@
 //                 E[0] = sum(d_i + 1) rows a side, kept in shared memory:
 //                 block i is computed over the tile widened by E[i+1] rows
 //                 a side (halo recompute), its output overwrites the slab
-//                 in place, and only the tile is written. With UP the slab
-//                 is not loaded but produced in place by the polyphase
-//                 upsample of the slow-rate source, so the upsampled signal
-//                 never reaches global memory.
+//                 in place, and only the tile is written.
 #pragma once
 
 #include <mma.h>
@@ -57,11 +55,6 @@ __host__ __device__ constexpr int row_pad() {
 
 __device__ __forceinline__ float lrelu(float v, float slope) {
   return v > 0.f ? v : slope * v;
-}
-
-__device__ __forceinline__ int floor_div(int a, int b) {
-  const int q = a / b;
-  return (a % b < 0) ? q - 1 : q;
 }
 
 // The A rows of a tap product: tile row r of tap j is source row
@@ -419,7 +412,7 @@ struct Gemm<__nv_bfloat16, BN> {
 // One block at any dilation. Block (bx, b) computes output rows
 // [t0, t0 + BM - 2) of batch row b from h rows [t0 - 1, t0 + BM - 1). Its
 // shared memory lets two thread blocks share an SM at every width it runs
-// (bfloat16 up to C = 512: 97 KB; float32 up to C = 128, the fused stages:
+// (bfloat16 up to C = 512: 97 KB; float32 up to C = 128, K7's stacks:
 // 65 KB; float32 at wider C runs resstack_f32.cu instead, one thread block
 // an SM), so the registers are capped for two as well: they hide each
 // other's waits at the barriers, which gains more than the few spills cost.
@@ -522,7 +515,7 @@ cudaError_t launch_shift(const T* x, const T* w1, const T* b1, const T* w2,
 
 template <typename T>
 struct ChainArgs {
-  const T* x;   // [batch, t_len, ch]; with UP: a = x + sin(x), [batch, t_in, cin]
+  const T* x;   // [batch, t_len, ch]
   const T* w1;  // [n, 3*ch, ch]
   const T* b1;  // [n, ch]
   const T* w2;
@@ -535,10 +528,6 @@ struct ChainArgs {
   float slope, final_slope;
   int has_final;
   int lo, hi;               // the signal window, clamped to [0, t_len]
-  // UP only: polyphase weights [2*cin, scale*ch] and bias [ch]
-  const T* w_up;
-  const T* b_up;
-  int t_in, cin, scale;
 };
 
 template <typename T>
@@ -547,7 +536,7 @@ size_t chain_smem(int ch, int tm, int e0, int e1) {
   return STAGE_BYTES + rows * (ch + row_pad<T>()) * sizeof(T);
 }
 
-template <typename T, int BN, bool UP>
+template <typename T, int BN>
 __global__ void __launch_bounds__(THREADS) chain_kernel(ChainArgs<T> p) {
   using G = Gemm<T, BN>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -564,55 +553,25 @@ __global__ void __launch_bounds__(THREADS) chain_kernel(ChainArgs<T> p) {
   const int tid = threadIdx.x;
   T* yb = p.y + static_cast<long long>(blockIdx.y) * t_len * ch;
 
-  if constexpr (UP) {
-    // slab row (q*scale + rho - pad) - slab0 = a[q] @ W[rho]
-    //   + a[q-1] @ W[rho + scale] + b_up, zero outside [0, t_len)
-    const int scale = p.scale, cin = p.cin;
-    const int pad = scale / 2 + scale % 2;
-    const int q_lo = floor_div(slab0 + pad, scale);
-    const int q_hi = floor_div(slab0 + slab_rows - 1 + pad, scale);
-    const int ncols = scale * ch;
-    const T* ab = p.x + static_cast<long long>(blockIdx.y) * p.t_in * cin;
-    const T* b_up = p.b_up;
-    for (int m0 = 0; m0 <= q_hi - q_lo; m0 += BM) {
-      const RowSrc<T> src{ab, cin, p.t_in, q_lo + m0, 0, -1, 0.f, false};
-      for (int n0 = 0; n0 < ncols; n0 += G::kBN)
-        G::run(smem, src, p.w_up, 2, cin, ncols, n0, ncols,
-               vec && cin % 4 == 0, [=](int r, int n, auto& v) {
-                 constexpr int W = sizeof(v) / sizeof(float);
-                 const int rho = n / ch, co = n - rho * ch;
-                 const int pos = (q_lo + m0 + r) * scale + rho - pad;
-                 const int srow = pos - slab0;
-                 if (srow < 0 || srow >= slab_rows) return;
-                 const bool inside = pos >= lo && pos < hi;
-                 float b[W];
-                 load_vals<T, W>(b_up + co, b);
-#pragma unroll
-                 for (int u = 0; u < W; ++u) v[u] = inside ? v[u] + b[u] : 0.f;
-                 store_vals<T, W>(xs + srow * ld + co, v);
-               });
+  const T* xb = p.x + static_cast<long long>(blockIdx.y) * t_len * ch;
+  if constexpr (sizeof(T) == 2) {
+    const int nvec = ch / 8;
+    for (int e = tid; e < slab_rows * nvec; e += THREADS) {
+      const int r = e / nvec, c = (e % nvec) * 8;
+      const int pos = slab0 + r;
+      *reinterpret_cast<uint4*>(xs + r * ld + c) =
+          (pos >= lo && pos < hi)
+              ? *reinterpret_cast<const uint4*>(
+                    xb + static_cast<long long>(pos) * ch + c)
+              : make_uint4(0, 0, 0, 0);
     }
   } else {
-    const T* xb = p.x + static_cast<long long>(blockIdx.y) * t_len * ch;
-    if constexpr (sizeof(T) == 2) {
-      const int nvec = ch / 8;
-      for (int e = tid; e < slab_rows * nvec; e += THREADS) {
-        const int r = e / nvec, c = (e % nvec) * 8;
-        const int pos = slab0 + r;
-        *reinterpret_cast<uint4*>(xs + r * ld + c) =
-            (pos >= lo && pos < hi)
-                ? *reinterpret_cast<const uint4*>(
-                      xb + static_cast<long long>(pos) * ch + c)
-                : make_uint4(0, 0, 0, 0);
-      }
-    } else {
-      for (int e = tid; e < slab_rows * ch; e += THREADS) {
-        const int r = e / ch, c = e % ch;
-        const int pos = slab0 + r;
-        xs[r * ld + c] = (pos >= lo && pos < hi)
-                             ? xb[static_cast<long long>(pos) * ch + c]
-                             : from_float<T>(0.f);
-      }
+    for (int e = tid; e < slab_rows * ch; e += THREADS) {
+      const int r = e / ch, c = e % ch;
+      const int pos = slab0 + r;
+      xs[r * ld + c] = (pos >= lo && pos < hi)
+                           ? xb[static_cast<long long>(pos) * ch + c]
+                           : from_float<T>(0.f);
     }
   }
   __syncthreads();
@@ -690,7 +649,7 @@ __global__ void __launch_bounds__(THREADS) chain_kernel(ChainArgs<T> p) {
 
 // Fills ext from dils and launches. Returns cudaErrorInvalidValue for a
 // group that does not fit shared memory (the launch would be refused).
-template <typename T, bool UP>
+template <typename T>
 cudaError_t launch_chain(ChainArgs<T> p, int batch, cudaStream_t stream) {
   if (batch < 1 || p.t_len < 1 || p.ch < 1 || p.n < 1 || p.n > MAX_BLOCKS ||
       p.tm < 1)
@@ -706,15 +665,15 @@ cudaError_t launch_chain(ChainArgs<T> p, int batch, cudaStream_t stream) {
   const dim3 grid((p.t_len + p.tm - 1) / p.tm, batch);
   if constexpr (std::is_same<T, float>::value) {
     if (p.ch > 64)
-      return launch_with_smem(chain_kernel<T, 128, UP>, grid, smem, stream, p);
-    return launch_with_smem(chain_kernel<T, 64, UP>, grid, smem, stream, p);
+      return launch_with_smem(chain_kernel<T, 128>, grid, smem, stream, p);
+    return launch_with_smem(chain_kernel<T, 64>, grid, smem, stream, p);
   } else {
-    if (p.ch % 8 || (UP && p.cin % 8)) return cudaErrorInvalidValue;
+    if (p.ch % 8) return cudaErrorInvalidValue;
     if (p.ch % 256 == 0)
-      return launch_with_smem(chain_kernel<T, 256, UP>, grid, smem, stream, p);
+      return launch_with_smem(chain_kernel<T, 256>, grid, smem, stream, p);
     if (p.ch % 128 == 0)
-      return launch_with_smem(chain_kernel<T, 128, UP>, grid, smem, stream, p);
-    return launch_with_smem(chain_kernel<T, 64, UP>, grid, smem, stream, p);
+      return launch_with_smem(chain_kernel<T, 128>, grid, smem, stream, p);
+    return launch_with_smem(chain_kernel<T, 64>, grid, smem, stream, p);
   }
 }
 

@@ -56,22 +56,30 @@ MIN_EFFICIENCY = 0.65
 # (``up_res_stack``) or, under ``mask_bounds``, as ``res_stream``
 FUSE_MAX_CHANNELS = 128
 # of csrc/resstack_wgmma.cu, the bfloat16 chain: two consumer warpgroups of
-# 64-row wgmma tiles over 256-column chunks, a ring of at least two 32-deep
-# weight stages (16 KB a chunk, 16 bytes of barriers each; 64-deep where two
-# of those fit), slab and h rows of the width rounded up to WG_ALIGN plus 16
-# bytes, one thread block an SM
+# 64-row wgmma tiles over column chunks of WG_COLS (the width rounded up to
+# WG_ALIGN where it is at most FUSE_MAX_CHANNELS: N = C), a ring of at least
+# two 32-deep weight stages (32 K rows of every chunk, 16 bytes of barriers
+# each; 64-deep where two of those fit and the width is one chunk), slab and
+# h rows of the width rounded up to WG_ALIGN plus 16 bytes, one thread block
+# an SM
 WG_ROWS = 64
 WG_COLS = 256
 WG_CONSUMERS = 2
-WG_STAGE_BYTES = 16384
+WG_MIN_DEPTH = 32
 WG_MIN_STAGES = 2
 WG_ALIGN = 64
+# At N = C (up to FUSE_MAX_CHANNELS) a chain keeps a ring of at least this
+# many 64-deep stages: with two 32-deep ones the fused stages ran 22-37 %
+# slower on an H100 (tools/torch_chain_plans.py, PERF.md)
+WG_MIN_RING = 3
 # of csrc/resstack_f32.cu, the float32 chain and single block: a ring of
-# F32_STAGES K steps, each a 64 x 16 A tile (rows 20 floats apart) and a
-# 16 x 256 weight tile; slab and h rows of the width rounded up to 16 plus 4
-# floats; one thread block an SM
+# F32_STAGES K steps, each a BM x 16 A tile (rows 20 floats apart) and a
+# 16 x BN weight tile; slab and h rows of the width rounded up to 16 plus 4
+# floats; one thread block an SM. 256 threads hold 8 columns each of a BN-
+# column tile and TR rows each: BM = TR * 2048 / BN rows (F32_TILES, by the
+# width the tile covers).
 F32_STAGES = 3
-F32_RING_BYTES = F32_STAGES * (BM * 20 + 16 * 256) * 4
+F32_TILES = {256: 8, 128: 8, 64: 4}   # BN: TR
 
 
 def stack_dilations(depth: int) -> tuple:
@@ -154,87 +162,170 @@ def chain_extents(dils) -> tuple:
 
 
 def chain_smem_bytes(ch: int, dils, tm: int, itemsize: int) -> int:
-    """Shared memory of one thread block of the WMMA chain kernel (the fused
-    stages' groups): the staging tiles, the input slab (tile + halo) and the
-    widest block's h; rows are padded by 16 bytes."""
+    """Shared memory of one thread block of the WMMA chain kernel (K7's
+    groups, csrc/resblock.cuh): the staging tiles, the input slab (tile +
+    halo) and the widest block's h; rows are padded by 16 bytes."""
     e = chain_extents(dils)
     rows = (tm + 2 * e[0]) + (tm + 2 * e[1] + 2)
     return STAGE_BYTES + rows * (ch + 16 // itemsize) * itemsize
 
 
+def up_source_rows(slab_rows: int, scale: int) -> int:
+    """Rows q of the slow-rate source that the polyphase upsample of a slab
+    of ``slab_rows`` full-rate rows reads, at most: the slab's rows fall on
+    the phases of at most (slab_rows - 1) // s + 2 rows q, each tap pair
+    reads q and q - 1."""
+    return (slab_rows - 1) // scale + 3
+
+
+def f32_tile(ch: int) -> tuple:
+    """(BM, BN) of the float32 tap product at width ``ch``: BN the least of
+    64, 128 and 256 that covers the width (256 above it: column passes)."""
+    bn = 64 if ch <= 64 else 128 if ch <= 128 else 256
+    return F32_TILES[bn] * 2048 // bn, bn
+
+
 def f32_smem_bytes(ch: int, dils, tm: int) -> int:
     """Shared memory of one thread block of the float32 chain kernel: the
-    ring, the slab (tile + halo) and the widest block's h."""
+    ring, the slab (tile + halo) and the widest block's h. The fused
+    upsample adds nothing: its source rows and polyphase weights come
+    through the same ring."""
+    bm, bn = f32_tile(ch)
     e = chain_extents(dils)
     rows = (tm + 2 * e[0]) + (tm + 2 * e[1] + 2)
-    return F32_RING_BYTES + rows * (-(-ch // 16) * 16 + 4) * 4
+    return (F32_STAGES * (bm * 20 + 16 * bn) * 4
+            + rows * (-(-ch // 16) * 16 + 4) * 4)
 
 
 def chain_route(ch: int, itemsize: int) -> str:
-    """The chain kernel that ``plan_stack`` plans for: at the unfused stages
-    (C > FUSE_MAX_CHANNELS) the bfloat16 wgmma kernel ("wgmma") or the
-    float32 one ("f32"); narrower stacks are planned for the fused kernels,
-    which run the WMMA chain ("wmma")."""
+    """The chain kernel that ``plan_stack`` plans for by default: at the
+    unfused stages (C > FUSE_MAX_CHANNELS) the bfloat16 wgmma kernel
+    ("wgmma") or the float32 one ("f32"); narrower stacks are planned for
+    ``res_stream``'s kernels, which run the WMMA chain ("wmma").
+    ``up_res_stream`` asks for "wgmma" or "f32" at every width."""
     if ch <= FUSE_MAX_CHANNELS:
         return "wmma"
     return "wgmma" if itemsize == 2 else "f32"
 
 
-def route_smem_bytes(route: str, ch: int, dils, tm: int,
-                     itemsize: int) -> int:
-    """Shared memory of one thread block of ``route``'s chain kernel."""
+def route_smem_bytes(route: str, ch: int, dils, tm: int, itemsize: int,
+                     up=None) -> int:
+    """Shared memory of one thread block of ``route``'s chain kernel; ``up``
+    = (Cin, scale) for a chain with the fused upsample in front."""
     if route == "wgmma":
-        return wgmma_smem_bytes(ch, dils, tm)
+        return wgmma_smem_bytes(ch, dils, tm, up=up)
     if route == "f32":
         return f32_smem_bytes(ch, dils, tm)
     return chain_smem_bytes(ch, dils, tm, itemsize)
 
 
-def wgmma_smem_bytes(ch: int, dils, tm: int,
-                     stages: int = WG_MIN_STAGES) -> int:
+def wg_cols(ch: int) -> int:
+    """Columns of one bfloat16 wgmma, a column chunk: the width rounded up
+    to WG_ALIGN up to FUSE_MAX_CHANNELS, else WG_COLS."""
+    if ch <= FUSE_MAX_CHANNELS:
+        return -(-ch // WG_ALIGN) * WG_ALIGN
+    return WG_COLS
+
+
+def wgmma_smem_bytes(ch: int, dils, tm: int, stages: int = WG_MIN_STAGES,
+                     up=None) -> int:
     """Shared memory of one thread block of the bfloat16 chain kernel with
     ``stages`` ring stages: 1 KB of alignment, the ring and its barriers,
-    the slab and the widest block's h."""
+    the slab and the widest block's h. With the fused upsample (``up`` =
+    (Cin, scale)) the slow-rate source rows of the slab, Cin rounded up to
+    WG_ALIGN wide, are staged where h will be: the larger of the two. A
+    polyphase weight stage is one phase's 32 x N box: the size of a
+    block's stage."""
     e = chain_extents(dils)
-    rows = (tm + 2 * e[0]) + (tm + 2 * e[1] + 2)
-    chunks = -(-ch // WG_COLS)
-    return (1024 + stages * (chunks * WG_STAGE_BYTES + 16)
-            + rows * (-(-ch // WG_ALIGN) * WG_ALIGN + 8) * 2)
+    cols = wg_cols(ch)
+    chunks = -(-ch // cols)
+    ld = -(-ch // WG_ALIGN) * WG_ALIGN + 8
+    slab_rows = tm + 2 * e[0]
+    h_bytes = (tm + 2 * e[1] + 2) * ld * 2
+    if up is not None:
+        cin, scale = up
+        src = up_source_rows(slab_rows, scale) * (
+            -(-cin // WG_ALIGN) * WG_ALIGN + 8) * 2
+        h_bytes = max(h_bytes, src)
+    return (1024 + stages * (chunks * WG_MIN_DEPTH * cols * 2 + 16)
+            + slab_rows * ld * 2 + h_bytes)
+
+
+def wgmma_ring(ch: int, dils, tm: int, up=None) -> tuple:
+    """(K rows a stage, stages) of the bfloat16 chain kernel's weight ring,
+    as csrc/resstack_wgmma.cu's launch_chain picks them from the room left
+    beside the slab and h: 64 rows where two such stages fit and the width
+    is one chunk, else 32; as many stages as fit, at most 8."""
+    cols = wg_cols(ch)
+    chunks = -(-ch // cols)
+    room = SMEM_LIMIT - wgmma_smem_bytes(ch, dils, tm, stages=0, up=up)
+    deep = 2 * WG_MIN_DEPTH
+    depth = (deep if chunks == 1 and room >= WG_MIN_STAGES * (
+        chunks * deep * cols * 2 + 16) else WG_MIN_DEPTH)
+    return depth, min(8, room // (chunks * depth * cols * 2 + 16))
 
 
 def wgmma_passes(ch: int, dils, tm: int) -> int:
     """Passes over the weights that one thread block of the bfloat16 chain
-    kernel makes: per product, its (64-row tile, 256-column chunk) pairs two
-    at a time."""
-    chunks = -(-ch // WG_COLS)
+    kernel makes: per product, its (64-row tile, column chunk) pairs two at
+    a time."""
+    chunks = -(-ch // wg_cols(ch))
     return sum(-(-(-(-rows // WG_ROWS) * chunks) // WG_CONSUMERS)
                for eo in chain_extents(dils)[1:]
                for rows in (tm + 2 * eo + 2, tm + 2 * eo))
 
 
+def up_passes(slab_rows: int, scale: int) -> int:
+    """Passes of the bfloat16 chain's fused upsample: per phase, its 64-row
+    tiles of source rows q two at a time."""
+    q_rows = up_source_rows(slab_rows, scale) - 1
+    return scale * -(-(-(-q_rows // WG_ROWS)) // WG_CONSUMERS)
+
+
 def chain_tile(ch: int, dils, itemsize: int, budget: int = SMEM_LIMIT,
-               route: str = "wmma"):
+               route: str = "wmma", up=None):
     """(tm, efficiency) of the best output tile of a chain over ``dils``, or
     None when no tile fits ``budget`` bytes of shared memory of ``route``'s
     chain kernel (``chain_route``). Tiles make the first block's h a whole
-    number of product tiles; efficiency is the share of product rows that
-    are output rows: 64-row tiles, and for "wgmma" the two warpgroups'
-    64-row tiles of every pass, busy or not."""
+    number of product tiles; efficiency is the share of executed product
+    FLOPs that are output rows' FLOPs: whole product tiles (64 rows; in
+    float32 ``f32_tile``'s BM), for "wgmma" the two warpgroups' 64-row
+    tiles of every pass, busy or not. With ``up`` = (Cin, scale) the fused
+    upsample's product counts too: per phase, whole tiles of source rows
+    q, 2*Cin deep. At N = C a "wgmma" tile must leave WG_MIN_RING 64-deep
+    ring stages."""
     e = chain_extents(dils)
+    bm = f32_tile(ch)[0] if route == "f32" else BM
+    ring = route == "wgmma" and ch <= FUSE_MAX_CHANNELS
+    block = 6 * ch * ch           # FLOPs of one row of one convolution
     best = None
     k = 1
     while True:
-        tm = k * BM - 2 * e[1] - 2
-        if route_smem_bytes(route, ch, dils, max(tm, 1), itemsize) > budget:
+        tm = k * bm - 2 * e[1] - 2
+        if route_smem_bytes(route, ch, dils, max(tm, 1), itemsize,
+                            up) > budget:
             return best
-        if tm >= 1:
+        if tm >= 1 and not (ring and wgmma_ring(ch, dils, tm, up) <
+                            (2 * WG_MIN_DEPTH, WG_MIN_RING)):
             if route == "wgmma":
                 done = (wgmma_passes(ch, dils, tm) * WG_CONSUMERS * WG_ROWS
-                        / -(-ch // WG_COLS))
+                        / -(-ch // wg_cols(ch)))
             else:
-                done = sum((-(-(tm + 2 * eo + 2) // BM)
-                            + -(-(tm + 2 * eo) // BM)) * BM for eo in e[1:])
-            eff = 2 * len(dils) * tm / done
+                done = sum((-(-(tm + 2 * eo + 2) // bm)
+                            + -(-(tm + 2 * eo) // bm)) * bm for eo in e[1:])
+            useful, done = 2 * len(dils) * tm * block, done * block
+            if up is not None:
+                cin, scale = up
+                row = 4 * cin * ch   # FLOPs of one upsampled row
+                slab_rows = tm + 2 * e[0]
+                if route == "wgmma":
+                    q_done = (up_passes(slab_rows, scale) * WG_CONSUMERS
+                              * WG_ROWS)
+                else:
+                    q_rows = up_source_rows(slab_rows, scale) - 1
+                    q_done = scale * -(-q_rows // bm) * bm
+                useful, done = useful + tm * row, done + q_done * row
+            eff = useful / done
             if best is None or eff > best[1]:
                 best = (tm, eff)
         k += 1
@@ -242,32 +333,36 @@ def chain_tile(ch: int, dils, itemsize: int, budget: int = SMEM_LIMIT,
 
 @functools.lru_cache(maxsize=64)
 def plan_stack(ch: int, dils: tuple, itemsize: int,
-               first_chain: bool = False, route: str | None = None) -> tuple:
+               first_chain: bool = False, route: str | None = None,
+               up: tuple | None = None) -> tuple:
     """Cut a stack's blocks into kernel launches: ((i0, i1, tm), ...) over
     range(len(dils)). A group with a tile ``tm`` is a chain; ``tm`` None is
     one block for ``res_shift_single``. Greedy: from each block, the longest
     chain of at least two blocks that fits the first of SMEM_BUDGETS it can
     at MIN_EFFICIENCY or better, else the block alone. With ``first_chain``
     the first group is a chain even when it is one block (the fused upsample
-    feeds a chain). ``route`` is the chain kernel planned for, by default
-    ``chain_route``'s; "wgmma" and "f32" take one thread block an SM: their
-    only budget is SMEM_LIMIT."""
+    feeds a chain); ``up`` = (Cin, scale) counts that upsample's shared
+    memory and work in the first group. ``route`` is the chain kernel
+    planned for, by default ``chain_route``'s; "wgmma" and "f32" take one
+    thread block an SM: their only budget is SMEM_LIMIT."""
     n = len(dils)
     route = route or chain_route(ch, itemsize)
     groups = []
     i = 0
     while i < n:
+        fused = up if i == 0 else None
         pick = None
         for budget in SMEM_BUDGETS if route == "wmma" else (SMEM_LIMIT,):
             for j in range(min(n, i + MAX_BLOCKS), i + 1, -1):
-                tile = chain_tile(ch, dils[i:j], itemsize, budget, route)
+                tile = chain_tile(ch, dils[i:j], itemsize, budget, route,
+                                  fused)
                 if tile is not None and tile[1] >= MIN_EFFICIENCY:
                     pick = (i, j, tile[0])
                     break
             if pick is not None:
                 break
         if pick is None and first_chain and i == 0:
-            tile = chain_tile(ch, dils[:1], itemsize, route=route)
+            tile = chain_tile(ch, dils[:1], itemsize, route=route, up=fused)
             if tile is None:
                 raise ValueError(f"no chain tile fits shared memory at "
                                  f"C={ch}, itemsize {itemsize}")
@@ -438,6 +533,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 CHAIN_ARGS = [_P] * 6 + [_I] * 4 + [ctypes.POINTER(ctypes.c_int), _I, _F,
                                     _F, _I, _I, _I, _P]
 SHIFT_ARGS = [_P] * 6 + [_I] * 4 + [_F, _F, _I, _I, _I, _P]
+# of an entry point of K4's first group: the upsample and a chain
+UP_CHAIN_ARGS = [_P] * 9 + [_I] * 6 + [ctypes.POINTER(ctypes.c_int), _I, _F,
+                                       _F, _I, _P]
 
 
 def _lib():
@@ -453,6 +551,8 @@ def _f32_lib():
     lib.vf_res_chain_f32.restype = _I
     lib.vf_res_shift_single_f32.argtypes = SHIFT_ARGS
     lib.vf_res_shift_single_f32.restype = _I
+    lib.vf_up_chain_f32.argtypes = UP_CHAIN_ARGS
+    lib.vf_up_chain_f32.restype = _I
     return lib
 
 
@@ -460,4 +560,6 @@ def _wgmma_lib():
     lib = build.load("resstack_wgmma")
     lib.vf_res_chain_wgmma.argtypes = CHAIN_ARGS
     lib.vf_res_chain_wgmma.restype = _I
+    lib.vf_up_chain_wgmma.argtypes = UP_CHAIN_ARGS
+    lib.vf_up_chain_wgmma.restype = _I
     return lib

@@ -138,15 +138,15 @@ class VoiceFixer:
         if mode != 0:
             raise NotImplementedError(
                 f"mode {mode} is not ported yet: ROADMAP.md Queue 1 "
-                "items 11-12")
+                "items 6-7")
         if your_vocoder_func is not None:
             raise NotImplementedError(
                 "your_vocoder_func is not ported yet: ROADMAP.md Queue 1 "
-                "item 12")
+                "item 7")
         if chunk_overlap_seconds > 0:
             raise NotImplementedError(
                 "chunk_overlap_seconds (overlap_add, _restore_overlap) is not "
-                "ported yet: ROADMAP.md Queue 1 item 8")
+                "ported yet: ROADMAP.md Queue 1 item 4")
         wav_10k = np.asarray(wav_10k, dtype=np.float32).reshape(-1)
         seg_length = self.config.pipeline.seg_length
         segments = [wav_10k[s: s + seg_length]

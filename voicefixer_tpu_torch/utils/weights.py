@@ -49,18 +49,6 @@ def res_bank(params: list):
             torch.stack([p["c2"]["b"] for p in params]))
 
 
-def pack_up_weights(w_up: torch.Tensor, scale: int) -> torch.Tensor:
-    """[2s, Cin, Cout] transposed-conv weights in torch tap order -> the
-    polyphase matrix [2*Cin, s*Cout]: rows 0:Cin multiply a[q] (taps
-    0..s-1), rows Cin:2Cin multiply a[q-1] (taps s..2s-1); columns are
-    (phase, channel)."""
-    k, cin, cout = w_up.shape
-    if k != 2 * scale:
-        raise ValueError(f"pack_up_weights: {k} taps for scale {scale}")
-    return (w_up.reshape(2, scale, cin, cout).permute(0, 2, 1, 3)
-            .reshape(2 * cin, scale * cout).contiguous())
-
-
 # ------------------------------- layouts the ConvBlockRes kernel reads
 
 def _pad_rows8(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
