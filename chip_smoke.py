@@ -123,18 +123,29 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, group: str | None = None) -> float:
+def device_ms(fn, reps: int, group: str | None = None,
+              per_call: int | None = None) -> float:
     """Mean device time of one call of fn after a warm-up (torch.profiler
     over reps calls): of its kernels of one ``_kernel_group``, or of all.
     Unlike cuda_ms it leaves out the host's time between launches, which
-    sets the pace of a call whose kernels take less time than its Python."""
+    sets the pace of a call whose kernels take less time than its Python.
+    A profile may come back without some of the kernels' events (one that
+    saw none is taken again): with ``per_call``, the group's launches in
+    one call, the time is the mean of the launches seen times per_call."""
     fn()
-    for _ in range(3):  # a profile may come back without the kernels' events
-        rows = _device_kernels(lambda: [fn() for _ in range(reps)])
-        ms = sum(t for name, t, _ in rows
-                 if group is None or _kernel_group(name) == group) / reps
-        if ms > 0:
-            return ms
+    for _ in range(3):
+        rows = [(t, n) for name, t, n in
+                _device_kernels(lambda: [fn() for _ in range(reps)])
+                if group is None or _kernel_group(name) == group]
+        launched = sum(n for _, n in rows)
+        if not launched:
+            continue
+        if not per_call:
+            return sum(t for t, _ in rows) / reps
+        if launched != reps * per_call:
+            log(f"  (the profile saw {launched} of {reps * per_call} "
+                f"launches of {group}: their mean)")
+        return sum(t for t, _ in rows) / launched * per_call
     raise AssertionError(f"three profiles saw no device time of "
                          f"{group or 'any kernel'}")
 
@@ -521,7 +532,8 @@ def _gru_case(gen, device, dtype):
     flops, work_bytes = gru_work(t, h, 2 if dtype == "bfloat16" else 4)
     return {"name": "gru_bidir", "dtype": dtype, "shape": f"x [1, {t}, {3 * h}]",
             "fn": fn, "plain": plain, "library": library, "reps": 3,
-            "pair": True,
+            "pair": True, "steps": t, "device": True,
+            "device_group": "K6 gru_bidir", "device_launches": 1,
             "rtol": 1e-4 if dtype == "float32" else 2e-2,
             "atol": 1e-4 if dtype == "float32" else 2e-2,
             "per_chunk": 4, "bytes": work_bytes, "flops": flops,
@@ -559,7 +571,9 @@ def _gru_seq_case(gen, device, reverse, batch, per_chunk):
             "fn": lambda: gru.gru_seq(xp, w_t, b_hh, reverse),
             "plain": lambda: gru.gru_seq_reference(xp, w_t, b_hh, reverse),
             "library": library, "reps": 3, "rtol": 1e-4, "atol": 1e-4,
-            "per_chunk": per_chunk, "main_path": batch == 1,
+            "per_chunk": per_chunk, "main_path": batch == 1, "steps": t,
+            "device": True, "device_group": "K8 gru_seq",
+            "device_launches": 1,
             "bytes": batch * work_bytes, "flops": batch * flops,
             "peak": PEAK_FP32}
 
@@ -913,12 +927,24 @@ def phase_kernels(device):
                 # besides the events, which also time the host between
                 # launches: the kernel's and the library's device time (of
                 # the kernel's group, or of every kernel of its call)
-                dev_ms = device_ms(c["fn"], c["reps"], c.get("device_group"))
-                lib_dev_ms = device_ms(c["library"], c["reps"])
-                log(f"  {c['name']} {c['dtype']} {c['shape']}: device time "
-                    f"kernel {dev_ms:.3f} ms, library {lib_dev_ms:.3f} ms"
-                    f"; {c['executed'] / dev_ms / 1e9:.1f} TFLOP/s executed; "
-                    f"{dev_ms / lib_dev_ms:.2f}x the library's time")
+                dev_ms = device_ms(c["fn"], c["reps"], c.get("device_group"),
+                                   c.get("device_launches"))
+                dev_rate = (f"{c.get('executed', c['flops']) / dev_ms / 1e9:.3f}"
+                            " TFLOP/s executed")
+                if c.get("device_launches"):  # a profile of the library's
+                    # thousands of launches drops some: events only there
+                    log(f"  {c['name']} {c['dtype']} {c['shape']}: device "
+                        f"time kernel {dev_ms:.3f} ms; {dev_rate}")
+                else:
+                    lib_dev_ms = device_ms(c["library"], c["reps"])
+                    log(f"  {c['name']} {c['dtype']} {c['shape']}: device "
+                        f"time kernel {dev_ms:.3f} ms, library "
+                        f"{lib_dev_ms:.3f} ms; {dev_rate}; "
+                        f"{dev_ms / lib_dev_ms:.2f}x the library's time")
+            if c.get("steps"):  # a recurrence: its pace is the step's latency
+                log(f"  {c['name']} {c['dtype']} {c['shape']}: "
+                    f"{ms / c['steps'] * 1e3:.4f} us a step by events, "
+                    f"{dev_ms / c['steps'] * 1e3:.4f} by device time")
             if c.get("split"):
                 _launch_split(c)
             rows.append({**c, "err": err, "ms": ms, "plain_ms": plain_ms,
@@ -1471,9 +1497,10 @@ def main() -> int:
                 "library_ms": (None if None in [r["lib_ms"] for r in rs]
                                else total("lib_ms")),
             })
-            if rs[0]["dev_ms"] is not None:  # K4, K9: device time too
-                record[-1].update(device_ms=total("dev_ms"),
-                                  library_device_ms=total("lib_dev_ms"))
+            if rs[0]["dev_ms"] is not None:  # K4, K6, K8, K9: device time
+                record[-1]["device_ms"] = total("dev_ms")
+                if rs[0]["lib_dev_ms"] is not None:
+                    record[-1]["library_device_ms"] = total("lib_dev_ms")
     log(f"== done in {time.perf_counter() - t_start:.1f} s; times are per "
         "30 s chunk (B=1), summed over the launches that the kernel's path "
         "makes (the default path; res_stream: the sharded path; "

@@ -57,13 +57,22 @@ def _rand(rng, shape, scale=1.0):
     return (scale * rng.standard_normal(shape)).astype(np.float32)
 
 
-@pytest.mark.parametrize("t,mm,tol", [(7, "float32", 1e-5),
-                                      (300, "float32", 1e-5),
-                                      (300, "bfloat16", 2e-3)])
-def test_gru_bidir_matches_pallas(t, mm, tol):
+@pytest.mark.parametrize("b,h,t,mm,tol", [
+    pytest.param(2, 128, 7, "float32", 1e-5, id="7-float32-1e-05"),
+    pytest.param(2, 128, 300, "float32", 1e-5, id="300-float32-1e-05"),
+    pytest.param(2, 128, 300, "bfloat16", 2e-3, id="300-bfloat16-0.002"),
+    # H no multiple of the card's cluster (16 or 8 blocks) or of a warp's
+    # 4 units, T shorter than the kernel's x ring and no multiple of it
+    (3, 20, 70, "float32", 1e-5), (3, 200, 3, "float32", 1e-5),
+    (1, 200, 70, "float32", 1e-5), (3, 20, 70, "bfloat16", 2e-3),
+    (3, 200, 3, "bfloat16", 2e-3), (1, 200, 70, "bfloat16", 2e-3)])
+def test_gru_bidir_matches_pallas(b, h, t, mm, tol):
+    """Both directions, and the [B, T, 2H] form (``gru_bidir_cat``) that a
+    bidirectional layer hands the next."""
     from voicefixer_tpu.kernels.gru import gru_seq_bidir
 
-    b, h = 2, 128
+    from voicefixer_tpu_torch.kernels.gru import gru_bidir_cat
+
     rng = np.random.default_rng(0)
     xf, xb = _rand(rng, (b, t, 3 * h)), _rand(rng, (b, t, 3 * h))
     wf, wb = _rand(rng, (h, 3 * h), 0.1), _rand(rng, (h, 3 * h), 0.1)
@@ -72,12 +81,16 @@ def test_gru_bidir_matches_pallas(t, mm, tol):
     ref_f, ref_b = gru_seq_bidir(*map(jnp.asarray, (xf, xb, wf, wb, bf, bb)),
                                  matmul_dtype=getattr(jnp, mm),
                                  interpret=True)
-    got_f, got_b = gru_bidir(*map(torch.from_numpy, (xf, xb, wf, wb, bf, bb)),
-                             matmul_dtype=getattr(torch, mm))
+    args = [torch.from_numpy(v) for v in (xf, xb, wf, wb, bf, bb)]
+    got_f, got_b = gru_bidir(*args, matmul_dtype=getattr(torch, mm))
+    assert tuple(got_f.shape) == tuple(got_b.shape) == (b, t, h)
     np.testing.assert_allclose(got_f.numpy(), np.asarray(ref_f),
                                rtol=tol, atol=tol)
     np.testing.assert_allclose(got_b.numpy(), np.asarray(ref_b),
                                rtol=tol, atol=tol)
+    cat = gru_bidir_cat(*args, matmul_dtype=getattr(torch, mm))
+    np.testing.assert_array_equal(cat.numpy(),
+                                  torch.cat([got_f, got_b], -1).numpy())
 
 
 @pytest.mark.parametrize("scale,cin,cout", [(7, 64, 32), (3, 128, 64)])
@@ -314,14 +327,19 @@ def test_wrappers_refuse_mixed_devices():
 
 # ------------------------------------------- gru_seq, res_stream, convblock
 
-@pytest.mark.parametrize("t,reverse", [(13, False), (13, True), (301, False),
-                                       (301, True)])
-def test_gru_seq_matches_pallas(t, reverse):
-    """One direction, B = 2, T no multiple of the JAX kernel's 8-row tiles
-    (its padded tail steps must not advance the state; the port has none)."""
+@pytest.mark.parametrize("b,h,t,reverse", [
+    pytest.param(2, 128, 13, False, id="13-False"),
+    pytest.param(2, 128, 13, True, id="13-True"),
+    pytest.param(2, 128, 301, False, id="301-False"),
+    pytest.param(2, 128, 301, True, id="301-True"),
+    # the bidirectional case's ragged shapes, and H = 1 (one block of the
+    # card's cluster owns a unit)
+    (3, 20, 3, False), (3, 200, 70, True), (3, 1, 5, False)])
+def test_gru_seq_matches_pallas(b, h, t, reverse):
+    """One direction, T no multiple of the JAX kernel's 8-row tiles (its
+    padded tail steps must not advance the state; the port has none)."""
     from voicefixer_tpu.kernels.gru import gru_seq as jax_gru_seq
 
-    b, h = 2, 128
     rng = np.random.default_rng(30)
     xp, w, bias = (_rand(rng, (b, t, 3 * h)), _rand(rng, (h, 3 * h), 0.1),
                    _rand(rng, (3 * h,), 0.1))
@@ -331,6 +349,117 @@ def test_gru_seq_matches_pallas(t, reverse):
     assert tuple(got.shape) == ref.shape == (b, t, h)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
                                atol=1e-5)
+
+
+def _gru_cu_constants():
+    """The layout constants of csrc/gru_bidir.cu, read from its source."""
+    import re
+    from pathlib import Path
+
+    import voicefixer_tpu_torch
+    src = (Path(voicefixer_tpu_torch.__file__).parent / "csrc" /
+           "gru_bidir.cu").read_text()
+    return {k: int(v) for k, v in
+            re.findall(r"constexpr int (\w+) = (\d+);", src)}
+
+
+def _gru_cluster_model(x, w, bias, reverse, mm, cluster):
+    """One direction of csrc/gru_bidir.cu's walk, replayed in plain torch:
+    ``cluster`` blocks of ceil(H / cluster) units rounded up to whole warps
+    of UPW, lane ks of a unit's 8 lanes summing h at K = 32 i + 4 ks + j,
+    the lanes' partial sums combined in the shuffle order (xor 1, 2, 4),
+    the x ring's slots and the h ring's buffers, parities and transaction
+    bytes. Runs none of the CUDA code; asserts the schedule's invariants as
+    it goes."""
+    from voicefixer_tpu_torch.kernels import gru as kg
+
+    k = _gru_cu_constants()
+    assert cluster in (k["CLUSTER_WIDE"], k["CLUSTER_NARROW"])
+    assert k["MAX_HIDDEN"] == kg.MAX_HIDDEN
+    kmax, upw, xring, hbuf = k["MAX_HIDDEN"], k["UPW"], k["XRING"], k["HBUF"]
+    bsz, t_total, g = x.shape
+    h_dim = g // 3
+    # Layout<CL>::units: ceil(H / cluster) rounded up to whole warps
+    per = -(-h_dim // cluster)
+    u_blk = -(-per // upw) * upw
+    assert u_blk <= kmax // cluster  # a block's warps and x ring hold them
+    # every unit belongs to exactly one (block, warp, lane group); each warp
+    # that owns one pushes UPW values, 16-byte aligned, inside the buffer
+    owner = torch.zeros(kmax, dtype=torch.int64)
+    pushes = []
+    for c in range(cluster):
+        nu = max(0, min(u_blk, h_dim - c * u_blk))
+        for wp in range(-(-u_blk // upw)):
+            cw = max(0, min(upw, nu - wp * upw))
+            if cw:
+                first = c * u_blk + wp * upw
+                assert first % 4 == 0 and first + upw <= kmax
+                owner[first:first + cw] += 1
+                pushes.append(first)
+    assert owner[:h_dim].eq(1).all() and owner[h_dim:].eq(0).all()
+    fill_bytes = 16 * len(pushes)
+    assert fill_bytes == -(-h_dim // upw) * upw * 4
+    # lane ks of a unit's 8 lanes holds K = 32 i + 4 ks + j: all K once
+    ks_k = [[32 * i + 4 * ks + j for i in range(kmax // 32) for j in range(4)]
+            for ks in range(8)]
+    assert sorted(sum(ks_k, [])) == list(range(kmax))
+
+    wq = torch.zeros((kmax, g))
+    wq[:h_dim] = w.to(mm).float()
+    h = x.new_zeros((bsz, h_dim))
+    out = x.new_empty((bsz, t_total, h_dim))
+    ring = {}                       # x ring slot -> step it holds
+    for d in range(min(xring, t_total)):
+        ring[d % xring] = d
+    fills = [0] * hbuf              # completed fills per h buffer
+    for s in range(t_total):
+        t = t_total - 1 - s if reverse else s
+        if s:                       # await_h: parity of this buffer's fill
+            assert fills[s % hbuf] == (s - 1) // hbuf
+            fills[s % hbuf] += 1
+        hq = torch.zeros((bsz, kmax))
+        hq[:, :h_dim] = h.to(mm).float()
+        part = [hq[:, idx] @ wq[idx] for idx in ks_k]
+        for off in (1, 2, 4):
+            part = [part[i] + part[i ^ off] for i in range(8)]
+        hp = part[0] + bias
+        assert ring[s % xring] == s
+        if s + xring < t_total:
+            ring[s % xring] = s + xring
+        xt = x[:, t]
+        r = torch.sigmoid(xt[:, :h_dim] + hp[:, :h_dim])
+        z = torch.sigmoid(xt[:, h_dim:2 * h_dim] + hp[:, h_dim:2 * h_dim])
+        n = torch.tanh(xt[:, 2 * h_dim:] + r * hp[:, 2 * h_dim:])
+        h = (1.0 - z) * n + z * h
+        out[:, t] = h
+    assert sum(fills) == t_total - 1
+    return out
+
+
+@pytest.mark.parametrize("cluster", [16, 8])
+@pytest.mark.parametrize("h,t,reverse,mm", [
+    (20, 3, False, "float32"), (200, 70, True, "float32"),
+    (1, 5, False, "float32"), (200, 70, False, "bfloat16"),
+    (256, 40, True, "bfloat16")])
+def test_gru_cluster_model_matches_pallas(h, t, reverse, mm, cluster):
+    """The kernel's partition and summation order (``_gru_cluster_model``)
+    against the JAX kernel: float32 1e-5; bfloat16 one ulp of h (2^-8 at
+    |h| < 1): the other order moves a float32 h across a bfloat16 rounding
+    boundary now and then, and the next products carry the flipped bit
+    (2.4e-3 measured at H = 256, T = 40, weights of scale 0.1)."""
+    from voicefixer_tpu.kernels.gru import gru_seq_bidir
+
+    rng = np.random.default_rng(33)
+    x, w = _rand(rng, (3, t, 3 * h)), _rand(rng, (h, 3 * h), 0.1)
+    bias = _rand(rng, (3 * h,), 0.1)
+    # both directions on the same weights: the model walks the one asked
+    ref = gru_seq_bidir(*map(jnp.asarray, (x, x, w, w, bias, bias)),
+                        matmul_dtype=getattr(jnp, mm), interpret=True)
+    got = _gru_cluster_model(*map(torch.from_numpy, (x, w, bias)), reverse,
+                             getattr(torch, mm), cluster)
+    tol = 1e-5 if mm == "float32" else 2 ** -8
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref[int(reverse)]),
+                               rtol=tol, atol=tol)
 
 
 def _banks(params, conv):

@@ -18,7 +18,12 @@ first level with its shortcut, batch 2; ``up_res_stream_f32`` and
 ``up_res_stream_bf16``, the whole fused stage 2 (256 -> 128, x3) on a
 short signal, batch 2, whose first group takes the upsample's operands by
 cp.async (float32) or its weights by TMA and mbarriers (bfloat16) and
-whose later groups run the single-block kernels. With BUILD_DIR the kernel
+whose later groups run the single-block kernels; ``gru_bidir_f32``,
+``gru_bidir_bf16`` and ``gru_seq``, the GRU recurrence of csrc/gru_bidir.cu
+at the denoiser's width (H = 256, 301 steps, batch 2, the unidirectional
+case reversed), whose blocks exchange h by st.async on mbarrier phases: a
+wrong parity shows as a trap (a wait that never ends) or a stale h. These
+three build csrc/gru_bidir.cu alone. With BUILD_DIR the kernel
 libraries are built
 there (a new directory gives a cold build) instead of in the package's own
 build directory. The kernel's result
@@ -49,6 +54,7 @@ CHAIN_F32 = dict(ch=256, t=300, b=2, dils=(1, 3))
 SHIFT_F32 = dict(ch=512, t=300, b=2, d=81)
 CONV_BLOCK = dict(t=200, f=127, ci=64, co=32, b=2)
 UP_RES = dict(cin=256, cout=128, scale=3, t=200, b=2)
+GRU = dict(h=256, t=301, b=2)
 
 
 def _upsample(torch):
@@ -198,6 +204,36 @@ def _up_res_stream(torch, dtype):
     return (got.float().cpu(), plain.float().cpu(), ref, rtol, atol)
 
 
+def _gru(torch, bidir, dtype):
+    """(kernel, card plain, CPU plain) outputs of the GRU recurrence, the
+    bidirectional form as [B, T, 2H]; weights U(-1/sqrt(H), 1/sqrt(H)) as
+    nn.GRU draws them. float32: 1e-5 (sums in another order); bfloat16: one
+    ulp of h (2^-8 at |h| < 1), which an h rounded on the other side of a
+    boundary carries into later steps."""
+    from voicefixer_tpu_torch.kernels import gru
+    gen = torch.Generator().manual_seed(0)
+    h, t, b = (GRU[k] for k in ("h", "t", "b"))
+    u = lambda *s: (2 * torch.rand(s, generator=gen) - 1) / h ** 0.5  # noqa: E731
+    args = [torch.randn((b, t, 3 * h), generator=gen), u(h, 3 * h), u(3 * h)]
+    if bidir:
+        args += [torch.randn((b, t, 3 * h), generator=gen), u(h, 3 * h),
+                 u(3 * h)]
+
+        def fn(xf, wf, bf, xb, wb, bb):
+            return gru.gru_bidir_cat(xf, xb, wf, wb, bf, bb, dtype)
+        plain = lambda *a: torch.cat(  # noqa: E731
+            gru.gru_bidir_reference(a[0], a[3], a[1], a[4], a[2], a[5],
+                                    dtype), -1)
+    else:
+        fn = lambda x, w, bias: gru.gru_seq(x, w, bias, True)  # noqa: E731
+        plain = lambda x, w, bias: gru.gru_seq_reference(  # noqa: E731
+            x, w, bias, True)
+    ref = plain(*args)
+    on_card = [v.cuda() for v in args]
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -8
+    return fn(*on_card).cpu(), plain(*on_card).cpu(), ref, tol, tol
+
+
 CASES = {"upsample": _upsample, "res_chain": _res_chain,
          "res_chain_f32": _res_chain_f32,
          "res_shift_single_f32": _res_shift_single_f32,
@@ -210,7 +246,13 @@ CASES = {"upsample": _upsample, "res_chain": _res_chain,
          "up_res_stream_f32": lambda torch: _up_res_stream(torch,
                                                            torch.float32),
          "up_res_stream_bf16": lambda torch: _up_res_stream(torch,
-                                                            torch.bfloat16)}
+                                                            torch.bfloat16),
+         "gru_bidir_f32": lambda torch: _gru(torch, True, torch.float32),
+         "gru_bidir_bf16": lambda torch: _gru(torch, True, torch.bfloat16),
+         "gru_seq": lambda torch: _gru(torch, False, torch.float32)}
+# cases that build their own source alone
+ONLY = {"gru_bidir_f32": "gru_bidir", "gru_bidir_bf16": "gru_bidir",
+        "gru_seq": "gru_bidir"}
 
 
 def one(case: str, build_dir: str | None) -> int:
@@ -222,6 +264,8 @@ def one(case: str, build_dir: str | None) -> int:
 
     if build_dir:
         build.BUILD = Path(build_dir)
+    if case in ONLY:
+        build.SOURCES = (ONLY[case],)
     with tf32_off():
         got, plain, ref, rtol, atol = CASES[case](torch)
 

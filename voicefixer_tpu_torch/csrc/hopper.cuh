@@ -6,10 +6,13 @@
 // shapes (m64n128k16 with both operands in shared memory; m64n{64,128,256}k16
 // with A in registers, loaded by ldmatrix, and B N-major; m64n{32,64,128}k16
 // with A in registers and B K-major), setmaxnreg, and a host helper that
-// encodes a CUtensorMap for a three-dimensional bf16 tensor.
+// encodes a CUtensorMap for a three-dimensional bf16 tensor. For exchanges
+// between the blocks of a cluster: the address of a peer's shared memory
+// (mapa), a store into it that completes on the peer's mbarrier (st.async),
+// and a wait on an mbarrier that such stores complete.
 //
-// Users: upsample.cu (K1), resstack_wgmma.cu (K2 and K4 in bfloat16) and
-// convblock.cu (K9 in bfloat16).
+// Users: upsample.cu (K1), resstack_wgmma.cu (K2 and K4 in bfloat16),
+// convblock.cu (K9 in bfloat16) and gru_bidir.cu (K6 and K8).
 //
 // cuTensorMapEncodeTiled lives in libcuda, not in the CUDA runtime: it is
 // fetched at run time (dlopen/dlsym), so that the kernel libraries keep
@@ -96,6 +99,63 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src,
 // waits for every cp.async this thread has started
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// cp.async of 4 bytes from global to shared memory, and the end of a group
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// waits until at most N of this thread's cp.async groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// The shared::cluster address of `local` (this block's shared memory) in
+// block `rank` of the cluster.
+__device__ __forceinline__ uint32_t mapa_shared(const void* local,
+                                                uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote) : "r"(smem_u32(local)), "r"(rank));
+  return remote;
+}
+
+// 16 bytes into a block of the cluster (addresses from mapa_shared); they
+// count as transaction bytes on that block's mbarrier `bar`
+__device__ __forceinline__ void st_async_v4_f32(uint32_t addr, float a,
+                                                float b, float c, float d,
+                                                uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 "
+      "[%0], {%1, %2, %3, %4}, [%5];\n"
+      :: "r"(addr), "r"(__float_as_uint(a)), "r"(__float_as_uint(b)),
+         "r"(__float_as_uint(c)), "r"(__float_as_uint(d)), "r"(bar)
+      : "memory");
+}
+
+// mbar_wait with cluster-scope acquire: for a barrier that other blocks'
+// st.async complete. Traps after about two seconds, as mbar_wait does.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  const long long t0 = clock64();
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (!done && clock64() - t0 > 4000000000LL) __trap();
+  } while (!done);
 }
 
 __device__ __forceinline__ void wgmma_fence() {

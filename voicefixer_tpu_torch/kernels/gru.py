@@ -9,6 +9,11 @@ Torch nn.GRU gate math over hoisted input projections (gate order r, z, n):
     n = tanh(x_n + r * hp_n), h' = (1 - z) * n + z * h
 The state is float32. With matmul_dtype=bfloat16 both h and W_hh^T are
 rounded to bfloat16 before the product, which accumulates in float32.
+
+On the card a cluster of thread blocks runs each direction of a batch row,
+each block owning a slice of the hidden units; each step its warps push
+their new values of h into every block's shared memory, completing on that
+block's mbarrier (csrc/gru_bidir.cu).
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ import torch
 from voicefixer_tpu_torch import kernels
 from voicefixer_tpu_torch.kernels import build
 
-MAX_HIDDEN = 256  # csrc/gru_bidir.cu holds H/4 K-values per thread
+MAX_HIDDEN = 256  # csrc/gru_bidir.cu holds H/8 K-values per lane and column
 
 
 def _step(x: torch.Tensor, h: torch.Tensor, w_t: torch.Tensor,
@@ -60,12 +65,31 @@ def gru_bidir(xf: torch.Tensor, xb: torch.Tensor, w_f: torch.Tensor,
               matmul_dtype: torch.dtype = torch.float32):
     """xf, xb: [B, T, 3H] float32 input projections of the two directions;
     w_f, w_b: [H, 3H] (W_hh^T); b_f, b_b: [3H]. Returns (fwd, bwd), each
-    [B, T, H] float32; bwd runs from t = T-1 down to 0."""
+    [B, T, H] float32; bwd runs from t = T-1 down to 0. On the card both
+    are views of the one [B, T, 2H] tensor of ``gru_bidir_cat``."""
     if kernels.on_cpu(xf, xb, w_f, w_b, b_f, b_b):
         return gru_bidir_reference(xf, xb, w_f, w_b, b_f, b_b, matmul_dtype)
+    out = _launch_bidir(xf, xb, w_f, w_b, b_f, b_b, matmul_dtype)
+    hidden = out.shape[-1] // 2
+    return out[..., :hidden], out[..., hidden:]
+
+
+def gru_bidir_cat(xf: torch.Tensor, xb: torch.Tensor, w_f: torch.Tensor,
+                  w_b: torch.Tensor, b_f: torch.Tensor, b_b: torch.Tensor,
+                  matmul_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``gru_bidir`` with both directions in one [B, T, 2H] tensor, fwd in
+    the first H columns: what a bidirectional layer hands the next. The
+    kernel writes it in place; the plain version concatenates."""
+    if kernels.on_cpu(xf, xb, w_f, w_b, b_f, b_b):
+        return torch.cat(gru_bidir_reference(xf, xb, w_f, w_b, b_f, b_b,
+                                             matmul_dtype), dim=-1)
+    return _launch_bidir(xf, xb, w_f, w_b, b_f, b_b, matmul_dtype)
+
+
+def _launch_bidir(xf, xb, w_f, w_b, b_f, b_b, matmul_dtype) -> torch.Tensor:
     bsz, t_total, g = xf.shape
     hidden = g // 3
-    if (g % 3 or hidden > MAX_HIDDEN or xb.shape != xf.shape
+    if (g % 3 or hidden > MAX_HIDDEN or t_total < 1 or xb.shape != xf.shape
             or w_f.shape != (hidden, g) or w_b.shape != (hidden, g)):
         raise ValueError(f"gru_bidir: unsupported shapes x {tuple(xf.shape)}, "
                          f"w {tuple(w_f.shape)}")
@@ -78,18 +102,17 @@ def gru_bidir(xf: torch.Tensor, xb: torch.Tensor, w_f: torch.Tensor,
     wb = w_b.to(matmul_dtype).contiguous()
     bf = b_f.float().contiguous()
     bb = b_b.float().contiguous()
-    outf = torch.empty((bsz, t_total, hidden), dtype=torch.float32,
-                       device=xf.device)
-    outb = torch.empty_like(outf)
+    out = torch.empty((bsz, t_total, 2 * hidden), dtype=torch.float32,
+                      device=xf.device)
     lib = _lib()
     rc = lib.vf_gru_bidir(
         xf.data_ptr(), xb.data_ptr(), wf.data_ptr(), wb.data_ptr(),
-        bf.data_ptr(), bb.data_ptr(), outf.data_ptr(), outb.data_ptr(),
-        bsz, t_total, hidden, int(matmul_dtype == torch.bfloat16),
+        bf.data_ptr(), bb.data_ptr(), out.data_ptr(), bsz, t_total, hidden,
+        int(matmul_dtype == torch.bfloat16),
         torch.cuda.current_stream(xf.device).cuda_stream)
     build.check(lib, rc, "gru_bidir")
     kernels.launches["gru_bidir"] += 1
-    return outf, outb
+    return out
 
 
 def gru_seq_reference(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
@@ -139,7 +162,7 @@ def gru_seq(x_proj: torch.Tensor, w_hh_t: torch.Tensor, b_hh: torch.Tensor,
 def _lib():
     lib = build.load("gru_bidir")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.vf_gru_bidir.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.vf_gru_bidir.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
     lib.vf_gru_bidir.restype = i
     lib.vf_gru_seq.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.vf_gru_seq.restype = i

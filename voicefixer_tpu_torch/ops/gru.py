@@ -1,8 +1,8 @@
 """Multi-layer GRU with torch nn.GRU gate math, as
 ``voicefixer_tpu/ops/gru.py``: the input projection of every time step is
 one hoisted matmul; a bidirectional layer's recurrence, both directions at
-once, goes to the kernel ``kernels.gru.gru_bidir``, a unidirectional
-layer's to ``kernels.gru.gru_seq``.
+once, goes to the kernel ``kernels.gru.gru_bidir_cat``, which writes them
+side by side, a unidirectional layer's to ``kernels.gru.gru_seq``.
 """
 
 from __future__ import annotations
@@ -11,7 +11,7 @@ import math
 
 import torch
 
-from voicefixer_tpu_torch.kernels.gru import gru_bidir, gru_seq
+from voicefixer_tpu_torch.kernels.gru import gru_bidir_cat, gru_seq
 from voicefixer_tpu_torch.ops.precision import matmul_dtype
 from voicefixer_tpu_torch.utils.weights import uniform
 
@@ -41,10 +41,9 @@ def gru(x: torch.Tensor, params: dict, num_layers: int,
             out = gru_single_direction(out, params[f"l{layer}"])
             continue
         pf, pb = params[f"l{layer}"], params[f"l{layer}_reverse"]
-        fwd, bwd = gru_bidir(_proj(out, pf), _proj(out, pb),
-                             pf["w_hh"].T, pb["w_hh"].T, pf["b_hh"],
-                             pb["b_hh"], matmul_dtype=matmul_dtype())
-        out = torch.cat([fwd, bwd], dim=-1)
+        out = gru_bidir_cat(_proj(out, pf), _proj(out, pb), pf["w_hh"].T,
+                            pb["w_hh"].T, pf["b_hh"], pb["b_hh"],
+                            matmul_dtype=matmul_dtype())
     return out
 
 
