@@ -62,14 +62,16 @@ SOURCES = {
     "res_chain": "voicefixer_tpu_torch/csrc/resstack_f32.cu",
     "res_shift_single": "voicefixer_tpu_torch/csrc/resstack_f32.cu",
     "up_res_stream": "voicefixer_tpu_torch/csrc/resstack_f32.cu",
-    "res_stream": "voicefixer_tpu_torch/csrc/resstream.cu",
+    # walks its groups over the kernels of resstack_f32.cu and
+    # resstack_wgmma.cu (kernels/resstack.py's entry points)
+    "res_stream": "voicefixer_tpu_torch/kernels/resstream.py",
     "gru_seq": "voicefixer_tpu_torch/csrc/gru_bidir.cu",
     "conv_block_res": "voicefixer_tpu_torch/csrc/convblock.cu",
 }
 # a kernel whose bfloat16 path has a source of its own
 SOURCES_BF16 = {
     "res_chain": "voicefixer_tpu_torch/csrc/resstack_wgmma.cu",
-    "res_shift_single": "voicefixer_tpu_torch/csrc/resstack.cu",
+    "res_shift_single": "voicefixer_tpu_torch/csrc/resstack_wgmma.cu",
     "up_res_stream": "voicefixer_tpu_torch/csrc/resstack_wgmma.cu",
 }
 KERNELS = tuple(SOURCES)
@@ -195,20 +197,35 @@ def res_work(ch: int, t: int, n_blocks: int, size: int):
             size * (2 * t * ch + n_blocks * 2 * (3 * ch * ch + ch)))
 
 
-def f32_executed_flops(ch: int, t: int, dils, tm) -> int:
-    """FLOPs that the float32 ResStack kernels (csrc/resstack_f32.cu) run
-    on [1, t, ch], discarded rows included: every product is BM-row tiles
-    (``resstack.f32_tile``) of 6*C^2 FLOP a row. A single block (tm None)
-    computes h over BM rows for BM - 2 output rows; a chain computes block
-    i's h over tm + 2*E[i+1] + 2 rows and its output over tm + 2*E[i+1]."""
+def res_executed_flops(ch: int, t: int, dils, tm, itemsize: int) -> int:
+    """FLOPs that one ResStack launch runs on [1, t, ch] (a chain over
+    ``dils`` at tile ``tm``, or a single block, tm None), discarded rows
+    and padding included. A chain computes block i's h over tm + 2*E[i+1] +
+    2 rows and its output over tm + 2*E[i+1]. float32
+    (csrc/resstack_f32.cu): every product is BM-row tiles
+    (``resstack.f32_tile``) of 6*C^2 FLOP a row; a single block computes h
+    over BM rows for BM - 2 output rows. bfloat16 (csrc/resstack_wgmma.cu):
+    64-row wgmma tiles of N = C rounded up to 64 (256-column chunks above
+    128 channels), K per tap likewise, the busy warpgroups' only; a single
+    block as ``resstack.wgmma_shift_executed_flops`` counts it."""
     from voicefixer_tpu_torch.kernels import resstack
-    bm = resstack.f32_tile(ch)[0]
-    per_row = 6 * ch * ch * bm
+    if itemsize == 4:
+        bm = resstack.f32_tile(ch)[0]
+        per_row = 6 * ch * ch * bm
+        if tm is None:
+            return -(-t // (bm - 2)) * 2 * per_row
+        tiles = sum(-(-(tm + 2 * eo + k) // bm)
+                    for eo in resstack.chain_extents(dils)[1:]
+                    for k in (2, 0))
+        return -(-t // tm) * tiles * per_row
     if tm is None:
-        return -(-t // (bm - 2)) * 2 * per_row
-    tiles = sum(-(-(tm + 2 * eo + k) // bm)
-                for eo in resstack.chain_extents(dils)[1:] for k in (2, 0))
-    return -(-t // tm) * tiles * per_row
+        return resstack.wgmma_shift_executed_flops(ch, t)
+    bm, kp = resstack.WG_ROWS, -(-ch // 64) * 64
+    n = -(-ch // resstack.wg_cols(ch)) * resstack.wg_cols(ch)
+    conv_rows = sum(-(-(tm + 2 * eo + k) // bm) * bm
+                    for eo in resstack.chain_extents(dils)[1:]
+                    for k in (2, 0))
+    return -(-t // tm) * conv_rows * 2 * 3 * kp * n
 
 
 def up_res_executed_flops(cin: int, cout: int, s: int, t_in: int,
@@ -216,36 +233,25 @@ def up_res_executed_flops(cin: int, cout: int, s: int, t_in: int,
     """FLOPs that up_res_stream's kernels run on [1, t_in, cin] -> [1,
     t_in*s, cout] (``resstream.up_plan``), discarded rows and padding
     included. The first group: per time tile, its upsample's rows q of the
-    slab (per phase whole tiles of rows q, K = 2 * Cin) and its blocks'
-    halo recompute; later groups: chains, and single blocks of BM - 2 output
-    rows from BM-row tiles. float32 (csrc/resstack_f32.cu): BM-row tiles of
-    N = C (``f32_tile``). bfloat16: 64-row wgmma tiles of N = C rounded up
-    to 64, K per tap likewise (Cin for the upsample), the busy warpgroups'
-    only (csrc/resstack_wgmma.cu); its single blocks are resblock.cuh's
-    shift_kernel, 64-row tiles for 62 outputs."""
+    slab (per phase whole tiles of rows q, K = 2 * Cin, rounded up to 64 in
+    bfloat16) and its blocks' halo recompute; every group's blocks as
+    ``res_executed_flops`` counts them."""
     from voicefixer_tpu_torch.kernels import resstack, resstream
     dils = resstack.stack_dilations(8)
     t = t_in * s
     pad = s // 2 + s % 2
     groups = resstream.up_plan(cin, cout, s, dils, itemsize)
     if itemsize == 4:
-        bm, n, kp, kin = resstack.f32_tile(cout)[0], cout, cout, cin
+        bm, n, kin = resstack.f32_tile(cout)[0], cout, cin
     else:
         bm, n = resstack.WG_ROWS, resstack.wg_cols(cout)
-        kp, kin = -(-cout // 64) * 64, -(-cin // 64) * 64
+        kin = -(-cin // 64) * 64
     total = 0
     for i0, i1, tm in groups:
-        if tm is None:
-            rows = 64 if itemsize == 2 else bm
-            total += -(-t // (rows - 2)) * 2 * rows * 6 * cout * cout
-            continue
-        ext = resstack.chain_extents(dils[i0:i1])
-        tiles = -(-t // tm)
-        conv_rows = sum(-(-(tm + 2 * eo + k) // bm) * bm
-                        for eo in ext[1:] for k in (2, 0))
-        total += tiles * conv_rows * 2 * 3 * kp * n
+        total += res_executed_flops(cout, t, dils[i0:i1], tm, itemsize)
         if i0 == 0:
-            for j in range(tiles):
+            ext = resstack.chain_extents(dils[i0:i1])
+            for j in range(-(-t // tm)):
                 slab0 = j * tm - ext[0]
                 q_lo = (slab0 + pad) // s
                 nq = (slab0 + tm + 2 * ext[0] - 1 + pad) // s - q_lo + 1
@@ -269,23 +275,14 @@ def conv_block_executed_flops(t: int, f: int, ci: int, co: int,
     return batch * p.executed_flops(t * (f + 1), ci != co)
 
 
-def chain_weight_bytes(ch: int, t: int, dils, tm: int,
-                       wgmma: bool = True) -> int:
+def chain_weight_bytes(ch: int, t: int, dils, tm: int) -> int:
     """Weight bytes that a bfloat16 chain reads from L2 over a [1, t, ch]
-    signal: every thread block streams the 6*C^2 bytes of a block's two
-    convolutions once per pass of the bfloat16 wgmma kernel
-    (``resstack.wgmma_passes``), or, with ``wgmma`` False, once per 64-row
-    product tile of the WMMA chain_kernel that ran bfloat16 chains before
-    it."""
+    signal: every thread block streams the 3*C^2 bytes of each convolution
+    once per pass of the bfloat16 wgmma kernel
+    (``resstack.wgmma_passes``)."""
     from voicefixer_tpu_torch.kernels import resstack
-    tiles = -(-t // tm)
-    if wgmma:
-        per_block = resstack.wgmma_passes(ch, dils, tm)
-    else:
-        per_block = sum(-(-(tm + 2 * eo + k) // resstack.BM)
-                        for eo in resstack.chain_extents(dils)[1:]
-                        for k in (2, 0))
-    return tiles * per_block * 3 * ch * ch * 2
+    return (-(-t // tm) * resstack.wgmma_passes(ch, dils, tm) * 3 * ch * ch
+            * 2)
 
 
 def up_res_work(t: int, s: int, cin: int, cout: int, n_blocks: int,
@@ -694,10 +691,10 @@ def _res_cases(gen, device, dtype, ch, t, main_path=True, bounds=None):
             "name": name, "dtype": dtype, "main_path": main_path,
             "shape": f"[1, {t}, {ch}] dilations {d}"
                      + (f" window {bounds}" if bounds else "") + name_note,
-            "executed": (f32_executed_flops(ch, t, d, tm)
-                         if dtype == "float32" else None),
+            "executed": res_executed_flops(ch, t, d, tm, x.element_size()),
             "fn": fn,
             "plain": plain, "library": library, "reps": 3, "per_chunk": 1,
+            "device": True,
             **_res_tol(dtype, i1 - i0 if i1 - i0 > 1 else 0), "bytes": work_bytes,
             "flops": flops,
             "peak": PEAK_FP32 if dtype == "float32" else PEAK_BF16})
@@ -769,10 +766,14 @@ def _res_stream_case(gen, device, dtype, ch, t, bounds=None, per_chunk=0,
     work_bytes += x.element_size() * (t - t_work) * ch
     return {"name": "res_stream", "dtype": dtype, "main_path": main_path,
             "shape": f"[1, {t}, {ch}] window {bounds}, groups "
-                     f"{[g[:2] for g in groups]}",
+                     f"{list(groups)}",
+            "executed": sum(res_executed_flops(ch, t, dils[i0:i1], tm,
+                                               x.element_size())
+                            for i0, i1, tm in groups),
             "fn": lambda: resstream.res_stream(*args),
             "plain": lambda: resstream.res_stream_reference(*args),
             "library": library, "reps": 3, "per_chunk": per_chunk,
+            "device": True, "split": True,
             **_res_tol(dtype, 8), "bytes": work_bytes, "flops": flops,
             "peak": PEAK_FP32 if dtype == "float32" else PEAK_BF16}
 
@@ -954,10 +955,11 @@ def phase_kernels(device):
 
 
 def _launch_split(c):
-    """Device time of one call of a stage's kernels by launch kind: the
-    x + sin(x) pre-pass, the chain kernels (up_res_stream's first, with
-    the upsample, is the only chain of its full-width plans) and the
-    single-block kernels (profiler, mean of three calls)."""
+    """Device time of one call of a stack's kernels by launch kind: the
+    x + sin(x) pre-pass (up_res_stream only), the chain kernels (the only
+    chain of the full-width plans is the first group; up_res_stream's
+    carries the upsample) and the single-block kernels (profiler, mean of
+    three calls)."""
     kinds = {"pre-pass": 0.0, "chain": 0.0, "single blocks": 0.0}
     launches = dict.fromkeys(kinds, 0)
     c["fn"]()
@@ -1293,10 +1295,9 @@ K9_GROUP = "K9 conv_block_res"
 
 
 def _kernel_group(name: str) -> str:
-    # K2 in bfloat16 and K4's first group in bfloat16 (with the upsample)
-    # are chain_wgmma_kernel; K2, K3 and K4 in float32 chain_f32_kernel and
-    # shift_f32_kernel; K4's bfloat16 single blocks, K3-bf16 and all of K7
-    # launch resblock.cuh's shift_kernel and chain_kernel
+    # the ResStack kernels: chains (K2, K4's and K7's) and single blocks
+    # (K3, K4's and K7's) of csrc/resstack_wgmma.cu in bfloat16 and of
+    # csrc/resstack_f32.cu in float32
     for key, group in (("stft_mel", "K5 stft_mel"),
                        ("gru_bidir", "K6 gru_bidir"),
                        ("gru_seq", "K8 gru_seq"),
@@ -1304,11 +1305,11 @@ def _kernel_group(name: str) -> str:
                        ("sin_residual", "x+sin(x) pre-pass of K1 and K4"),
                        ("upsample", "K1 upsample"),
                        ("chain_wgmma_kernel",
-                        "K2-bf16/K4-bf16 chain_wgmma_kernel"),
-                       ("chain_f32_kernel", "K2-f32/K4-f32 chain_f32_kernel"),
-                       ("shift_f32_kernel", "K3-f32/K4-f32 shift_f32_kernel"),
-                       ("chain_kernel", "K7 chain_kernel"),
-                       ("shift_kernel", "K3-bf16/K4-bf16/K7 shift_kernel"),
+                        "K2/K4/K7-bf16 chain_wgmma_kernel"),
+                       ("shift_wgmma_kernel",
+                        "K3/K4/K7-bf16 shift_wgmma_kernel"),
+                       ("chain_f32_kernel", "K2/K4/K7-f32 chain_f32_kernel"),
+                       ("shift_f32_kernel", "K3/K4/K7-f32 shift_f32_kernel"),
                        ("nchwToNhwc", "layout copies"),
                        ("nhwcToNchw", "layout copies"),
                        ("fprop", "cuDNN conv"), ("implicit", "cuDNN conv"),

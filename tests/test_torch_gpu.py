@@ -309,6 +309,23 @@ def test_res_f32_first_launch_after_cold_build(cuda, case):
     assert run.returncode == 0, run.stdout + run.stderr
 
 
+@pytest.mark.parametrize("case", ["res_shift_single_bf16", "res_stream_f32",
+                                  "res_stream_bf16"])
+def test_res_single_and_stream_first_launch_after_cold_build(cuda, case):
+    """The bfloat16 single block (weights and tap rows by TMA and
+    mbarriers) and res_stream under a window in either type, as the first
+    launch of two new processes, each straight after a cold build of its
+    one source (tools/torch_first_launch.py --case CASE)."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    tool = Path(__file__).resolve().parent.parent / "tools" / \
+        "torch_first_launch.py"
+    run = subprocess.run([sys.executable, str(tool), "--case", case,
+                          "--loop", "2"], capture_output=True, text=True)
+    assert run.returncode == 0, run.stdout + run.stderr
+
+
 @pytest.mark.parametrize("ch,t,b,dil,dtype", [
     (24, 333, 2, 9, "float32"),
     (2, 1001, 1, 729, "float32"),
@@ -316,6 +333,14 @@ def test_res_f32_first_launch_after_cold_build(cuda, case):
     (128, 2000, 2, 729, "bfloat16"),
     (40, 63, 1, 2187, "bfloat16"),
     (512, 500, 1, 81, "bfloat16"),
+    # the bfloat16 wgmma block: C = 256 (one 256-column chunk, 126-row
+    # tiles) at batch 2 and the largest dilation; C = 64 (N = 64, eight
+    # 64-deep stages) over many tiles; C = 8, one tile shorter than 126
+    # rows; C = 264, two chunks, the second mostly zero columns
+    (256, 1000, 2, 2187, "bfloat16"),
+    (64, 3001, 1, 27, "bfloat16"),
+    (8, 10, 1, 3, "bfloat16"),
+    (264, 130, 1, 9, "bfloat16"),
     # the float32 FMA block: C = 512 (two column passes) at a short T and
     # batch 2; tile boundaries at 62 and 124; the bias-only result at
     # C = 512; a width that is no multiple of 4
@@ -456,11 +481,15 @@ BOUNDS = [(100, 250), (-5, 120), (200, 10 ** 6), (40, 41)]
 
 
 @pytest.mark.parametrize("ch,dtype", [(24, "float32"), (256, "float32"),
-                                      (512, "float32"), (128, "bfloat16")])
+                                      (512, "float32"), (128, "bfloat16"),
+                                      (64, "bfloat16"), (256, "bfloat16"),
+                                      (512, "bfloat16")])
 def test_res_chain_and_shift_kernels_with_bounds(cuda, ch, dtype):
     """The signal window: rows outside it are zero padding at every block
     and come out as zeros, also where the window leaves the array; the
-    float32 single block's 62-row tiles end inside the windows."""
+    single blocks' tiles (62 rows in float32 and in bfloat16 at C = 512,
+    else 126) end inside the windows, and the bfloat16 block's tap rows
+    come from a tensor map over the window's rows."""
     gen = torch.Generator().manual_seed(9)
     dt = getattr(torch, dtype)
     t = 333
@@ -489,9 +518,15 @@ def test_res_chain_and_shift_kernels_with_bounds(cuda, ch, dtype):
     (128, 4001, 1, "bfloat16", (700, 3500)),
     (64, 9000, 2, "bfloat16", None),
     (40, 50, 1, "bfloat16", (10, 30)),       # a window inside one dilation
+    # planned for the wgmma chain at N = C: one chain, then three (C = 64)
+    # or four (C = 128) single blocks, under a window that ends mid-tile
+    (64, 5000, 2, "bfloat16", (-50, 4000)),
+    (128, 3000, 1, "bfloat16", (1, 2999)),
 ])
 def test_res_stream_kernel(cuda, ch, t, b, dtype, bounds):
-    """The whole eight-block stack behind one entry point and one count."""
+    """The whole eight-block stack behind one entry point and one count:
+    its groups launch the chain and single-block kernels of the type
+    without counting as res_chain or res_shift_single."""
     gen = torch.Generator().manual_seed(10)
     dt = getattr(torch, dtype)
     dils = tuple(3 ** i for i in range(8))

@@ -274,8 +274,8 @@ def test_plan_stack(ch, itemsize):
             if tm is None:
                 assert i1 == i0 + 1
                 continue
-            assert resstack.chain_smem_bytes(ch, dils[i0:i1], tm,
-                                             itemsize) <= resstack.SMEM_LIMIT
+            assert resstack.route_smem_bytes(
+                itemsize, ch, dils[i0:i1], tm) <= resstack.SMEM_LIMIT
             if i1 - i0 > 1:
                 best = resstack.chain_tile(ch, dils[i0:i1], itemsize)
                 assert best[1] >= resstack.MIN_EFFICIENCY
@@ -1364,7 +1364,7 @@ def test_chain_wgmma_schedule(ch, t, b, dils, tm, bounds):
     bank = [v.to(torch.bfloat16) for v in bank]
     x = torch.from_numpy(_rand(rng, (b, t, ch))).to(torch.bfloat16)
     if tm is None:
-        tm = resstack.chain_tile(ch, dils, 2, route="wgmma")[0]
+        tm = resstack.chain_tile(ch, dils, 2)[0]
     assert resstack.wgmma_smem_bytes(ch, dils, tm) <= resstack.SMEM_LIMIT
     got = _chain_wgmma_model(x, *bank, dils, 0.2, 0.3, tm, bounds)
     ref = res_chain_reference(x, *bank, dils, 0.2, 0.3, bounds)
@@ -1376,11 +1376,11 @@ _SINGLES = lambda i: tuple((j, j + 1, None) for j in range(i, 8))  # noqa: E731
 
 
 @pytest.mark.parametrize("ch,itemsize,want,cin", [
-    pytest.param(64, 2, ((0, 4, 170),) + _SINGLES(4), None, id="64-2-want0"),
-    pytest.param(64, 4, ((0, 3, 98),) + _SINGLES(3), None, id="64-4-want1"),
-    pytest.param(128, 2, ((0, 3, 98),) + _SINGLES(3), None,
+    pytest.param(64, 2, ((0, 5, 454),) + _SINGLES(5), None, id="64-2-want0"),
+    pytest.param(64, 4, ((0, 4, 170),) + _SINGLES(4), None, id="64-4-want1"),
+    pytest.param(128, 2, ((0, 4, 234),) + _SINGLES(4), None,
                  id="128-2-want2"),
-    pytest.param(128, 4, ((0, 2, 54),) + _SINGLES(2), None,
+    pytest.param(128, 4, ((0, 3, 98),) + _SINGLES(3), None,
                  id="128-4-want3"),
     # up_res_stream, planned for its own kernels with the upsample counted
     pytest.param(64, 2, ((0, 4, 554),) + _SINGLES(4), 128, id="up-64-2"),
@@ -1390,10 +1390,10 @@ _SINGLES = lambda i: tuple((j, j + 1, None) for j in range(i, 8))  # noqa: E731
                  id="up-128-4"),
 ])
 def test_plan_stack_fused_widths_unchanged(ch, itemsize, want, cin):
-    """The fused widths' plans. K7 (res_stream, no cin) runs the WMMA chain
-    kernel and keeps its plan, with and without a chain first. K4
-    (up_res_stream, Cin = cin at scale 3) plans for the wgmma or FMA chain
-    at N = C with the upsample's shared memory and work in its first
+    """The fused widths' plans. K7 (res_stream, no cin) plans for the wgmma
+    or FMA chain at N = C without the upsample, with and without a chain
+    first. K4 (up_res_stream, Cin = cin at scale 3) plans for the same
+    chains with the upsample's shared memory and work in its first
     group."""
     from voicefixer_tpu_torch.kernels import resstream
 
@@ -1428,16 +1428,15 @@ def test_up_res_stream_groups_fit(cin, cout, scale, itemsize):
     groups = resstream.up_plan(cin, cout, scale, dils, itemsize)
     assert groups[0][2] is not None
     assert [g[0] for g in groups] == [0] + [g[1] for g in groups[:-1]]
-    route = "wgmma" if itemsize == 2 else "f32"
     for i0, i1, tm in groups:
         if tm is None:
             continue
         up = (cin, scale) if i0 == 0 else None
         sub = dils[i0:i1]
         e = resstack.chain_extents(sub)
-        smem = resstack.route_smem_bytes(route, cout, sub, tm, itemsize, up)
+        smem = resstack.route_smem_bytes(itemsize, cout, sub, tm, up)
         assert smem <= resstack.SMEM_LIMIT
-        if route == "wgmma":
+        if itemsize == 2:
             # the kernel's count: slab, the larger of h and the source
             # rows, 1 KB of alignment, MIN_STAGES 32-deep stages of N
             ld = -(-cout // 64) * 64 + 8
@@ -1457,8 +1456,7 @@ def test_up_res_stream_groups_fit(cin, cout, scale, itemsize):
             assert smem == 4 * (3 * (bm * 20 + 16 * bn)
                                 + rows * (-(-cout // 16) * 16 + 4))
         if i1 - i0 > 1:
-            tile = resstack.chain_tile(cout, sub, itemsize, route=route,
-                                       up=up)
+            tile = resstack.chain_tile(cout, sub, itemsize, up=up)
             assert tile[0] == tm and tile[1] >= resstack.MIN_EFFICIENCY
 
 
@@ -1474,7 +1472,7 @@ def test_plan_stack_wgmma_groups_fit(ch):
     for i0, i1, tm in chains:
         sub = dils[i0:i1]
         assert resstack.wgmma_smem_bytes(ch, sub, tm) <= resstack.SMEM_LIMIT
-        tile = resstack.chain_tile(ch, sub, 2, route="wgmma")
+        tile = resstack.chain_tile(ch, sub, 2)
         assert tile[0] == tm and tile[1] >= resstack.MIN_EFFICIENCY
         # the planner's tiles make block 0's h whole 64-row tiles
         assert (tm + 2 * resstack.chain_extents(sub)[1] + 2) % 64 == 0
@@ -1550,6 +1548,146 @@ def _f32_ld(ch):
 
 def _f32_cols(ch, n0):
     return torch.arange(n0, min(n0 + resstack.f32_tile(ch)[1], ch))
+
+
+def test_wgmma_shift_tile_fits_every_width():
+    """The bfloat16 single-block kernel's tile at every width in multiples
+    of 8 up to 512: h is whole 64-row tiles that the pairs of one pass
+    cover (two tiles at one column chunk, one at two), and the ring keeps
+    at least two stages beside h within SMEM_LIMIT, 64 deep at one chunk
+    where two such fit.
+    The tile depends on the width only: a signal shorter than the tile or
+    than the dilation is one thread block."""
+    for ch in range(8, 513, 8):
+        tm, depth, stages = resstack.wgmma_shift_tile(ch)
+        cols = resstack.wg_cols(ch)
+        chunks = -(-ch // cols)
+        assert (tm + 2) % 64 == 0
+        assert (tm + 2) // 64 * chunks == resstack.WG_CONSUMERS
+        assert resstack.WG_MIN_STAGES <= stages <= 8
+        fixed = (tm + 2) * (-(-ch // 64) * 64 + 8) * 2
+
+        def stage(depth):
+            return chunks * depth * cols * 2 + 2 * 64 * depth * 2 + 16
+        deep = chunks == 1 and 1024 + 2 * stage(64) + fixed \
+            <= resstack.SMEM_LIMIT
+        assert depth == (64 if deep else 32)
+        stage = stage(depth)
+        assert 1024 + stages * stage + fixed <= resstack.SMEM_LIMIT
+        assert stages == 8 or 1024 + (stages + 1) * stage + fixed \
+            > resstack.SMEM_LIMIT
+        for t in (1, tm - 1, tm, tm + 1):
+            # executed FLOPs: both convolutions over tm + 2 rows a block
+            blocks = -(-t // tm)
+            assert resstack.wgmma_shift_executed_flops(ch, t) == (
+                blocks * 2 * (tm + 2) * 6 * (-(-ch // 64) * 64)
+                * chunks * cols)
+    assert resstack.wgmma_shift_tile(512) == (62, 32, 4)
+    assert resstack.wgmma_shift_tile(256) == (126, 64, 3)
+    assert resstack.wgmma_shift_tile(64) == (126, 64, 8)
+
+
+def _shift_wgmma_model(x, w1, b1, w2, b2, d, slope, final_slope, bounds):
+    """What csrc/resstack_wgmma.cu's single-block kernel does, per (batch
+    row, thread block of ``wgmma_shift_tile``'s tm output rows): per
+    convolution, passes of two (64-row tile, column chunk) pairs, one to a
+    warpgroup, over ring stages of (tap, K step of the tile's depth);
+    conv1's A the 64-row box of x at the tap from a map over the window's
+    rows (zero outside them and past C), LeakyReLU'd; conv2's A h rows
+    clamped to h; both epilogues with their masks. Float32 throughout,
+    rounded where x's type rounds. Every output row is written exactly
+    once."""
+    bsz, t, ch = x.shape
+    tm, depth, _ = resstack.wgmma_shift_tile(ch)
+    cols = resstack.wg_cols(ch)
+    chunks = -(-ch // cols)
+    cp = -(-ch // 64) * 64
+    h_rows = tm + 2
+    pairs = h_rows // 64 * chunks
+    lo, hi = resstack.clamp_bounds(bounds, t)
+    rnd = lambda v: v.to(x.dtype).float()  # noqa: E731
+    lrelu = lambda v, a: torch.where(v > 0, v, a * v)  # noqa: E731
+
+    def padded(w):  # [3][cp (K)][chunks * cols (N)], zeros past C
+        out = torch.zeros((3, cp, chunks * cols))
+        out[:, :ch, :ch] = w.float()
+        return out
+    wp = (padded(w1), padded(w2))
+    win = x.float()[:, lo:hi]   # the tensor map's rows
+    y = torch.full((bsz, t, ch), float("nan"))
+    written = torch.zeros((bsz, t), dtype=torch.int64)
+    r = torch.arange(64)
+    for bi in range(bsz):
+        for t0 in range(0, t, tm):
+            h = torch.full((h_rows, cp), float("nan"))
+            h[:, ch:] = 0.0
+            for conv in (0, 1):
+                for pair in range(-(-pairs // 2) * 2):
+                    if pair >= pairs:
+                        continue   # an idle warpgroup's pass
+                    m, nb = divmod(pair, chunks)
+                    acc = torch.zeros((64, cols))
+                    for tap in range(3):
+                        for kc in range(0, cp, depth):
+                            if conv == 0:
+                                rows = t0 - 1 + m * 64 + (tap - 1) * d - lo + r
+                                ok = (rows >= 0) & (rows < hi - lo)
+                                a = torch.zeros((64, depth))
+                                part = win[bi, rows[ok], kc:kc + depth]
+                                a[ok, :part.shape[1]] = part
+                                a = rnd(lrelu(a, slope))
+                            else:
+                                rows = (1 + m * 64 + r + tap - 1).clamp(
+                                    max=h_rows - 1)
+                                a = h[rows, kc:kc + depth]
+                            acc += a @ wp[conv][tap, kc:kc + depth,
+                                                nb * cols:(nb + 1) * cols]
+                    n = nb * cols + torch.arange(cols)
+                    acc, n = acc[:, n < ch], n[n < ch]
+                    rr = m * 64 + r
+                    if conv == 0:
+                        pos = t0 - 1 + rr
+                        inside = ((pos >= lo) & (pos < hi))[:, None]
+                        h[rr[:, None], n] = rnd(torch.where(
+                            inside, lrelu(acc + b1.float()[n], slope), 0.0))
+                        continue
+                    pos = t0 + rr
+                    keep = (rr < tm) & (pos < t)
+                    pos = pos[keep]
+                    inside = ((pos >= lo) & (pos < hi))[:, None]
+                    v = torch.where(inside, acc[keep] + b2.float()[n]
+                                    + x.float()[bi, pos][:, n], 0.0)
+                    if final_slope is not None:
+                        v = lrelu(v, final_slope)
+                    y[bi, pos[:, None], n] = rnd(v)
+                    if nb == 0:
+                        written[bi, pos] += 1
+    assert written.eq(1).all(), "an output row is not written exactly once"
+    return y
+
+
+@pytest.mark.parametrize("ch,t,b,d,bounds", [
+    (24, 300, 2, 9, None),             # ragged C; batch 2; three blocks
+    (40, 50, 1, 27, None),             # T shorter than the tile
+    (64, 100, 1, 2187, None),          # T < d: the bias-only result
+    (256, 300, 1, 3, (130, 250)),      # a window starting and ending mid-tile
+    (512, 130, 1, 81, (20, 100)),      # two column chunks, 62-row tiles
+    (136, 70, 1, 27, (-5, 60)),        # one chunk of 256 columns, ragged
+])
+def test_shift_wgmma_schedule(ch, t, b, d, bounds):
+    """The bfloat16 single-block kernel's tiles, passes, tap boxes in the
+    window's coordinates, clamped h rows and masks against the plain
+    version, in float32."""
+    from voicefixer_tpu_torch.kernels.resstack import (
+        res_shift_single_reference)
+
+    rng = np.random.default_rng(23)
+    w1, b1, w2, b2 = (v[0] for v in _f32_bank(rng, 1, ch))
+    x = torch.from_numpy(_rand(rng, (b, t, ch)))
+    got = _shift_wgmma_model(x, w1, b1, w2, b2, d, 0.2, 0.3, bounds)
+    ref = res_shift_single_reference(x, w1, b1, w2, b2, d, 0.2, 0.3, bounds)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-4,
+                               atol=2e-5)
 
 
 def _shift_f32_model(x, w1, b1, w2, b2, d, slope, final_slope, bounds):
@@ -1737,7 +1875,7 @@ def test_chain_f32_schedule(ch, t, b, dils, tm, bounds):
     bank = _f32_bank(rng, len(dils), ch)
     x = torch.from_numpy(_rand(rng, (b, t, ch)))
     if tm is None:
-        tm = resstack.chain_tile(ch, dils, 4, route="f32")[0]
+        tm = resstack.chain_tile(ch, dils, 4)[0]
     assert resstack.f32_smem_bytes(ch, dils, tm) <= resstack.SMEM_LIMIT
     got = _chain_f32_model(x, *bank, dils, 0.2, 0.3, tm, bounds)
     ref = res_chain_reference(x, *bank, dils, 0.2, 0.3, bounds)
@@ -1774,8 +1912,7 @@ def test_up_chain_f32_schedule(cin, cout, scale, t_in, b, dils, tm):
     rng = np.random.default_rng(29)
     x, w_up, b_up, bank = _up_case(rng, b, t_in, cin, cout, scale, len(dils))
     if tm is None:
-        tm = resstack.chain_tile(cout, dils, 4, route="f32",
-                                 up=(cin, scale))[0]
+        tm = resstack.chain_tile(cout, dils, 4, up=(cin, scale))[0]
     got = _chain_f32_model(torch.zeros((b, t_in * scale, cout)), *bank, dils,
                            0.2, 0.3, tm, None, up=(x, w_up, b_up, scale))
     ref = up_res_stream_reference(x, w_up, b_up, *bank, dils, scale, 0.2,
@@ -1803,8 +1940,7 @@ def test_up_chain_wgmma_schedule(cin, cout, scale, t_in, b, dils, tm):
     x, w_up, b_up = (v.to(torch.bfloat16) for v in (x, w_up, b_up))
     bank = [v.to(torch.bfloat16) for v in bank]
     if tm is None:
-        tm = resstack.chain_tile(cout, dils, 2, route="wgmma",
-                                 up=(cin, scale))[0]
+        tm = resstack.chain_tile(cout, dils, 2, up=(cin, scale))[0]
     assert resstack.wgmma_smem_bytes(cout, dils, tm, up=(cin, scale)) \
         <= resstack.SMEM_LIMIT
     got = _chain_wgmma_model(torch.zeros((b, t_in * scale, cout)), *bank,

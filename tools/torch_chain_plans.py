@@ -10,9 +10,8 @@ kernel, each held to the plain version and timed by CUDA events:
 A candidate covers the blocks 0 .. k of the stage that its groups cover (a
 chain, and for a shorter chain the single blocks after it), so that chain
 against chain plus res_shift_single compare like for like. Prints first the
-weight bytes each stage's chain reads from L2 (chip_smoke.chain_weight_bytes),
-under the planner's plan and as the WMMA chain_kernel read them before, then
-one line a candidate (ms, weight bytes) with the cuDNN sequence of the same
+weight bytes each stage's chain reads from L2 (chip_smoke.chain_weight_bytes)
+under the planner's plan, then one line a candidate (ms, weight bytes) with the cuDNN sequence of the same
 blocks; with --json, writes the lines as JSON to PATH. A fused stage's
 candidate is its whole plan (the first group the chain with the upsample);
 its line gives the first group's weight ring (K rows a stage, stages).
@@ -63,11 +62,8 @@ def main() -> int:
         groups = resstack.plan_stack(ch, dils, 2)
         now = sum(cs.chain_weight_bytes(ch, t, dils[i0:i1], tm)
                   for i0, i1, tm in groups if tm is not None)
-        # the WMMA chain_kernel ran blocks 0-1 at tm 54 at both stages
-        before = cs.chain_weight_bytes(ch, t, dils[:2], 54, wgmma=False)
         print(f"stage {stage}: weights from L2 {now / 1e9:.3f} GB with the "
-              f"plan {groups[0]}, {before / 1e9:.3f} GB by the WMMA "
-              "chain_kernel at (0, 2, 54)", flush=True)
+              f"plan {groups[0]}", flush=True)
     if not torch.cuda.is_available():
         print("torch_chain_plans: no CUDA device", file=sys.stderr)
         return 2

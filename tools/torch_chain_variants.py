@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Where the bfloat16 wgmma chain kernel's time goes, on one CUDA card:
-builds copies of csrc/resstack_wgmma.cu that each leave one cost out, or
-force one ring-stage depth, and times them at the shapes of a 30 s chunk by
-CUDA events: K2's chains at vocoder stages 0 and 1 (vf_res_chain_wgmma, N =
-256) and K4's first groups at stages 2 and 3 (vf_up_chain_wgmma: the
-upsample and the chain, N = 128 and 64, with its x + sin(x) pre-pass).
+"""Where the bfloat16 wgmma kernels' time goes, on one CUDA card: builds
+copies of csrc/resstack_wgmma.cu that each leave one cost out, or force one
+ring-stage depth, and times them at the shapes of a 30 s chunk by CUDA
+events: K2's chains at vocoder stages 0 and 1 (vf_res_chain_wgmma, N =
+256), K4's first groups at stages 2 and 3 (vf_up_chain_wgmma: the
+upsample and the chain, N = 128 and 64, with its x + sin(x) pre-pass), and
+the single block (vf_res_shift_wgmma) at the four stages' widths.
 
     python3 tools/torch_chain_variants.py [VARIANT ...]
 
@@ -17,6 +18,14 @@ Variants (all by default):
   mma_only         all four left out: the barriers and wgmmas alone
   depth_16/32/64   every stage that deep (16, 32 or 64 K rows), where two
                    such stages fit shared memory
+and of the single block (timed alone):
+  shift_no_epilogue  no epilogue: products are computed and dropped
+  shift_no_x_loads   conv1's A boxes of x are not loaded (the stage's
+                     weights are)
+  shift_no_residual  conv2's epilogue does not read x
+  shift_no_lrelu     conv1's A is not LeakyReLU'd in registers
+  shift_mma_only     the first two left out and no ldmatrix: the barriers,
+                     weight loads and wgmmas alone
 The copies that compute what the kernel computes (base, depth_*) are held
 to the plain version. Prints one line per (variant, shape) with the time
 and its ratio to base. The copies are built under
@@ -44,6 +53,17 @@ LDM = ("hopper::ldmatrix_x4(cur[kk], col + r * ld + kc + 16 * kk);",
        "hopper::ldmatrix_x4(cur[kk], col + r * ldi + kc + 16 * kk);")
 PRO = ("      for (int e = tid; e < slab_rows * vecs; e += 128 * CONSUMERS) {",
        "        for (int e = tid; e < src_rows * vecs; e += 128 * CONSUMERS) {")
+SHIFT_EPI = ("\n        const int r0 = m * ROWS + wq * 16 + lane / 4;"
+             "\n")
+SHIFT_X = ("conv ? w_bytes : stage_bytes);",
+           "for (int c = 0; c < CONSUMERS; ++c) {")
+SHIFT_RES = ("res[g] = *reinterpret_cast<const __nv_bfloat162*>(\n"
+             "                      p.x + at + n);")
+SHIFT_LRELU = "\n                cur[kk][q] = lrelu2(cur[kk][q], slope);"
+SHIFT_LDM = ("hopper::ldmatrix_x4(cur[kk],\n"
+             "                                  box + (((2 * kk + lane / 16) "
+             "^ swz) << 4));",
+             "hopper::ldmatrix_x4(cur[kk], src + 16 * kk);")
 DEPTH = ("    if (p.chunks == 1 && fits(Stage<4, N>::CHUNK_BYTES))\n"
          "      return launch<4, N>(p, w1b, w2b, wub, batch, fixed, s);\n"
          "    return launch<2, N>(p, w1b, w2b, wub, batch, fixed, s);")
@@ -62,12 +82,29 @@ CUTS = {
 }
 CUTS["mma_only"] = [c for k in ("no_epilogue", "no_weight_loads",
                                 "no_a_loads", "no_prologue") for c in CUTS[k]]
+CUTS.update({
+    "shift_no_epilogue": [(SHIFT_EPI, "\n        if (acc[0] == 1.f && "
+                           "acc[N / 2 - 1] == 2.f) hbuf[0] = "
+                           "__float2bfloat16(acc[1]);"
+                           "\n        continue;" + SHIFT_EPI)],
+    "shift_no_x_loads": [(SHIFT_X[0], "w_bytes);"),
+                         (SHIFT_X[1], "for (int c = 0; c < 0; ++c) {")],
+    "shift_no_residual": [(SHIFT_RES,
+                           "res[g] = __floats2bfloat162_rn(0.f, 0.f);")],
+    "shift_no_lrelu": [(SHIFT_LRELU, "\n                ;")],
+    "shift_mma_only": [(ldm, "{ cur[kk][0] = lane; cur[kk][1] = kk; "
+                        "cur[kk][2] = st; cur[kk][3] = wg; }")
+                       for ldm in SHIFT_LDM],
+})
+CUTS["shift_mma_only"] += (CUTS["shift_no_epilogue"]
+                           + CUTS["shift_no_x_loads"])
 for depth, ks in (("depth_16", 1), ("depth_32", 2), ("depth_64", 4)):
     CUTS[depth] = [(DEPTH, f"    if (!fits(Stage<{ks}, N>::CHUNK_BYTES)) "
                            "return cudaErrorInvalidValue;\n"
                            f"    return launch<{ks}, N>(p, w1b, w2b, wub, "
                            "batch, fixed, s);")]
 VARIANTS = ("base", *CUTS)
+SHIFT_VARIANTS = tuple(v for v in VARIANTS if v.startswith("shift_"))
 EXACT = ("base", "depth_16", "depth_32", "depth_64")
 # (C, T, dilations, tm): stage 0's chain, stage 1's, and stage 1's first
 # two blocks at the tile that makes h two 64-row tiles
@@ -76,6 +113,9 @@ SHAPES = ((512, 21042, (1, 3), 54), (256, 147294, (1, 3, 9), 98),
 # (Cin, Cout, T) of up_res_stream's first group at stages 2 and 3, scale 3,
 # at the plan's blocks and tile
 UP_SHAPES = ((256, 128, 147294), (128, 64, 441882))
+# (C, T) of the single block at the four stages, dilation 243
+SHIFT_SHAPES = ((512, 21042), (256, 147294), (128, 441882), (64, 1325646))
+SHIFT_DIL = 243
 
 
 def build(names):
@@ -148,6 +188,12 @@ def main() -> int:
         bank = [v[:i1].contiguous()
                 for v in cs._bank(gen, 8, cout, dev, torch.bfloat16)]
         up_data.append((cin, cout, t, dils, tm, x, w, b, bank))
+    shift_data = []
+    for ch, t in SHIFT_SHAPES:
+        x = torch.randn((1, t, ch), generator=gen).to(dev, torch.bfloat16)
+        one = [v[0].contiguous()
+               for v in cs._bank(gen, 1, ch, dev, torch.bfloat16)]
+        shift_data.append((ch, t, x, one))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     base = {}
     with tf32_off(), torch.inference_mode():
@@ -158,8 +204,26 @@ def main() -> int:
                            ctypes.POINTER(ctypes.c_int), i, f, f, i, i, i, p]
             up_fn = lib.vf_up_chain_wgmma
             up_fn.argtypes = resstack.UP_CHAIN_ARGS
+            shift_fn = lib.vf_res_shift_wgmma
+            shift_fn.argtypes = resstack.SHIFT_ARGS
             cases = []
-            for ch, t, dils, tm, x, bank in data:
+            for ch, t, x, one in shift_data:
+                if name != "base" and name not in SHIFT_VARIANTS:
+                    break
+                y = torch.empty_like(x)
+                args = (x.data_ptr(), *(v.data_ptr() for v in one),
+                        y.data_ptr(), 1, t, ch, SHIFT_DIL, cs.SLOPE_RES, 0.0,
+                        0, 0, t)
+                cases.append((f"single block C={ch} T={t} d={SHIFT_DIL}",
+                              shift_fn, args, y,
+                              lambda x=x, one=one:
+                              resstack.res_shift_single_reference(
+                                  x, *one, SHIFT_DIL, cs.SLOPE_RES), 0))
+            if name in SHIFT_VARIANTS:
+                data_now, up_now = (), ()
+            else:
+                data_now, up_now = data, up_data
+            for ch, t, dils, tm, x, bank in data_now:
                 y = torch.empty_like(x)
                 args = (x.data_ptr(), *(v.data_ptr() for v in bank),
                         y.data_ptr(), 1, t, ch, len(dils),
@@ -169,7 +233,7 @@ def main() -> int:
                               y, lambda x=x, bank=bank, dils=dils:
                               resstack.res_chain_reference(
                                   x, *bank, dils, cs.SLOPE_RES), len(dils)))
-            for cin, cout, t, dils, tm, x, w, b, bank in up_data:
+            for cin, cout, t, dils, tm, x, w, b, bank in up_now:
                 y = torch.empty((1, 3 * t, cout), device=dev,
                                 dtype=torch.bfloat16)
                 a = torch.empty_like(x)

@@ -163,7 +163,7 @@ def main() -> int:
                 cs.compare(f"{name} {shape}", y, ref, 1e-4, 1e-4)
                 del ref
                 ms = cs.cuda_ms(go, 5, warmup=1)
-                flops = cs.f32_executed_flops(ch, t, dils, tm)
+                flops = cs.res_executed_flops(ch, t, dils, tm, 4)
                 base.setdefault(shape, ms)
                 print(f"  {name:14s} {shape}: {ms:.3f} ms, "
                       f"{flops / ms / 1e9:.1f} TFLOP/s executed, "

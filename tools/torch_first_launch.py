@@ -11,7 +11,12 @@ is the record of the hunt; ``res_chain``, the bfloat16 wgmma chain at the
 width of vocoder stage 0; ``res_chain_f32`` and ``res_shift_single_f32``,
 the float32 chain and single block of csrc/resstack_f32.cu, which stage
 their operands through a ``cp.async`` ring as the float32 upsample does,
-at the widths of vocoder stages 1 and 0; ``conv_block_res_f32`` and
+at the widths of vocoder stages 1 and 0; ``res_shift_single_bf16``, the
+bfloat16 single block of csrc/resstack_wgmma.cu (weights and x's tap rows
+by TMA and mbarriers) at stage 0's width; ``res_stream_f32`` and
+``res_stream_bf16``, the whole stack of stage 2's width under a window
+that ends inside the array, batch 2, its groups one chain and single
+blocks; ``conv_block_res_f32`` and
 ``conv_block_res_bf16``, the ConvBlockRes kernel of csrc/convblock.cu
 (cp.async in float32, TMA and mbarriers in bfloat16) at the ResUNet's
 first level with its shortcut, batch 2; ``up_res_stream_f32`` and
@@ -23,7 +28,8 @@ whose later groups run the single-block kernels; ``gru_bidir_f32``,
 at the denoiser's width (H = 256, 301 steps, batch 2, the unidirectional
 case reversed), whose blocks exchange h by st.async on mbarrier phases: a
 wrong parity shows as a trap (a wait that never ends) or a stale h. These
-three build csrc/gru_bidir.cu alone. With BUILD_DIR the kernel
+three build csrc/gru_bidir.cu alone, and ``res_shift_single_bf16`` and
+``res_stream_*`` their one source. With BUILD_DIR the kernel
 libraries are built
 there (a new directory gives a cold build) instead of in the package's own
 build directory. The kernel's result
@@ -51,7 +57,8 @@ ROOT = Path(__file__).resolve().parent.parent
 UPSAMPLE = dict(scale=7, cin=64, cout=32, t=100, b=2)
 CHAIN = dict(ch=512, t=300, b=1, dils=(1, 3))
 CHAIN_F32 = dict(ch=256, t=300, b=2, dils=(1, 3))
-SHIFT_F32 = dict(ch=512, t=300, b=2, d=81)
+SHIFT = dict(ch=512, t=300, b=2, d=81)
+STREAM = dict(ch=128, t=1500, b=2, bounds=(200, 1300))
 CONV_BLOCK = dict(t=200, f=127, ci=64, co=32, b=2)
 UP_RES = dict(cin=256, cout=128, scale=3, t=200, b=2)
 GRU = dict(h=256, t=301, b=2)
@@ -122,19 +129,44 @@ def _res_chain_f32(torch):
             1e-4)
 
 
-def _res_shift_single_f32(torch):
-    """(kernel, card plain, CPU plain) outputs, float32; tolerance 1e-4."""
+def _res_shift_single(torch, dtype):
+    """(kernel, card plain, CPU plain) outputs; tolerance float32 1e-4,
+    bfloat16 one ulp (2^-7 relative, 1e-3) where the float32 sums straddle
+    a rounding boundary."""
     from voicefixer_tpu_torch.kernels.resstack import (
         res_shift_single, res_shift_single_reference)
     gen = torch.Generator().manual_seed(0)
-    ch, t, b, d = (SHIFT_F32[k] for k in ("ch", "t", "b", "d"))
-    one = [v[0] for v in _f32_bank(torch, gen, 1, ch)]
-    x = torch.randn((b, t, ch), generator=gen)
-    ref = res_shift_single_reference(x, *one, d, 0.2, 0.3)
+    ch, t, b, d = (SHIFT[k] for k in ("ch", "t", "b", "d"))
+    one = [v[0].to(dtype) for v in _f32_bank(torch, gen, 1, ch)]
+    x = torch.randn((b, t, ch), generator=gen).to(dtype)
+    ref = res_shift_single_reference(x, *one, d, 0.2, 0.3).float()
     on_card = [v.cuda() for v in (x, *one)]
-    return (res_shift_single(*on_card, d, 0.2, 0.3).cpu(),
-            res_shift_single_reference(*on_card, d, 0.2, 0.3).cpu(), ref,
-            1e-4, 1e-4)
+    tol = (1e-4, 1e-4) if dtype == torch.float32 else (2 ** -7, 1e-3)
+    return (res_shift_single(*on_card, d, 0.2, 0.3).float().cpu(),
+            res_shift_single_reference(*on_card, d, 0.2, 0.3).float().cpu(),
+            ref, *tol)
+
+
+def _res_stream(torch, dtype):
+    """(kernel, card plain, CPU plain) outputs of res_stream under a
+    window. float32: 1e-4; bfloat16: one ulp of the largest intermediate
+    through the eight chained blocks (2^-7 * max|ref| + 2^-7 * |ref|)."""
+    from voicefixer_tpu_torch.kernels.resstream import (
+        res_stream, res_stream_reference)
+    gen = torch.Generator().manual_seed(0)
+    ch, t, b, bounds = (STREAM[k] for k in ("ch", "t", "b", "bounds"))
+    dils = tuple(3 ** i for i in range(8))
+    args = [v.to(dtype) for v in (torch.randn((b, t, ch), generator=gen),
+                                  *_f32_bank(torch, gen, 8, ch))]
+    ref = res_stream_reference(*args, dils, 0.01, 0.2, bounds).float()
+    on_card = [v.cuda() for v in args]
+    got = res_stream(*on_card, dils, 0.01, 0.2, bounds)
+    plain = res_stream_reference(*on_card, dils, 0.01, 0.2, bounds)
+    if dtype == torch.float32:
+        rtol, atol = 1e-4, 1e-4
+    else:
+        rtol, atol = 2 ** -7, 2 ** -7 * float(ref.abs().max())
+    return (got.float().cpu(), plain.float().cpu(), ref, rtol, atol)
 
 
 def _conv_block_res(torch, dtype, rtol, atol):
@@ -236,7 +268,12 @@ def _gru(torch, bidir, dtype):
 
 CASES = {"upsample": _upsample, "res_chain": _res_chain,
          "res_chain_f32": _res_chain_f32,
-         "res_shift_single_f32": _res_shift_single_f32,
+         "res_shift_single_f32": lambda torch: _res_shift_single(
+             torch, torch.float32),
+         "res_shift_single_bf16": lambda torch: _res_shift_single(
+             torch, torch.bfloat16),
+         "res_stream_f32": lambda torch: _res_stream(torch, torch.float32),
+         "res_stream_bf16": lambda torch: _res_stream(torch, torch.bfloat16),
          # float32 sums in another order; bfloat16: an ulp of a2 through
          # conv2 (chip_smoke.py's tolerances)
          "conv_block_res_f32": lambda torch: _conv_block_res(
@@ -252,7 +289,8 @@ CASES = {"upsample": _upsample, "res_chain": _res_chain,
          "gru_seq": lambda torch: _gru(torch, False, torch.float32)}
 # cases that build their own source alone
 ONLY = {"gru_bidir_f32": "gru_bidir", "gru_bidir_bf16": "gru_bidir",
-        "gru_seq": "gru_bidir"}
+        "gru_seq": "gru_bidir", "res_shift_single_bf16": "resstack_wgmma",
+        "res_stream_f32": "resstack_f32", "res_stream_bf16": "resstack_wgmma"}
 
 
 def one(case: str, build_dir: str | None) -> int:

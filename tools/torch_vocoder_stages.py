@@ -12,8 +12,9 @@ first, at chip_smoke.py's tolerances.
 The calls: ``up_res_stream`` at stages 2 and 3 (K4: 256 -> 128 at T =
 147 294 and 128 -> 64 at T = 441 882, scale 3), ``res_stack`` at stages 0
 and 1 (K2 and K3: C = 512 at T = 21 042 and C = 256 at T = 147 294, every
-launch of the stage) and ``res_stream`` on stage 2's whole signal (K7: C =
-128 at T = 441 882), each in float32 and bfloat16.
+launch of the stage) and ``res_stream`` on the whole signal of stages 2
+and 3 (K7: C = 128 at T = 441 882 and C = 64 at T = 1 325 646), each in
+float32 and bfloat16.
 
 --root imports ``voicefixer_tpu_torch`` from another checkout (for example
 a ``git archive`` of an earlier commit, unpacked into a directory that
@@ -85,13 +86,14 @@ def main() -> int:
                        p, x, 3, cs.SLOPE_RES, cs.SLOPE_ACT),
                    lambda x=x, bank=bank: resstack.res_chain_reference(
                        x, *bank, dils, cs.SLOPE_RES, cs.SLOPE_ACT))
-        x = torch.randn((1, 441882, 128), generator=gen).to(dev, dt)
-        bank = cs._bank(gen, 8, 128, dev, dt)
-        yield ("res_stream stage 2",
-               lambda x=x, bank=bank: resstream.res_stream(
-                   x, *bank, dils, cs.SLOPE_RES, cs.SLOPE_ACT),
-               lambda x=x, bank=bank: resstream.res_stream_reference(
-                   x, *bank, dils, cs.SLOPE_RES, cs.SLOPE_ACT))
+        for stage, ch, t in ((2, 128, 441882), (3, 64, 1325646)):
+            x = torch.randn((1, t, ch), generator=gen).to(dev, dt)
+            bank = cs._bank(gen, 8, ch, dev, dt)
+            yield (f"res_stream stage {stage}",
+                   lambda x=x, bank=bank: resstream.res_stream(
+                       x, *bank, dils, cs.SLOPE_RES, cs.SLOPE_ACT),
+                   lambda x=x, bank=bank: resstream.res_stream_reference(
+                       x, *bank, dils, cs.SLOPE_RES, cs.SLOPE_ACT))
 
     def kind(name):
         return ("pre-pass" if "sin_residual" in name else

@@ -11,8 +11,8 @@
 // (mapa), a store into it that completes on the peer's mbarrier (st.async),
 // and a wait on an mbarrier that such stores complete.
 //
-// Users: upsample.cu (K1), resstack_wgmma.cu (K2 and K4 in bfloat16),
-// convblock.cu (K9 in bfloat16) and gru_bidir.cu (K6 and K8).
+// Users: upsample.cu (K1), resstack_wgmma.cu (K2, K3, K4 and K7 in
+// bfloat16), convblock.cu (K9 in bfloat16) and gru_bidir.cu (K6 and K8).
 //
 // cuTensorMapEncodeTiled lives in libcuda, not in the CUDA runtime: it is
 // fetched at run time (dlopen/dlsym), so that the kernel libraries keep
@@ -519,22 +519,26 @@ inline EncodeTiled encode_tiled_entry() {
 
 // A map over a row-major bf16 tensor [d2][d1][d0] (d0 contiguous, a
 // multiple of 8 so that every stride is one of 16 bytes) read in boxes of
-// [b2][b1][b0], b0 = 64 elements = one 128-byte swizzled row. Elements
-// outside the tensor read as zeros. Returns a cudaError_t.
-inline int encode_bf16_3d(CUtensorMap* map, const void* base, uint64_t d0,
-                          uint64_t d1, uint64_t d2, uint32_t b0, uint32_t b1,
-                          uint32_t b2) {
+// [b2][b1][b0], b0 = 64 elements = one 128-byte swizzled row (32 elements
+// under CU_TENSOR_MAP_SWIZZLE_64B). Elements outside the tensor read as
+// zeros. `stride2`, in elements, is the distance between d2 slices when
+// [d1][d0] is a window of a longer array (0: d0 * d1). Returns a
+// cudaError_t.
+inline int encode_bf16_3d(
+    CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1, uint64_t d2,
+    uint32_t b0, uint32_t b1, uint32_t b2, uint64_t stride2 = 0,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiled encode = encode_tiled_entry();
   if (!encode) return cudaErrorSharedObjectSymbolNotFound;
   const cuuint64_t dims[3] = {d0, d1, d2};
-  const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};  // bytes, dims 1 and 2
+  const cuuint64_t strides[2] = {d0 * 2,  // bytes, dims 1 and 2
+                                 (stride2 ? stride2 : d0 * d1) * 2};
   const cuuint32_t box[3] = {b0, b1, b2};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult rc = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

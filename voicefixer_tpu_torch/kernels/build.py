@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` becomes its own shared library with a plain C
 interface (nvcc, ``-gencode arch=compute_90a,code=sm_90a``), named after a
-hash of its sources, the shared headers (``common.cuh``, ``resblock.cuh``,
-``hopper.cuh``) and flags, in ``voicefixer_tpu_torch/build/``. The first
+hash of its sources, the shared headers (``common.cuh``, ``hopper.cuh``)
+and flags, in ``voicefixer_tpu_torch/build/``. The first
 call builds every missing library at once, one nvcc process per source, all
 started together. A library is written under a temporary name and renamed
 into place, so concurrent builders never load a half-written file.
@@ -22,8 +22,8 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
-SOURCES = ("stft_mel", "gru_bidir", "upsample", "resstack", "resstack_f32",
-           "resstack_wgmma", "resstream", "convblock")
+SOURCES = ("stft_mel", "gru_bidir", "upsample", "resstack_f32",
+           "resstack_wgmma", "convblock")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,6 +1,5 @@
-"""The vocoder's ResStack (float32: csrc/resstack_f32.cu; bfloat16 chains
-csrc/resstack_wgmma.cu, single blocks csrc/resstack.cu and
-csrc/resblock.cuh), the port of
+"""The vocoder's ResStack (float32: csrc/resstack_f32.cu; bfloat16:
+csrc/resstack_wgmma.cu), the port of
 ``voicefixer_tpu/kernels/resstack.py``: ``res_chain`` (n consecutive blocks
 in one kernel, intermediates in shared memory), ``res_shift_single`` (one
 block, its +-d taps read at row offsets), the dispatcher ``res_stack`` over
@@ -38,30 +37,22 @@ from voicefixer_tpu_torch import kernels
 from voicefixer_tpu_torch.kernels import build
 from voicefixer_tpu_torch.utils.weights import res_bank
 
-# of csrc/resblock.cuh
-BM = 64                 # rows of a product tile
-STAGE_BYTES = 32768     # staging tiles of the tap product
 MAX_BLOCKS = 8          # blocks of one chain
 SMEM_LIMIT = 232448     # dynamic shared memory one thread block may take
-# Two thread blocks on an SM hide each other's waits at the barriers of the
-# tap product, which gains more than a longer chain does (PERF.md): a chain
-# takes the whole SM only where no chain fits half of it. 1 KB a block is
-# the runtime's.
-SMEM_BUDGETS = (SMEM_LIMIT // 2 - 1024, SMEM_LIMIT)
 # A chain computes block i over the tile widened by its halo, in whole
-# 64-row product tiles. Below this share of useful rows the blocks run on
-# their own instead.
+# product tiles. Below this share of useful rows the blocks run on their
+# own instead.
 MIN_EFFICIENCY = 0.65
 # widest stack that runs behind one entry point: fused with its upsample
 # (``up_res_stack``) or, under ``mask_bounds``, as ``res_stream``
 FUSE_MAX_CHANNELS = 128
-# of csrc/resstack_wgmma.cu, the bfloat16 chain: two consumer warpgroups of
-# 64-row wgmma tiles over column chunks of WG_COLS (the width rounded up to
-# WG_ALIGN where it is at most FUSE_MAX_CHANNELS: N = C), a ring of at least
-# two 32-deep weight stages (32 K rows of every chunk, 16 bytes of barriers
-# each; 64-deep where two of those fit and the width is one chunk), slab and
-# h rows of the width rounded up to WG_ALIGN plus 16 bytes, one thread block
-# an SM
+# of csrc/resstack_wgmma.cu, the bfloat16 chain and single block: two
+# consumer warpgroups of 64-row wgmma tiles over column chunks of WG_COLS
+# (the width rounded up to WG_ALIGN where it is at most FUSE_MAX_CHANNELS:
+# N = C), a ring of at least two 32-deep weight stages (32 K rows of every
+# chunk, 16 bytes of barriers each; 64-deep where two of those fit and the
+# width is one chunk), slab and h rows of the width rounded up to WG_ALIGN
+# plus 16 bytes, one thread block an SM
 WG_ROWS = 64
 WG_COLS = 256
 WG_CONSUMERS = 2
@@ -161,15 +152,6 @@ def chain_extents(dils) -> tuple:
     return tuple(reversed(e))
 
 
-def chain_smem_bytes(ch: int, dils, tm: int, itemsize: int) -> int:
-    """Shared memory of one thread block of the WMMA chain kernel (K7's
-    groups, csrc/resblock.cuh): the staging tiles, the input slab (tile +
-    halo) and the widest block's h; rows are padded by 16 bytes."""
-    e = chain_extents(dils)
-    rows = (tm + 2 * e[0]) + (tm + 2 * e[1] + 2)
-    return STAGE_BYTES + rows * (ch + 16 // itemsize) * itemsize
-
-
 def up_source_rows(slab_rows: int, scale: int) -> int:
     """Rows q of the slow-rate source that the polyphase upsample of a slab
     of ``slab_rows`` full-rate rows reads, at most: the slab's rows fall on
@@ -197,26 +179,13 @@ def f32_smem_bytes(ch: int, dils, tm: int) -> int:
             + rows * (-(-ch // 16) * 16 + 4) * 4)
 
 
-def chain_route(ch: int, itemsize: int) -> str:
-    """The chain kernel that ``plan_stack`` plans for by default: at the
-    unfused stages (C > FUSE_MAX_CHANNELS) the bfloat16 wgmma kernel
-    ("wgmma") or the float32 one ("f32"); narrower stacks are planned for
-    ``res_stream``'s kernels, which run the WMMA chain ("wmma").
-    ``up_res_stream`` asks for "wgmma" or "f32" at every width."""
-    if ch <= FUSE_MAX_CHANNELS:
-        return "wmma"
-    return "wgmma" if itemsize == 2 else "f32"
-
-
-def route_smem_bytes(route: str, ch: int, dils, tm: int, itemsize: int,
-                     up=None) -> int:
-    """Shared memory of one thread block of ``route``'s chain kernel; ``up``
-    = (Cin, scale) for a chain with the fused upsample in front."""
-    if route == "wgmma":
+def route_smem_bytes(itemsize: int, ch: int, dils, tm: int, up=None) -> int:
+    """Shared memory of one thread block of the chain kernel of a type: the
+    bfloat16 wgmma kernel (itemsize 2) or the float32 FMA one; ``up`` =
+    (Cin, scale) for a chain with the fused upsample in front."""
+    if itemsize == 2:
         return wgmma_smem_bytes(ch, dils, tm, up=up)
-    if route == "f32":
-        return f32_smem_bytes(ch, dils, tm)
-    return chain_smem_bytes(ch, dils, tm, itemsize)
+    return f32_smem_bytes(ch, dils, tm)
 
 
 def wg_cols(ch: int) -> int:
@@ -265,6 +234,43 @@ def wgmma_ring(ch: int, dils, tm: int, up=None) -> tuple:
     return depth, min(8, room // (chunks * depth * cols * 2 + 16))
 
 
+def wgmma_shift_tile(ch: int) -> tuple:
+    """(tm, K rows a stage, stages) of the bfloat16 single-block kernel
+    (csrc/resstack_wgmma.cu, vf_res_shift_wgmma) at width ``ch``, as its
+    entry point picks them: a tile is tm output rows from h over tm + 2
+    rows, two 64-row tiles at one column chunk (one pass of both
+    warpgroups), one tile at more (a pass covers its chunks). A ring stage
+    holds every chunk's weights and a 64-row box of x rows for each
+    warpgroup; 64 K rows deep where two such stages fit beside h and the
+    width is one chunk, else 32; as many stages as fit, at most 8. The
+    signal's length and the dilation change none of it."""
+    cols = wg_cols(ch)
+    chunks = -(-ch // cols)
+    tm = WG_ROWS * (2 if chunks == 1 else 1) - 2
+    ld = -(-ch // WG_ALIGN) * WG_ALIGN + 8
+    room = SMEM_LIMIT - 1024 - (tm + 2) * ld * 2
+
+    def stage(depth):
+        return (chunks * depth * cols * 2 + WG_CONSUMERS * WG_ROWS * depth * 2
+                + 16)
+
+    deep = 2 * WG_MIN_DEPTH
+    depth = (deep if chunks == 1 and room >= WG_MIN_STAGES * stage(deep)
+             else WG_MIN_DEPTH)
+    return tm, depth, min(8, room // stage(depth))
+
+
+def wgmma_shift_executed_flops(ch: int, t: int) -> int:
+    """FLOPs that the bfloat16 single-block kernel runs on [1, t, ch],
+    discarded rows and padding included: per thread block
+    (``wgmma_shift_tile``), both convolutions over tm + 2 rows, three taps
+    of K = ch rounded up to WG_ALIGN, at every column chunk's width."""
+    tm = wgmma_shift_tile(ch)[0]
+    cols = wg_cols(ch)
+    k = -(-ch // WG_ALIGN) * WG_ALIGN
+    return -(-t // tm) * 2 * (tm + 2) * 2 * 3 * k * -(-ch // cols) * cols
+
+
 def wgmma_passes(ch: int, dils, tm: int) -> int:
     """Passes over the weights that one thread block of the bfloat16 chain
     kernel makes: per product, its (64-row tile, column chunk) pairs two at
@@ -282,32 +288,31 @@ def up_passes(slab_rows: int, scale: int) -> int:
     return scale * -(-(-(-q_rows // WG_ROWS)) // WG_CONSUMERS)
 
 
-def chain_tile(ch: int, dils, itemsize: int, budget: int = SMEM_LIMIT,
-               route: str = "wmma", up=None):
+def chain_tile(ch: int, dils, itemsize: int, up=None):
     """(tm, efficiency) of the best output tile of a chain over ``dils``, or
-    None when no tile fits ``budget`` bytes of shared memory of ``route``'s
-    chain kernel (``chain_route``). Tiles make the first block's h a whole
-    number of product tiles; efficiency is the share of executed product
-    FLOPs that are output rows' FLOPs: whole product tiles (64 rows; in
-    float32 ``f32_tile``'s BM), for "wgmma" the two warpgroups' 64-row
-    tiles of every pass, busy or not. With ``up`` = (Cin, scale) the fused
+    None when no tile fits the shared memory of the type's chain kernel
+    (``route_smem_bytes``). Tiles make the first block's h a whole number
+    of product tiles; efficiency is the share of executed product FLOPs
+    that are output rows' FLOPs: whole product tiles (float32
+    ``f32_tile``'s BM), in bfloat16 the two warpgroups' 64-row tiles of
+    every pass, busy or not. With ``up`` = (Cin, scale) the fused
     upsample's product counts too: per phase, whole tiles of source rows
-    q, 2*Cin deep. At N = C a "wgmma" tile must leave WG_MIN_RING 64-deep
+    q, 2*Cin deep. At N = C a bfloat16 tile must leave WG_MIN_RING 64-deep
     ring stages."""
+    wgmma = itemsize == 2
     e = chain_extents(dils)
-    bm = f32_tile(ch)[0] if route == "f32" else BM
-    ring = route == "wgmma" and ch <= FUSE_MAX_CHANNELS
+    bm = WG_ROWS if wgmma else f32_tile(ch)[0]
+    ring = wgmma and ch <= FUSE_MAX_CHANNELS
     block = 6 * ch * ch           # FLOPs of one row of one convolution
     best = None
     k = 1
     while True:
         tm = k * bm - 2 * e[1] - 2
-        if route_smem_bytes(route, ch, dils, max(tm, 1), itemsize,
-                            up) > budget:
+        if route_smem_bytes(itemsize, ch, dils, max(tm, 1), up) > SMEM_LIMIT:
             return best
         if tm >= 1 and not (ring and wgmma_ring(ch, dils, tm, up) <
                             (2 * WG_MIN_DEPTH, WG_MIN_RING)):
-            if route == "wgmma":
+            if wgmma:
                 done = (wgmma_passes(ch, dils, tm) * WG_CONSUMERS * WG_ROWS
                         / -(-ch // wg_cols(ch)))
             else:
@@ -318,7 +323,7 @@ def chain_tile(ch: int, dils, itemsize: int, budget: int = SMEM_LIMIT,
                 cin, scale = up
                 row = 4 * cin * ch   # FLOPs of one upsampled row
                 slab_rows = tm + 2 * e[0]
-                if route == "wgmma":
+                if wgmma:
                     q_done = (up_passes(slab_rows, scale) * WG_CONSUMERS
                               * WG_ROWS)
                 else:
@@ -333,36 +338,28 @@ def chain_tile(ch: int, dils, itemsize: int, budget: int = SMEM_LIMIT,
 
 @functools.lru_cache(maxsize=64)
 def plan_stack(ch: int, dils: tuple, itemsize: int,
-               first_chain: bool = False, route: str | None = None,
-               up: tuple | None = None) -> tuple:
+               first_chain: bool = False, up: tuple | None = None) -> tuple:
     """Cut a stack's blocks into kernel launches: ((i0, i1, tm), ...) over
     range(len(dils)). A group with a tile ``tm`` is a chain; ``tm`` None is
     one block for ``res_shift_single``. Greedy: from each block, the longest
-    chain of at least two blocks that fits the first of SMEM_BUDGETS it can
-    at MIN_EFFICIENCY or better, else the block alone. With ``first_chain``
-    the first group is a chain even when it is one block (the fused upsample
-    feeds a chain); ``up`` = (Cin, scale) counts that upsample's shared
-    memory and work in the first group. ``route`` is the chain kernel
-    planned for, by default ``chain_route``'s; "wgmma" and "f32" take one
-    thread block an SM: their only budget is SMEM_LIMIT."""
+    chain of at least two blocks that fits shared memory at MIN_EFFICIENCY
+    or better, else the block alone. With ``first_chain`` the first group is
+    a chain even when it is one block (the fused upsample feeds a chain);
+    ``up`` = (Cin, scale) counts that upsample's shared memory and work in
+    the first group. Chains are planned for the type's chain kernel."""
     n = len(dils)
-    route = route or chain_route(ch, itemsize)
     groups = []
     i = 0
     while i < n:
         fused = up if i == 0 else None
         pick = None
-        for budget in SMEM_BUDGETS if route == "wmma" else (SMEM_LIMIT,):
-            for j in range(min(n, i + MAX_BLOCKS), i + 1, -1):
-                tile = chain_tile(ch, dils[i:j], itemsize, budget, route,
-                                  fused)
-                if tile is not None and tile[1] >= MIN_EFFICIENCY:
-                    pick = (i, j, tile[0])
-                    break
-            if pick is not None:
+        for j in range(min(n, i + MAX_BLOCKS), i + 1, -1):
+            tile = chain_tile(ch, dils[i:j], itemsize, fused)
+            if tile is not None and tile[1] >= MIN_EFFICIENCY:
+                pick = (i, j, tile[0])
                 break
         if pick is None and first_chain and i == 0:
-            tile = chain_tile(ch, dils[:1], itemsize, route=route, up=fused)
+            tile = chain_tile(ch, dils[:1], itemsize, up=fused)
             if tile is None:
                 raise ValueError(f"no chain tile fits shared memory at "
                                  f"C={ch}, itemsize {itemsize}")
@@ -421,12 +418,10 @@ def res_chain(x: torch.Tensor, w1s, b1s, w2s, b2s, dils,
     if not 1 <= n <= MAX_BLOCKS or min(dils) < 1:
         raise ValueError(f"res_chain: dilations {dils}")
     bsz, t, ch = x.shape
-    bf16 = x.dtype == torch.bfloat16
-    route = "wgmma" if bf16 else "f32"
     if tm is None:
-        tile = chain_tile(ch, dils, x.element_size(), route=route)
+        tile = chain_tile(ch, dils, x.element_size())
         tm = tile[0] if tile is not None else 1
-    if route_smem_bytes(route, ch, dils, tm, x.element_size()) > SMEM_LIMIT:
+    if route_smem_bytes(x.element_size(), ch, dils, tm) > SMEM_LIMIT:
         raise ValueError(f"res_chain: C={ch}, dilations {dils}, tile {tm} "
                          f"do not fit {SMEM_LIMIT} bytes of shared memory")
     x = x.contiguous()
@@ -436,13 +431,8 @@ def res_chain(x: torch.Tensor, w1s, b1s, w2s, b2s, dils,
     args = (x.data_ptr(), w1s.data_ptr(), b1s.data_ptr(), w2s.data_ptr(),
             b2s.data_ptr(), y.data_ptr(), bsz, t, ch, n, int_array(dils), tm,
             *slope_args(slope, final_slope), *clamp_bounds(mask_bounds, t))
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    if bf16:
-        lib = _wgmma_lib()
-        rc = lib.vf_res_chain_wgmma(*args, stream)
-    else:
-        lib = _f32_lib()
-        rc = lib.vf_res_chain_f32(*args, stream)
+    lib, fn = chain_entry(x.dtype)
+    rc = fn(*args, torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, rc, "res_chain")
     kernels.launches["res_chain"] += 1
     return y
@@ -452,8 +442,8 @@ def res_shift_single(x: torch.Tensor, w1, b1, w2, b2, dil: int,
                      slope: float = 0.2, final_slope=None, mask_bounds=None):
     """One block at dilation ``dil``. x: [B, T, C]; w1, w2: [3, C, C];
     b1, b2: [C]; ``mask_bounds`` the signal window (lo, hi) in rows.
-    float32 runs the FMA kernel of csrc/resstack_f32.cu, bfloat16 the WMMA
-    one of csrc/resstack.cu."""
+    float32 runs the FMA kernel of csrc/resstack_f32.cu, bfloat16 the wgmma
+    one of csrc/resstack_wgmma.cu."""
     if kernels.on_cpu(x, w1, b1, w2, b2):
         return res_shift_single_reference(x, w1, b1, w2, b2, dil, slope,
                                           final_slope, mask_bounds)
@@ -465,12 +455,7 @@ def res_shift_single(x: torch.Tensor, w1, b1, w2, b2, dil: int,
     x = x.contiguous()
     w1, b1, w2, b2 = (v.to(x.dtype).contiguous() for v in (w1, b1, w2, b2))
     y = torch.empty_like(x)
-    if x.dtype == torch.bfloat16:
-        lib = _lib()
-        fn = lib.vf_res_shift_single
-    else:
-        lib = _f32_lib()
-        fn = lib.vf_res_shift_single_f32
+    lib, fn = shift_entry(x.dtype)
     rc = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
             b2.data_ptr(), y.data_ptr(), bsz, t, ch, int(dil),
             *slope_args(slope, final_slope), *clamp_bounds(mask_bounds, t),
@@ -496,9 +481,7 @@ def res_stack(params: list, x: torch.Tensor, kernel: int, slope: float,
         from voicefixer_tpu_torch.kernels.resstream import res_stream
         return res_stream(x, *res_bank(params), dils, slope, final_slope,
                           mask_bounds)
-    # res_chain runs the float32 chain kernel at any width: plan for it
-    groups = plan_stack(x.shape[-1], dils, x.element_size(),
-                        route="f32" if x.dtype == torch.float32 else None)
+    groups = plan_stack(x.shape[-1], dils, x.element_size())
     for i0, i1, tm in groups:
         fs = final_slope if i1 == len(params) else None
         if tm is None:
@@ -538,13 +521,6 @@ UP_CHAIN_ARGS = [_P] * 9 + [_I] * 6 + [ctypes.POINTER(ctypes.c_int), _I, _F,
                                        _F, _I, _P]
 
 
-def _lib():
-    lib = build.load("resstack")
-    lib.vf_res_shift_single.argtypes = SHIFT_ARGS
-    lib.vf_res_shift_single.restype = _I
-    return lib
-
-
 def _f32_lib():
     lib = build.load("resstack_f32")
     lib.vf_res_chain_f32.argtypes = CHAIN_ARGS
@@ -562,4 +538,34 @@ def _wgmma_lib():
     lib.vf_res_chain_wgmma.restype = _I
     lib.vf_up_chain_wgmma.argtypes = UP_CHAIN_ARGS
     lib.vf_up_chain_wgmma.restype = _I
+    lib.vf_res_shift_wgmma.argtypes = SHIFT_ARGS
+    lib.vf_res_shift_wgmma.restype = _I
     return lib
+
+
+def chain_entry(dtype):
+    """(library, entry point) of the chain kernel of a type."""
+    if dtype == torch.bfloat16:
+        lib = _wgmma_lib()
+        return lib, lib.vf_res_chain_wgmma
+    lib = _f32_lib()
+    return lib, lib.vf_res_chain_f32
+
+
+def up_chain_entry(dtype):
+    """(library, entry point) of the chain kernel of a type with the
+    upsample in front (``kernels.resstream.up_res_stream``'s first group)."""
+    if dtype == torch.bfloat16:
+        lib = _wgmma_lib()
+        return lib, lib.vf_up_chain_wgmma
+    lib = _f32_lib()
+    return lib, lib.vf_up_chain_f32
+
+
+def shift_entry(dtype):
+    """(library, entry point) of the single-block kernel of a type."""
+    if dtype == torch.bfloat16:
+        lib = _wgmma_lib()
+        return lib, lib.vf_res_shift_wgmma
+    lib = _f32_lib()
+    return lib, lib.vf_res_shift_single_f32
