@@ -8,12 +8,15 @@ res_chain, res_shift_single and up_res_stream, and res_stream, gru_seq and
 conv_block_res, each also timed against the library call (cuFFT, cuDNN) that
 computes the same function and that the port does not use.
 
-Four paths are driven, each with the launch counts set to 0 just before and
+Five paths are driven, each with the launch counts set to 0 just before and
 read and asserted just after: the default main path; the same restore with
 the vocoder time-sharded four ways on the one card (res_stream, and
 res_chain and res_shift_single under a signal window); the same restore with
-the fused ConvBlockRes kernel opted in (conv_block_res); and a two-layer
-unidirectional GRU (gru_seq).
+the fused ConvBlockRes kernel opted in (conv_block_res); a two-layer
+unidirectional GRU (gru_seq); and the file path, three runs of the command
+line (``voicefixer_tpu_torch.__main__.main``) on upstream-layout torch
+checkpoints written by ``tools/torch_ref_state_dict.py``: mode 0, FLAC with
+overlap-add, mode 1.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --cards N    # N >= 2 cards: only the sharded
@@ -103,6 +106,15 @@ BENCH_SNR_DB = 35.0
 SNR_FLOOR_DB = 27.5
 SNR_MATCH_DB = 1.0
 SNR_SECONDS = 2  # the CPU side runs the full-width plain path
+# The file path: seconds of audio, a 30 s segment and a 15 s one. Its files
+# hold int16 samples (``audio_io.save_wave`` truncates x * 2**15), held to
+# the API's output written the same way within FILE_LSB steps: one for
+# float32 sums in another order across a truncation boundary, one to spare.
+# Mode 1's preprocessing on the card against the CPU: a 2048-point DFT and
+# its inverse in float32, on samples of magnitude ~0.4.
+FILE_SECONDS = 45
+FILE_LSB = 2
+HF_ATOL = 1e-4
 
 
 def log(*a):
@@ -434,8 +446,9 @@ def phase_build():
     log("== build")
     t0 = time.perf_counter()
     took = build.build_all()
+    build_s = time.perf_counter() - t0
     log(f"  built {sorted(took) or 'nothing (cached)'} in "
-        f"{time.perf_counter() - t0:.1f} s (nvcc in parallel)")
+        f"{build_s:.1f} s (nvcc in parallel)")
     for name in build.SOURCES:
         build.load(name)
         report = (build.BUILD / f"{name}.log")
@@ -444,6 +457,7 @@ def phase_build():
                 if any(k in line for k in ("registers", "spill",
                                            "Performance", "wgmma")):
                     log(f"  {name}: {line.strip()}")
+    return build_s
 
 
 def _stft_case(gen, device, small=None):
@@ -1289,6 +1303,161 @@ def phase_gru_path(device):
     return counts
 
 
+def _int16(x):
+    """What ``audio_io.save_wave`` writes of a float waveform in [-1, 1]."""
+    import numpy as np
+    return (np.asarray(x, np.float32) * 2 ** 15).astype(np.int16)
+
+
+def _hold_file(what: str, path: str, ref):
+    """The int16 file at ``path`` against ``ref`` written the same way:
+    within FILE_LSB steps (16-bit quantisation of two float waveforms)."""
+    import numpy as np
+    from voicefixer_tpu_torch.utils import audio_io
+    _, data = audio_io.read_audio(path)
+    got = np.round(data[:, 0] * 2 ** 15).astype(np.int32)
+    want = _int16(ref).astype(np.int32)
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: {got.shape} samples, want "
+                             f"{want.shape}")
+    err = int(np.abs(got - want).max())
+    log(f"  {what}: {got.shape[0]} samples, max |file - reference| {err} "
+        f"LSB (tol {FILE_LSB}); file vs float reference max abs "
+        f"{float(np.abs(data[:, 0] - ref).max()):.3e}")
+    if not err <= FILE_LSB:
+        raise AssertionError(f"{what}: the file differs from the reference")
+
+
+def phase_file_path(device, card: str, build_s: float):
+    """The file and CLI entry points at full width: upstream-layout torch
+    checkpoints drawn from SEED (the vocoder's with weight norm), written to
+    a temporary directory and run through ``python -m voicefixer_tpu_torch``
+    in this process on 45 s of audio: WAV to WAV in mode 0, FLAC to FLAC
+    with 1 s of overlap (two windows, one batch), WAV to WAV in mode 1.
+    Each run's launches are counted and asserted. The files are held to
+    ``VoiceFixer(ckpt=..., vocoder_ckpt=...)`` on the same samples, mode 1's
+    preprocessing on the card to the same on the CPU, and the ``Vocoder``
+    facade to ``vocoder_facade.synthesize`` and its oracle's length."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from tools.torch_ref_state_dict import write_checkpoints
+    from voicefixer_tpu_torch import __main__ as cli
+    from voicefixer_tpu_torch import kernels
+    from voicefixer_tpu_torch.config import DEFAULT_CONFIG as C
+    from voicefixer_tpu_torch.models import analysis
+    from voicefixer_tpu_torch.ops.precision import tf32_off
+    from voicefixer_tpu_torch.pipeline import vocoder_facade
+    from voicefixer_tpu_torch.pipeline.restore import (
+        VoiceFixer, _fit_length, overlap_add, remove_higher_frequency)
+    from voicefixer_tpu_torch.utils import audio_io
+
+    t_phase = time.perf_counter()
+    sr, seg = C.pipeline.sample_rate, C.pipeline.seg_length
+    n = int(FILE_SECONDS * sr)
+    log(f"== file path: python -m voicefixer_tpu_torch on full-width torch "
+        f"checkpoints, {FILE_SECONDS} s of audio")
+    with tempfile.TemporaryDirectory() as d:
+        ana, voc = os.path.join(d, "vf.ckpt"), os.path.join(d, "model.pt")
+        t0 = time.perf_counter()
+        write_checkpoints(C, SEED, ana, voc, "weight_g")
+        log(f"  checkpoints {os.path.getsize(ana) / 2 ** 20:.0f} + "
+            f"{os.path.getsize(voc) / 2 ** 20:.0f} MiB written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        wav = (0.1 * np.random.default_rng(SEED + 3).standard_normal(n)
+               ).astype(np.float32)
+        src = {"wav": os.path.join(d, "in.wav"),
+               "flac": os.path.join(d, "in.flac")}
+        for path in src.values():
+            audio_io.save_wave(wav, path, sr)
+        runs = {"mode 0, WAV": ("wav", "out0.wav", []),
+                "overlap 1.0 s, FLAC": ("flac", "out_ov.flac",
+                                        ["--chunk-overlap", "1.0"]),
+                "mode 1, WAV": ("wav", "out1.wav", ["--mode", "1"])}
+        # the CLI's precision is parity; each run is one batch of two
+        want = expected_launches(4)
+        walls, counts = {}, {}
+        for what, (kind, out, extra) in runs.items():
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            rc = cli.main(["-i", src[kind], "-o", os.path.join(d, out),
+                           "--ckpt", ana, "--vocoder-ckpt", voc, "--silent"]
+                          + extra)
+            torch.cuda.synchronize()
+            walls[what] = time.perf_counter() - t0
+            counts[what] = dict(kernels.launches)
+            if rc != 0 or counts[what] != want:
+                raise AssertionError(f"CLI {what}: exit {rc}, launches "
+                                     f"{counts[what]} != {want}")
+            log(f"  CLI {what}: {walls[what]:.2f} s, launches "
+                f"{counts[what]}")
+
+        vf = VoiceFixer(ckpt=ana, vocoder_ckpt=voc, config=C, device=device)
+        x = audio_io.load_wav(src["wav"], sr)
+        if not np.array_equal(audio_io.load_wav(src["flac"], sr), x):
+            raise AssertionError("the FLAC input decodes to other samples")
+        ref0 = vf.restore_inmem(x)
+        log(f"  two restore_inmem of the same samples: max abs diff "
+            f"{float(np.abs(vf.restore_inmem(x) - ref0).max()):.3e}")
+        _hold_file("mode 0 file against restore_inmem",
+                   os.path.join(d, "out0.wav"), ref0)
+        ramp = min(sr, seg // 2)
+        positions = list(range(0, n - seg + 1, seg - ramp))
+        if positions[-1] + seg < n:
+            positions.append(n - seg)
+        outs, _ = vf._restore_batch(np.stack([x[p:p + seg]
+                                              for p in positions]))
+        _hold_file(f"overlap file against overlap_add of {len(positions)} "
+                   "restore_batch windows", os.path.join(d, "out_ov.flac"),
+                   overlap_add([_fit_length(o, seg) for o in outs],
+                               positions, n, ramp))
+        _hold_file("mode 1 file against restore_inmem(mode=1)",
+                   os.path.join(d, "out1.wav"), vf.restore_inmem(x, mode=1))
+
+        with tf32_off(), torch.inference_mode():
+            hf = {dev: remove_higher_frequency(
+                torch.from_numpy(x[:seg]).to(dev), C, return_cutoff=True)
+                for dev in (device, torch.device("cpu"))}
+        (a, cut_a), (b, cut_b) = hf[device], hf[torch.device("cpu")]
+        err = float((a.cpu() - b).abs().max())
+        log(f"  remove_higher_frequency, 30 s: cutoff bin {cut_a} on the "
+            f"card, {cut_b} on the CPU; {a.shape[0]} samples, max abs diff "
+            f"{err:.3e} (tol {HF_ATOL:.0e})")
+        if cut_a != cut_b or a.shape != b.shape or not err <= HF_ATOL:
+            raise AssertionError("mode 1's preprocessing: card and CPU "
+                                 "disagree")
+
+        voc_f = vocoder_facade.Vocoder(ckpt=voc, config=C, device=device)
+        with tf32_off(), torch.inference_mode():
+            mel = analysis.wav_to_mel(torch.from_numpy(x[None, :seg]).to(
+                device), C)
+            ref = vocoder_facade.synthesize(vf.vocoder_params, mel,
+                                            C.vocoder)[..., 0].cpu().numpy()
+        got = voc_f.forward(mel.cpu().numpy())
+        t = n // C.stft.hop_length + 1
+        oracle = voc_f.oracle(src["wav"], None)
+        s_want = (t + t % 2 + 4) * C.vocoder.hop_length
+        log(f"  Vocoder.forward on a 30 s mel {tuple(mel.shape)} -> "
+            f"{got.shape}, equal to synthesize: "
+            f"{bool(np.array_equal(got[:, 0], ref))}; oracle on the input "
+            f"file -> {oracle.shape} (want (1, {s_want}))")
+        if not np.array_equal(got[:, 0], ref) \
+                or oracle.shape != (1, s_want) \
+                or not np.isfinite(oracle).all():
+            raise AssertionError("the Vocoder facade disagrees")
+    first = next(iter(walls))
+    log(f"  CLI wall seconds per audio second (model load, conversion, file "
+        f"I/O and restore) on {card}: "
+        + "; ".join(f"{k} {v / FILE_SECONDS:.4f}" for k, v in walls.items())
+        + f"; {first} with the kernels' build ({build_s:.1f} s) "
+        f"{(walls[first] + build_s) / FILE_SECONDS:.4f}; the phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return walls, counts
+
+
 # csrc/convblock.cu's kernels: conv_block_f32_kernel and
 # conv_block_wgmma_kernel
 K9_GROUP = "K9 conv_block_res"
@@ -1445,7 +1614,7 @@ def main() -> int:
     device = torch.device("cuda", 0)
     t_start = time.perf_counter()
     card = phase_card()
-    phase_build()
+    build_s = phase_build()
     if len(sys.argv) > 1:
         if len(sys.argv) != 3 or sys.argv[1] != "--cards" \
                 or not 2 <= int(sys.argv[2]) <= torch.cuda.device_count():
@@ -1462,6 +1631,7 @@ def main() -> int:
     gru_counts = phase_gru_path(device)
     del vf
     phase_small_reference(device)
+    phase_file_path(device, card, build_s)
 
     def launches(name, mode):
         """From the run of the path that launches the kernel."""

@@ -51,6 +51,7 @@ from voicefixer_tpu_torch.kernels.resstack import (res_chain,
 from voicefixer_tpu_torch.kernels.resstream import res_stream
 from voicefixer_tpu_torch.kernels.stft import stft_mel
 from voicefixer_tpu_torch.kernels.upsample import upsample
+from tests.test_torch_weights import one_torch_thread  # noqa: F401
 
 
 def _rand(rng, shape, scale=1.0):

@@ -32,7 +32,8 @@ from voicefixer_tpu_torch.models import analysis, denoiser, resunet, vocoder
 from voicefixer_tpu_torch.ops import conv
 from voicefixer_tpu_torch.pipeline import vocoder_facade
 from voicefixer_tpu_torch.utils.weights import from_jax_params
-from tests.test_torch_weights import jax_param_trees
+from tests.test_torch_weights import (jax_param_trees,  # noqa: F401
+                                      one_torch_thread)
 
 CFG, JCFG = tiny_test_config(), jax_tiny()
 
@@ -270,3 +271,118 @@ def test_vocoder_res_stack_contract(params):
     _close(out[:, 20:250], inner.numpy(), 1e-6)
     out, activated = vocoder._res_stack(res, x, 3, 0.01)
     assert not activated
+
+
+# ------------------------------------ inverse STFT, mel basis, Vocoder
+
+_STFT_CASES = {
+    "default": ({}, 44100),
+    "hop512_constant_odd": ({"hop_length": 512, "pad_mode": "constant"},
+                            44101),
+    "fewer_frames_than_rows": ({"hop_length": 512}, 1500),
+    "short_window": ({"win_length": 1024, "hop_length": 300}, 9001),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_STFT_CASES))
+def test_istft_matches_jax(name):
+    """``spectrogram_phase`` -> ``spectrogram_to_wav`` and ``istft`` with and
+    without ``length``, against the JAX package at 1e-5. A bin's phase is
+    known only to the sums' error over its magnitude, so cos and sin are
+    held through mag * cos and mag * sin, the STFT's real and imaginary
+    parts; the magnitude to 1e-5 relative."""
+    from voicefixer_tpu.config import STFTConfig as JaxSTFT
+    from voicefixer_tpu.ops import stft as jax_stft
+
+    from voicefixer_tpu_torch.config import STFTConfig
+    from voicefixer_tpu_torch.ops import stft
+    kw, n = _STFT_CASES[name]
+    pc, jc = STFTConfig(**kw), JaxSTFT(**kw)
+    x = _x((2, n), 20, 0.1)
+    jm, jcos, jsin = jax_stft.spectrogram_phase(_J(x), jc)
+    m, cos, sin = stft.spectrogram_phase(_T(x), pc)
+    _close(m, jm, 1e-5)
+    _close(m * cos, jm * jcos, 1e-5)
+    _close(m * sin, jm * jsin, 1e-5)
+    ref = jax_stft.spectrogram_to_wav(jm, jcos, jsin, jc, length=n)
+    got = stft.spectrogram_to_wav(m, cos, sin, pc, length=n)
+    assert got.shape == ref.shape
+    _close(got, ref, 1e-5)
+    re, im = _x((2, 7, pc.n_freqs), 21), _x((2, 7, pc.n_freqs), 22)
+    ref = jax_stft.istft(_J(re), _J(im), jc)
+    got = stft.istft(_T(re), _T(im), pc)
+    assert got.shape == ref.shape
+    _close(got, ref, 1e-5)
+
+
+def test_idft_matrices_match_jax():
+    """The same angles, reduced exactly; the two libraries' float32 sin and
+    cos differ by an ulp here and there."""
+    from voicefixer_tpu.ops import stft as jax_stft
+
+    from voicefixer_tpu_torch.ops import stft
+    for n_fft, win in ((2048, 2048), (512, 400)):
+        got = stft.idft_matrices(n_fft, win, torch.device("cpu"))
+        ref = jax_stft.idft_matrices_ingraph(n_fft, win)
+        for g, r in zip(got, ref):
+            np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-6,
+                                       atol=1e-10)
+
+
+@pytest.mark.parametrize("args", [(2048, 128, 44100), (1024, 80, 22050)])
+def test_librosa_mel_basis_matches_jax(args):
+    from voicefixer_tpu.ops import mel as jax_mel
+
+    from voicefixer_tpu_torch.ops import mel
+    np.testing.assert_array_equal(mel.librosa_mel_basis(*args),
+                                  jax_mel.librosa_mel_basis(*args))
+    np.testing.assert_array_equal(mel.melscale_fbanks(args[0] // 2 + 1),
+                                  jax_mel.melscale_fbanks(args[0] // 2 + 1))
+
+
+@pytest.fixture(scope="module")
+def vocoders(params):
+    _, jv, _, pv = params
+    return (jax_facade.Vocoder(params=jv, config=JCFG),
+            vocoder_facade.Vocoder(params=pv, config=CFG, device="cpu"))
+
+
+def test_vocoder_facade_forward(vocoders):
+    """``Vocoder.forward`` on [B, 1, T, 128] and [B, T, 128] -> [B, 1, S],
+    against the JAX package's facade (the vocoder's 2e-5)."""
+    jvoc, voc = vocoders
+    mel = np.abs(_x((2, 1, 23, 128), 23, 10.0))
+    ref = jvoc.forward(mel)
+    got = voc.forward(mel)
+    assert got.shape == ref.shape == (2, 1, (23 + 23 % 2 + 4) * 441)
+    _close(got, ref, 2e-5)
+    np.testing.assert_array_equal(voc(mel[:, 0]), got)
+    with pytest.raises(ValueError, match="mel bins"):
+        voc.forward(mel[..., :64])
+
+
+@pytest.mark.parametrize("pad_mode", ["constant", "reflect"])
+def test_vocoder_facade_oracle(vocoders, tmp_path, pad_mode):
+    """Copy synthesis from a 22.05 kHz file (resampled, peak-normalised,
+    librosa's mel) against the JAX package's, and the int16 file each
+    writes within one LSB."""
+    from scipy.io import wavfile
+    jvoc, voc = vocoders
+    src = str(tmp_path / "in.wav")
+    wavfile.write(src, 22050, (_x(9000, 24, 3000.0)).astype(np.int16))
+    ref = jvoc.oracle(src, str(tmp_path / "jax.wav"), pad_mode=pad_mode)
+    got = voc.oracle(src, str(tmp_path / "port.wav"), pad_mode=pad_mode)
+    t = 18000 // 441 + 1
+    assert got.shape == ref.shape == (1, (t + t % 2 + 4) * 441)
+    _close(got, ref, 2e-5)
+    a = wavfile.read(str(tmp_path / "port.wav"))[1].astype(np.int32)
+    b = wavfile.read(str(tmp_path / "jax.wav"))[1].astype(np.int32)
+    assert np.abs(a - b).max() <= 1
+
+
+def test_vocoder_facade_device_and_rate(monkeypatch):
+    with pytest.raises(RuntimeError, match="44100"):
+        vocoder_facade.Vocoder(sample_rate=16000, params={}, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        vocoder_facade.Vocoder.random(0, CFG)

@@ -23,7 +23,8 @@ from voicefixer_tpu_torch.config import tiny_test_config
 from voicefixer_tpu_torch.ops.conv import fold_bn_eval
 from voicefixer_tpu_torch.pipeline import restore
 from voicefixer_tpu_torch.utils.weights import from_jax_params
-from tests.test_torch_weights import jax_param_trees
+from tests.test_torch_weights import (jax_param_trees,  # noqa: F401
+                                      one_torch_thread)
 
 CFG, JCFG = tiny_test_config(), jax_tiny()
 TOL = 1e-5
@@ -143,13 +144,13 @@ def test_restore_inmem_short_tail_unpadded(params):
     np.testing.assert_allclose(got, ref, rtol=TOL, atol=TOL)
 
 
-@pytest.mark.parametrize("kwargs", [{"mode": 1}, {"mode": 2},
-                                    {"chunk_overlap_seconds": 1.0},
+@pytest.mark.parametrize("kwargs", [{"mode": 2},
                                     {"your_vocoder_func": lambda m: m}])
 def test_restore_inmem_unported_options_raise(params, kwargs):
     _, _, pa, pv = params
     vf = restore.VoiceFixer(pa, pv, config=CFG, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md Queue 1 item 7$"):
         vf.restore_inmem(_wav(1000, 7), **kwargs)
 
 
@@ -230,3 +231,125 @@ def test_conv_block_kernel_opt_in(params, monkeypatch):
                                  device="cpu").restore_inmem(wav)
     assert len(calls) == 12
     np.testing.assert_allclose(got, ref, rtol=TOL, atol=TOL)
+
+
+# ------------------------------------------------ mode 1 and overlap-add
+
+
+def _jax_cutoff(wav, jcfg):
+    """The cutoff bin of the JAX package's ``remove_higher_frequency``, its
+    lines on its own STFT (the function returns only the waveform)."""
+    from voicefixer_tpu.ops import stft as jstft
+    scfg = dataclasses.replace(jcfg.stft, hop_length=jcfg.stft.n_fft // 4,
+                               pad_mode="constant")
+    real, imag = jstft.stft_real_imag(jnp.asarray(wav)[None], scfg)
+    mag = jnp.sqrt(real * real + imag * imag)
+    feature = jnp.log10(mag + jax_restore.EPS)
+    energy = jnp.sum(jnp.where(feature < 0, 0.0, feature), axis=(0, 1))
+    cum = jnp.cumsum(energy)
+    return int(jnp.argmax(cum >= jnp.sum(energy)
+                          * jcfg.pipeline.hf_removal_ratio))
+
+
+@pytest.mark.parametrize("n,seed", [(44100, 11), (30001, 12), (700, 13)])
+def test_remove_higher_frequency_matches_jax(n, seed):
+    """Mode 1's preprocessing: the same cutoff bin, samples within 1e-5, the
+    shorter ISTFT length kept (hop * (T - 1); 0 samples for a segment
+    shorter than one hop)."""
+    wav = _wav(n, seed)
+    ref = np.asarray(jax.jit(functools.partial(
+        jax_restore.remove_higher_frequency, cfg=JCFG))(jnp.asarray(wav)))
+    got, cutoff = restore.remove_higher_frequency(
+        torch.from_numpy(wav), CFG, return_cutoff=True)
+    assert cutoff == _jax_cutoff(wav, JCFG)
+    assert got.shape == ref.shape == (512 * (n // 512),)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("a_len,n", [(10, 10), (14, 10), (15, 10), (7, 10),
+                                     (0, 4)])
+def test_fit_length_matches_jax(a_len, n):
+    a = np.arange(2 * a_len, dtype=np.float32).reshape(2, a_len)
+    np.testing.assert_array_equal(restore._fit_length(a, n),
+                                  jax_restore._fit_length(a, n))
+
+
+@pytest.mark.parametrize("total,seg,ramp", [(2500, 1000, 100),
+                                            (1000, 1000, 0),
+                                            (1900, 1000, 500)])
+def test_overlap_add_matches_jax(total, seg, ramp):
+    """The windows of ``_restore_overlap`` (a last one flush with the end),
+    random chunks, crossfaded the same way; a constant signal comes back
+    exactly."""
+    rng = np.random.default_rng(total)
+    stride = seg - ramp
+    positions = list(range(0, max(total - seg, 0) + 1, stride))
+    if positions[-1] + seg < total:
+        positions.append(total - seg)
+    chunks = [rng.standard_normal(seg).astype(np.float32) for _ in positions]
+    got = restore.overlap_add(chunks, positions, total, ramp)
+    np.testing.assert_array_equal(
+        got, jax_restore.overlap_add(chunks, positions, total, ramp))
+    ones = [np.ones(seg, np.float32)] * len(positions)
+    np.testing.assert_array_equal(
+        restore.overlap_add(ones, positions, total, ramp),
+        np.ones(total, np.float32))
+
+
+@pytest.mark.parametrize("kwargs", [{"chunk_overlap_seconds": 1.0},
+                                    {"mode": 1},
+                                    {"mode": 1, "chunk_overlap_seconds": 0.25}])
+def test_restore_inmem_overlap_and_mode1(params, kwargs):
+    """2.5 segments through the overlap path (1 s asks for more than half a
+    segment: the ramp is capped at half, four windows in one batch), mode 1
+    on hard seams (three shortened segments, the last padded), and mode 1
+    under overlap (each window refitted to a full segment), against the JAX
+    package on the same parameters."""
+    ja, jv, pa, pv = params
+    wav = _wav(int(CFG.pipeline.seg_length * 2.5), 14)
+    ref = jax_restore.VoiceFixer(params=ja, vocoder_params=jv,
+                                 config=JCFG).restore_inmem(wav, **kwargs)
+    got = restore.VoiceFixer(pa, pv, config=CFG,
+                             device="cpu").restore_inmem(wav, **kwargs)
+    assert got.shape == ref.shape
+    if kwargs.get("mode") == 1 and "chunk_overlap_seconds" not in kwargs:
+        assert got.shape == (2 * 512 * (CFG.pipeline.seg_length // 512)
+                             + 512 * (CFG.pipeline.seg_length // 2 // 512),)
+    else:
+        assert got.shape == wav.shape
+    np.testing.assert_allclose(got, ref, rtol=TOL, atol=TOL)
+
+
+def test_overlap_needs_more_than_one_segment(params, monkeypatch):
+    """One segment or less: the hard-seam path, whatever the overlap."""
+    _, _, pa, pv = params
+    vf = restore.VoiceFixer(pa, pv, config=CFG, device="cpu")
+    monkeypatch.setattr(vf, "_restore_overlap", lambda *a: pytest.fail(
+        "overlap path taken"))
+    wav = _wav(CFG.pipeline.seg_length, 15)
+    np.testing.assert_array_equal(
+        vf.restore_inmem(wav, chunk_overlap_seconds=1.0), vf.restore_inmem(wav))
+
+
+def test_restore_file_matches_jax(params, tmp_path):
+    """``restore``, file to file: a 22.05 kHz stereo int16 WAV in, mixed to
+    mono and resampled, restored, written as int16 WAV and as FLAC; the
+    port's files and the JAX package's agree within one LSB."""
+    from scipy.io import wavfile
+    ja, jv, pa, pv = params
+    src = str(tmp_path / "in.wav")
+    stereo = (np.random.default_rng(16).standard_normal((33075, 2)) * 3000
+              ).astype(np.int16)
+    wavfile.write(src, 22050, stereo)
+    jvf = jax_restore.VoiceFixer(params=ja, vocoder_params=jv, config=JCFG)
+    vf = restore.VoiceFixer(pa, pv, config=CFG, device="cpu")
+    for ext in ("wav", "flac"):
+        jvf.restore(src, str(tmp_path / f"jax.{ext}"))
+        vf.restore(src, str(tmp_path / f"port.{ext}"))
+    from voicefixer_tpu_torch.utils import audio_io
+    outs = {k: audio_io.read_audio(str(tmp_path / k))
+            for k in ("jax.wav", "port.wav", "jax.flac", "port.flac")}
+    for k, (sr, d) in outs.items():
+        assert sr == 44100 and d.shape == (66150, 1), k
+    np.testing.assert_array_equal(outs["port.wav"][1], outs["port.flac"][1])
+    assert np.abs(outs["port.wav"][1] - outs["jax.wav"][1]).max() <= 1 / 32768

@@ -28,7 +28,8 @@ from voicefixer_tpu_torch.parallel.sp import (apply_sp, exchange_halo,
                                               synthesize_sp)
 from voicefixer_tpu_torch.pipeline import vocoder_facade
 from voicefixer_tpu_torch.utils.weights import from_jax_params
-from tests.test_torch_weights import jax_param_trees
+from tests.test_torch_weights import (jax_param_trees,  # noqa: F401
+                                      one_torch_thread)
 
 TOL = 2e-5
 

@@ -10,6 +10,7 @@ statistics so that every leaf matters.
 
 import functools
 import math
+import pathlib
 import subprocess
 import sys
 
@@ -30,6 +31,19 @@ from voicefixer_tpu_torch.utils.weights import (count_leaves,
                                                load_pytree_npz, pack_bn,
                                                pack_conv3x3, pack_shortcut,
                                                res_bank)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op torch thread while a module's tests run. The suite runs
+    in several processes at once, and torch's default of a thread per core
+    in each of them oversubscribes the CPU many times over: the port's
+    tests took about four times as long. The other test_torch_* files
+    import this fixture, which applies it to them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _fill(tree, rng, name=""):
@@ -174,8 +188,10 @@ def test_port_imports_no_jax():
         "import voicefixer_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "assert 'voicefixer_tpu_torch.parallel.sp' in sys.modules\n"
-        "assert 'voicefixer_tpu_torch.kernels.convblock' in sys.modules\n"
+        "for m in ('parallel.sp', 'kernels.convblock', 'pipeline.checkpoints',\n"
+        "          'utils.audio_io', 'utils.flac', 'utils.flac_enc',\n"
+        "          '__main__'):\n"
+        "    assert 'voicefixer_tpu_torch.' + m in sys.modules, m\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "       or k == 'voicefixer_tpu' or k.startswith('voicefixer_tpu.')]\n"
         "assert not bad, bad\n"
@@ -184,6 +200,22 @@ def test_port_imports_no_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+    # chip_smoke.py and the shared checkpoint writer, every import in them
+    # (inside functions too)
+    import ast
+    root = pathlib.Path(__file__).resolve().parent.parent
+    for rel in ("chip_smoke.py", "tools/torch_ref_state_dict.py"):
+        names = []
+        for node in ast.walk(ast.parse((root / rel).read_text())):
+            if isinstance(node, ast.Import):
+                names += [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names.append(node.module or "")
+        assert "voicefixer_tpu_torch" in " ".join(names) or rel != \
+            "chip_smoke.py"
+        bad = [n for n in names if n.split(".")[0] in ("jax",
+                                                       "voicefixer_tpu")]
+        assert not bad, (rel, bad)
 
 
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch):

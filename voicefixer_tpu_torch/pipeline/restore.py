@@ -1,10 +1,15 @@
-"""End-to-end restoration, mode 0: wav -> analysis -> vocoder -> wav, as
-``voicefixer_tpu/pipeline/restore.py`` (upstream VoiceFixer.restore_inmem):
-30 s segments, short and tail segments zero-padded to a full segment, equal
-lengths batched, a per-chunk peak cap, and the upstream centre trim.
+"""End-to-end restoration, modes 0 and 1: wav -> analysis -> vocoder ->
+wav, as ``voicefixer_tpu/pipeline/restore.py`` (upstream
+VoiceFixer.restore_inmem and restore): 30 s segments, short and tail
+segments zero-padded to a full segment, equal lengths batched, a per-chunk
+peak cap, and the upstream centre trim; or, with ``chunk_overlap_seconds``,
+overlapping windows stitched by a crossfade. Mode 1 first zeroes the STFT
+bins above a cumulative log-energy cutoff (``remove_higher_frequency``).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -15,10 +20,69 @@ from voicefixer_tpu_torch.models import analysis, resunet
 from voicefixer_tpu_torch.models import vocoder as vocoder_model
 from voicefixer_tpu_torch.ops.conv import fold_bn_eval
 from voicefixer_tpu_torch.ops.norm import from_log
+from voicefixer_tpu_torch.ops import stft as vstft
 from voicefixer_tpu_torch.ops.precision import (conv_block_kernel, tf32_off,
                                                use_conv_block_kernel)
 from voicefixer_tpu_torch.pipeline import vocoder_facade
-from voicefixer_tpu_torch.utils.weights import tree_map
+from voicefixer_tpu_torch.utils.weights import convert_tree, tree_map
+
+EPS = 1e-8
+UNPORTED = "ROADMAP.md Queue 1 item 7"
+
+
+def remove_higher_frequency(wav: torch.Tensor, cfg: VoiceFixerConfig,
+                            pad_mode: str = "constant",
+                            return_cutoff: bool = False):
+    """Mode 1's preprocessing: zero every STFT bin from the first one at
+    which the cumulative log energy reaches ``hf_removal_ratio`` of its
+    total, then invert. librosa.stft's defaults: n_fft 2048, hop
+    n_fft // 4, centred with ``pad_mode``; the inverse gives hop * (T - 1)
+    samples, a little fewer than went in, as upstream. wav [N] -> [N'];
+    with ``return_cutoff`` also the cutoff bin (an int)."""
+    scfg = dataclasses.replace(cfg.stft, hop_length=cfg.stft.n_fft // 4,
+                               pad_mode=pad_mode)
+    real, imag = vstft.stft_real_imag(wav[None], scfg)  # [1, T, F]
+    mag = torch.sqrt(real * real + imag * imag)
+    cos, sin = real / (mag + EPS), imag / (mag + EPS)
+    feature = torch.log10(mag + EPS)
+    feature = torch.where(feature < 0, torch.zeros_like(feature), feature)
+    energy_level = feature.sum(dim=(0, 1))  # [F]
+    threshold = energy_level.sum() * cfg.pipeline.hf_removal_ratio
+    cum = torch.cumsum(energy_level, dim=0)
+    cutoff = torch.argmax((cum >= threshold).to(torch.int32))  # first bin
+    keep = torch.arange(mag.shape[-1], device=mag.device) < cutoff
+    spec = mag * keep
+    out = vstft.istft(spec * cos, spec * sin, scfg)[0]
+    return (out, int(cutoff)) if return_cutoff else out
+
+
+def _fit_length(a: np.ndarray, n: int) -> np.ndarray:
+    """Centre-trim to n if longer, zero-pad at the tail if shorter."""
+    a = _trim_center(a, n)
+    if a.shape[-1] < n:
+        a = np.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, n - a.shape[-1])])
+    return a
+
+
+def overlap_add(chunks: list, positions: list, total: int,
+                ramp: int) -> np.ndarray:
+    """Weighted overlap-add: each chunk fades in and out linearly over
+    ``ramp`` samples at its interior boundaries, and the weights are
+    normalised, so a constant signal comes back exactly. The quality mode
+    for long audio; the hard seams of upstream's concatenation are the
+    default."""
+    out = np.zeros(total, dtype=np.float64)
+    wsum = np.zeros(total, dtype=np.float64)
+    for chunk, pos in zip(chunks, positions):
+        n = chunk.shape[-1]
+        w = np.ones(n, dtype=np.float64)
+        if pos > 0:
+            w[:ramp] = np.linspace(0.0, 1.0, ramp, endpoint=False)
+        if pos + n < total:
+            w[n - ramp:] = np.linspace(1.0, 0.0, ramp, endpoint=False)
+        out[pos:pos + n] += w * chunk.astype(np.float64)
+        wsum[pos:pos + n] += w
+    return (out / np.maximum(wsum, 1e-12)).astype(np.float32)
 
 
 def _trim_center(est: np.ndarray, ref_len: int) -> np.ndarray:
@@ -79,10 +143,18 @@ def resolve_device(device) -> torch.device:
 
 
 class VoiceFixer:
-    """Restoration API mirroring upstream ``VoiceFixer``, mode 0.
+    """Restoration API mirroring upstream ``VoiceFixer``, modes 0 and 1.
 
     params / vocoder_params: the port's parameter trees (``analysis.init``
-    and ``vocoder.init``, or ``utils.weights.from_jax_params``).
+    and ``vocoder.init``, or ``utils.weights.from_jax_params``). Where one
+    is None it is loaded from ``ckpt`` / ``vocoder_ckpt`` (an npz tree or a
+    torch checkpoint) or the local caches, as
+    ``pipeline.checkpoints.load_analysis_params`` and
+    ``load_vocoder_params`` resolve them; ``download`` is accepted for the
+    JAX package's signature, and nothing is downloaded.
+
+    device: None means CUDA, and raises without a card; pass "cpu" for the
+    plain versions.
 
     model_devices: the counterpart of the JAX package's mesh with a model
     axis. With more than one entry the vocoder runs time-sharded over them
@@ -96,11 +168,24 @@ class VoiceFixer:
     (``resunet.pack_conv_blocks``). Off by default, as in the JAX
     package."""
 
-    def __init__(self, params: dict, vocoder_params: dict,
+    def __init__(self, params: dict | None = None,
+                 vocoder_params: dict | None = None,
                  config: VoiceFixerConfig = DEFAULT_CONFIG, device=None,
-                 model_devices=None, conv_block_kernel: bool = False):
+                 model_devices=None, conv_block_kernel: bool = False,
+                 ckpt: str | None = None, vocoder_ckpt: str | None = None,
+                 download: bool = True):
         self.device = resolve_device(device)
         self.config = config
+        if params is None or vocoder_params is None:
+            from voicefixer_tpu_torch.pipeline import checkpoints
+            if params is None:
+                params = convert_tree(
+                    checkpoints.load_analysis_params(ckpt, download),
+                    "analysis", self.device)
+            if vocoder_params is None:
+                vocoder_params = convert_tree(
+                    checkpoints.load_vocoder_params(vocoder_ckpt, download),
+                    "vocoder", self.device)
         self.conv_block_kernel = bool(conv_block_kernel)
         self.params = fold_bn_eval(
             tree_map(lambda t: t.to(self.device), params))
@@ -128,29 +213,53 @@ class VoiceFixer:
                    vocoder_model.init(config.vocoder, gen, device),
                    config=config, device=device, **kwargs)
 
+    def _hf(self, wav: np.ndarray) -> np.ndarray:
+        """``remove_higher_frequency`` of one segment on the instance's
+        device."""
+        with tf32_off(), torch.inference_mode():
+            out = remove_higher_frequency(
+                torch.from_numpy(wav).to(self.device), self.config)
+        return out.cpu().numpy()
+
+    def _restore_batch(self, batch: np.ndarray):
+        """restore_batch of [B, N] chunks -> (outs [B, S], peaks [B]) as
+        numpy."""
+        with conv_block_kernel(self.conv_block_kernel
+                               or use_conv_block_kernel()):
+            outs, peaks = restore_batch(
+                self.params, self.vocoder_params,
+                torch.from_numpy(batch).to(self.device), self.config,
+                model_devices=self.model_devices)
+        return outs.float().cpu().numpy(), peaks.float().cpu().numpy()
+
     def restore_inmem(self, wav_10k: np.ndarray, cuda: bool = False,
                       mode: int = 0, your_vocoder_func=None, seed: int = 0,
                       chunk_overlap_seconds: float = 0.0) -> np.ndarray:
-        """wav [N] at 44.1 kHz -> restored wav [N]. ``cuda`` and ``seed`` are
-        accepted for API compatibility; the device is the instance's."""
+        """wav [N] at 44.1 kHz -> restored wav [N] (mode 1: a little shorter,
+        as upstream). mode 0: eval; mode 1: eval after
+        ``remove_higher_frequency`` on each 30 s segment.
+        ``chunk_overlap_seconds`` > 0 stitches an input longer than one
+        segment from overlapping windows (``_restore_overlap``) instead of
+        hard seams. ``cuda`` and ``seed`` are accepted for API
+        compatibility; the device is the instance's."""
         if mode not in (0, 1, 2):
             raise ValueError(f"mode must be 0, 1, or 2, got {mode}")
-        if mode != 0:
+        if mode == 2:
             raise NotImplementedError(
-                f"mode {mode} is not ported yet: ROADMAP.md Queue 1 "
-                "items 6-7")
+                f"mode 2 is not ported yet: {UNPORTED}")
         if your_vocoder_func is not None:
             raise NotImplementedError(
-                "your_vocoder_func is not ported yet: ROADMAP.md Queue 1 "
-                "item 7")
-        if chunk_overlap_seconds > 0:
-            raise NotImplementedError(
-                "chunk_overlap_seconds (overlap_add, _restore_overlap) is not "
-                "ported yet: ROADMAP.md Queue 1 item 4")
+                f"your_vocoder_func is not ported yet: {UNPORTED}")
         wav_10k = np.asarray(wav_10k, dtype=np.float32).reshape(-1)
         seg_length = self.config.pipeline.seg_length
+        if chunk_overlap_seconds > 0 and wav_10k.shape[0] > seg_length:
+            return self._restore_overlap(wav_10k, mode,
+                                         chunk_overlap_seconds)
         segments = [wav_10k[s: s + seg_length]
                     for s in range(0, wav_10k.shape[0], seg_length)]
+        if mode == 1:
+            # the trims below target the shorter post-ISTFT length
+            segments = [self._hf(seg) for seg in segments]
         orig_lens: dict = {}
         if self.config.pipeline.pad_short_to_seg:
             for i, seg in enumerate(segments):
@@ -162,20 +271,53 @@ class VoiceFixer:
             groups.setdefault(seg.shape[0], []).append(i)
         res: list = [None] * len(segments)
         for seg_len, idxs in groups.items():
-            batch = torch.from_numpy(np.stack([segments[i] for i in idxs]))
-            with conv_block_kernel(self.conv_block_kernel
-                                   or use_conv_block_kernel()):
-                outs, peaks = restore_batch(
-                    self.params, self.vocoder_params, batch.to(self.device),
-                    self.config, model_devices=self.model_devices)
-            outs = outs.float().cpu().numpy()
+            outs, peaks = self._restore_batch(
+                np.stack([segments[i] for i in idxs]))
             for j, i in enumerate(idxs):
-                peak = float(peaks[j])
-                if peak > 1.0:
-                    print("Warning: Exceed energy limit,", peak)
+                if peaks[j] > 1.0:
+                    print("Warning: Exceed energy limit,", float(peaks[j]))
                 out = _trim_center(outs[j], seg_len)
                 # a padded chunk's real audio is its head
                 if i in orig_lens:
                     out = out[:orig_lens[i]]
                 res[i] = out
         return np.concatenate(res, axis=-1)
+
+    def _restore_overlap(self, wav: np.ndarray, mode: int,
+                         overlap_seconds: float) -> np.ndarray:
+        """Full-segment windows ``overlap_seconds`` apart at their seams, all
+        in one batch, stitched by ``overlap_add``. In mode 1 each window is
+        ``remove_higher_frequency``'d and padded back to a full segment (the
+        crossfade covers the sub-hop tail)."""
+        seg = self.config.pipeline.seg_length
+        n = wav.shape[0]
+        ramp = min(int(overlap_seconds * self.config.pipeline.sample_rate),
+                   seg // 2)
+        stride = seg - ramp
+        positions = list(range(0, max(n - seg, 0) + 1, stride))
+        if positions[-1] + seg < n:
+            positions.append(n - seg)
+        windows = [wav[pos: pos + seg] for pos in positions]
+        if mode == 1:
+            windows = [_fit_length(self._hf(w), seg) for w in windows]
+        outs, peaks = self._restore_batch(np.stack(windows))
+        chunks = []
+        for j in range(len(positions)):
+            if peaks[j] > 1.0:
+                print("Warning: Exceed energy limit,", float(peaks[j]))
+            chunks.append(_fit_length(outs[j], seg))
+        return overlap_add(chunks, positions, n, ramp)
+
+    def restore(self, input: str, output: str, cuda: bool = False,
+                mode: int = 0, your_vocoder_func=None, seed: int = 0,
+                chunk_overlap_seconds: float = 0.0):
+        """File to file: read (any rate, mixed to mono, resampled to 44.1
+        kHz), ``restore_inmem``, write int16 WAV or FLAC by the extension."""
+        from voicefixer_tpu_torch.utils import audio_io
+        sr = self.config.pipeline.sample_rate
+        wav = audio_io.load_wav(input, sample_rate=sr)
+        out = self.restore_inmem(wav, cuda=cuda, mode=mode,
+                                 your_vocoder_func=your_vocoder_func,
+                                 seed=seed,
+                                 chunk_overlap_seconds=chunk_overlap_seconds)
+        audio_io.save_wave(out, fname=output, sample_rate=sr)

@@ -1,5 +1,6 @@
 """Parameter trees of the port: the bridge from the JAX package's trees,
-random init, and the npz format of ``voicefixer_tpu/utils/weights.py``.
+random init, the npz format of ``voicefixer_tpu/utils/weights.py``, and the
+conversion of the upstream torch checkpoints into that JAX-layout tree.
 
 The port's trees have the JAX package's structure and shapes, leaf for leaf:
 nested dicts and lists of tensors, conv weights [K, Cin, Cout] and
@@ -14,6 +15,179 @@ import re
 
 import numpy as np
 import torch
+
+# ------------------------------------------------ torch checkpoint -> tree
+#
+# An own copy of ``voicefixer_tpu/utils/weights.py``'s converters, numpy
+# only apart from ``torch.load``. Both upstream checkpoints convert to the
+# JAX package's tree (numpy leaves), which ``from_jax_params`` turns into
+# the port's; so one checkpoint gives both packages the same numbers.
+# - ``vf.ckpt``: the analysis module's flat state dict, subtrees
+#   ``generator.denoiser.*`` and ``generator.unet.*``;
+# - ``model.ckpt-1490000_trimed.pt``: {"generator": state_dict} with weight
+#   norm, folded to plain kernels here.
+# Layouts: Conv1d [Cout, Cin, K] -> [K, Cin, Cout]; Conv2d [Cout, Cin, Kh,
+# Kw] -> [Kh, Kw, Cin, Cout]; ConvTranspose1d [Cin, Cout, K] -> [K, Cin,
+# Cout] (torch tap order kept); ConvTranspose2d [Cin, Cout, Kh, Kw] -> [Kh,
+# Kw, Cin, Cout]; Linear [Out, In] -> [In, Out].
+
+
+def load_torch_state_dict(path: str) -> dict:
+    """A torch checkpoint -> {key: np.ndarray}, no modules built. A
+    {"generator": state_dict} checkpoint gives the generator's dict."""
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(obj, dict) and "generator" in obj and all(
+            not k.startswith("generator.") for k in obj):
+        obj = obj["generator"]
+    if hasattr(obj, "state_dict"):
+        obj = obj.state_dict()
+    return {k: v.detach().cpu().numpy() if hasattr(v, "detach") else
+            np.asarray(v) for k, v in obj.items()}
+
+
+def resolve_weight(sd: dict, prefix: str) -> np.ndarray:
+    """The effective ``weight`` at ``prefix``. Weight norm, stored as
+    (weight_g, weight_v) or parametrizations.weight.original{0,1}, is folded
+    in float64: W = g * v / ||v||, the norm over every dim but dim 0."""
+    if f"{prefix}.weight" in sd:
+        return sd[f"{prefix}.weight"]
+    for g_key, v_key in (
+            (f"{prefix}.weight_g", f"{prefix}.weight_v"),
+            (f"{prefix}.parametrizations.weight.original0",
+             f"{prefix}.parametrizations.weight.original1")):
+        if g_key in sd and v_key in sd:
+            g, v = sd[g_key], sd[v_key]
+            axes = tuple(range(1, v.ndim))
+            norm = np.sqrt(np.sum(v.astype(np.float64) ** 2, axis=axes,
+                                  keepdims=True))
+            return (g.astype(np.float64) * v.astype(np.float64) / norm
+                    ).astype(v.dtype)
+    raise KeyError(f"no weight found for {prefix}")
+
+
+def _conv1d(sd, prefix):
+    return {"w": resolve_weight(sd, prefix).transpose(2, 1, 0),
+            "b": sd[f"{prefix}.bias"]}
+
+
+def _conv2d(sd, prefix, bias=True):
+    p = {"w": resolve_weight(sd, prefix).transpose(2, 3, 1, 0)}
+    if bias:
+        p["b"] = sd[f"{prefix}.bias"]
+    return p
+
+
+def _convT1d(sd, prefix):
+    return {"w": resolve_weight(sd, prefix).transpose(2, 0, 1),
+            "b": sd[f"{prefix}.bias"]}
+
+
+def _convT2d_nobias(sd, prefix):
+    return {"w": resolve_weight(sd, prefix).transpose(2, 3, 0, 1)}
+
+
+def _linear(sd, prefix):
+    return {"w": sd[f"{prefix}.weight"].T, "b": sd[f"{prefix}.bias"]}
+
+
+def _bn(sd, prefix):
+    return {"gamma": sd[f"{prefix}.weight"], "beta": sd[f"{prefix}.bias"],
+            "mean": sd[f"{prefix}.running_mean"],
+            "var": sd[f"{prefix}.running_var"]}
+
+
+def _gru(sd, prefix, num_layers, bidirectional):
+    params = {}
+    for layer in range(num_layers):
+        for suffix in ([""] + (["_reverse"] if bidirectional else [])):
+            params[f"l{layer}{suffix}"] = {
+                "w_ih": sd[f"{prefix}.weight_ih_l{layer}{suffix}"],
+                "w_hh": sd[f"{prefix}.weight_hh_l{layer}{suffix}"],
+                "b_ih": sd[f"{prefix}.bias_ih_l{layer}{suffix}"],
+                "b_hh": sd[f"{prefix}.bias_hh_l{layer}{suffix}"],
+            }
+    return params
+
+
+def convert_denoiser(sd: dict, prefix: str = "") -> dict:
+    """The denoiser's Sequential indices (upstream restorer/model.py)."""
+    p = prefix
+    return {
+        "bn0": _bn(sd, f"{p}0"),
+        "fc1": _linear(sd, f"{p}1"),
+        "bn3": _bn(sd, f"{p}3"),
+        "fc4": _linear(sd, f"{p}4"),
+        "gru7": {"bn": _bn(sd, f"{p}7.bn"),
+                 "gru": _gru(sd, f"{p}7.gru", 2, True)},
+        "gru8": {"bn": _bn(sd, f"{p}8.bn"),
+                 "gru": _gru(sd, f"{p}8.gru", 2, True)},
+        "bn9": _bn(sd, f"{p}9"),
+        "fc11": _linear(sd, f"{p}11"),
+        "bn13": _bn(sd, f"{p}13"),
+        "fc15": _linear(sd, f"{p}15"),
+    }
+
+
+def _conv_block(sd, prefix):
+    p = {"bn1": _bn(sd, f"{prefix}.bn1"),
+         "conv1": _conv2d(sd, f"{prefix}.conv1", bias=False),
+         "bn2": _bn(sd, f"{prefix}.bn2"),
+         "conv2": _conv2d(sd, f"{prefix}.conv2", bias=False)}
+    if f"{prefix}.shortcut.weight" in sd:
+        p["shortcut"] = _conv2d(sd, f"{prefix}.shortcut")
+    return p
+
+
+def convert_resunet(sd: dict, prefix: str = "") -> dict:
+    """The ResUNet's module names (upstream model_kqq_bn.py): 6 encoder
+    levels of 4 blocks, the centre block, 6 decoder levels."""
+    p = prefix
+    params = {}
+    for i in range(1, 7):
+        params[f"enc{i}"] = {
+            f"block{j}": _conv_block(sd, f"{p}encoder_block{i}.conv_block{j}")
+            for j in range(1, 5)}
+    params["center"] = _conv_block(sd, f"{p}conv_block7")
+    for i in range(1, 7):
+        d = {"bn1": _bn(sd, f"{p}decoder_block{i}.bn1"),
+             "conv1": _convT2d_nobias(sd, f"{p}decoder_block{i}.conv1")}
+        for j in range(2, 6):
+            d[f"block{j}"] = _conv_block(
+                sd, f"{p}decoder_block{i}.conv_block{j}")
+        params[f"dec{i}"] = d
+    params["after1"] = _conv_block(sd, f"{p}after_conv_block1")
+    params["after2"] = _conv2d(sd, f"{p}after_conv2")
+    return params
+
+
+def convert_analysis(sd: dict) -> dict:
+    """vf.ckpt's state dict -> the analysis tree (denoiser + unet). The
+    frozen STFT convs (f_helper.*) and the mel fbank (mel.fb) are computed,
+    not loaded."""
+    return {"denoiser": convert_denoiser(sd, "generator.denoiser."),
+            "unet": convert_resunet(sd, "generator.unet.")}
+
+
+def convert_vocoder(sd: dict, prefix: str = "") -> dict:
+    """The vocoder generator's state dict -> the vocoder tree. Sequential
+    indices (upstream generator.py): condnet.{0,2,4,6,8}, generator.1 (pre
+    conv), the stages' upsamples at generator.{3,6,9,12}.layer and their
+    ResStacks at generator.{4,7,10,13}.layers.{i}.{1,3}, generator.16 (post
+    conv). The unused UpsampleNet.skip_conv is dropped."""
+    p = prefix
+    params = {
+        "condnet": [_conv1d(sd, f"{p}condnet.{i}") for i in (0, 2, 4, 6, 8)],
+        "pre": _conv1d(sd, f"{p}generator.1"),
+        "post": _conv1d(sd, f"{p}generator.16"),
+        "stages": [],
+    }
+    for up_idx, res_idx in ((3, 4), (6, 7), (9, 10), (12, 13)):
+        res = [{"c1": _conv1d(sd, f"{p}generator.{res_idx}.layers.{i}.1"),
+                "c2": _conv1d(sd, f"{p}generator.{res_idx}.layers.{i}.3")}
+               for i in range(8)]
+        params["stages"].append(
+            {"up": _convT1d(sd, f"{p}generator.{up_idx}.layer"), "res": res})
+    return params
 
 
 def tree_map(fn, tree):
@@ -193,18 +367,57 @@ def count_leaves(tree) -> int:
     return n
 
 
-def from_jax_params(analysis_tree: dict, vocoder_tree: dict, device="cpu"):
-    """The JAX package's parameter trees (numpy leaves, as ``analysis.init``,
-    ``vocoder.init`` and ``load_pytree_npz`` give them) -> the port's trees
-    (float32 tensors on ``device``), leaf for leaf. Every leaf is consumed;
-    an unknown or missing key raises KeyError."""
+def convert_tree(tree: dict, which: str, device="cpu"):
+    """One JAX package tree, ``which`` "analysis" or "vocoder" (numpy
+    leaves, as ``analysis.init``, ``vocoder.init`` and ``load_pytree_npz``
+    give them) -> the port's tree (float32 tensors on ``device``), leaf for
+    leaf. Every leaf is consumed; an unknown or missing key raises
+    KeyError."""
     br = _Bridge(device)
-    a = br.analysis(analysis_tree, "analysis")
-    v = br.vocoder(vocoder_tree, "vocoder")
-    total = count_leaves(analysis_tree) + count_leaves(vocoder_tree)
-    if br.leaves != total:
-        raise KeyError(f"converted {br.leaves} of {total} leaves")
-    return a, v
+    out = getattr(br, which)(tree, which)
+    if br.leaves != count_leaves(tree):
+        raise KeyError(f"{which}: converted {br.leaves} of "
+                       f"{count_leaves(tree)} leaves")
+    return out
+
+
+def from_jax_params(analysis_tree: dict, vocoder_tree: dict, device="cpu"):
+    """Both JAX package trees -> the port's (``convert_tree``)."""
+    return (convert_tree(analysis_tree, "analysis", device),
+            convert_tree(vocoder_tree, "vocoder", device))
+
+
+def save_pytree_npz(params, path: str, provenance: str | None = None):
+    """A tree of arrays -> an npz file, keys joined by '/'. ``provenance``
+    goes under the reserved key "__provenance__" (``npz_provenance`` reads
+    it; loaders skip "__" keys). The JAX package reads and writes the same
+    format."""
+    flat = {}
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{prefix}/{k}" if prefix else k)
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{prefix}/{i}")
+        else:
+            if isinstance(node, torch.Tensor):
+                node = node.detach().cpu().numpy()
+            flat[prefix] = np.asarray(node)
+
+    walk(params, "")
+    if provenance is not None:
+        flat["__provenance__"] = np.asarray(provenance)
+    np.savez(path, **flat)
+
+
+def npz_provenance(path: str) -> str | None:
+    """The provenance label of a tree's npz, if it has one."""
+    with np.load(path) as z:
+        if "__provenance__" in z.files:
+            return str(z["__provenance__"])
+    return None
 
 
 def load_pytree_npz(path: str) -> dict:
