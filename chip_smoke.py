@@ -8,15 +8,21 @@ res_chain, res_shift_single and up_res_stream, and res_stream, gru_seq and
 conv_block_res, each also timed against the library call (cuFFT, cuDNN) that
 computes the same function and that the port does not use.
 
-Five paths are driven, each with the launch counts set to 0 just before and
-read and asserted just after: the default main path; the same restore with
-the vocoder time-sharded four ways on the one card (res_stream, and
+These paths are driven, each with the launch counts set to 0 just before
+and read and asserted just after: the default main path; the same restore
+with the vocoder time-sharded four ways on the one card (res_stream, and
 res_chain and res_shift_single under a signal window); the same restore with
 the fused ConvBlockRes kernel opted in (conv_block_res); a two-layer
-unidirectional GRU (gru_seq); and the file path, three runs of the command
-line (``voicefixer_tpu_torch.__main__.main``) on upstream-layout torch
+unidirectional GRU (gru_seq); mode 2 (batch statistics and dropout, the
+launches of mode 0, none of conv_block_res); a custom vocoder hook (only
+stft_mel and gru_bidir); the analysis-stage trainer (``train/``: gru_bidir
+under grad, its backward in torch ops, ``kernels.gru.GruBidir``), whose
+first step is held to the same step with the GRU on its plain version; and
+the file path, three runs of the command line
+(``voicefixer_tpu_torch.__main__.main``) on upstream-layout torch
 checkpoints written by ``tools/torch_ref_state_dict.py``: mode 0, FLAC with
-overlap-add, mode 1.
+overlap-add, mode 1. K6's backward is held to autograd through the plain
+loop and timed against ``nn.GRU``'s.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --cards N    # N >= 2 cards: only the sharded
@@ -115,6 +121,31 @@ SNR_SECONDS = 2  # the CPU side runs the full-width plain path
 FILE_SECONDS = 45
 FILE_LSB = 2
 HF_ATOL = 1e-4
+# The trainer: batches of two 3 s pairs (``train.data.PairedDataset``'s
+# default chunk), 301 STFT frames; three counted steps, then timed ones.
+TRAIN_BATCH, TRAIN_SECONDS, TRAIN_STEPS, TRAIN_TIMED = 2, 3.0, 3, 3
+TRAIN_FRAMES = 301
+# K6's backward (torch ops on the kernel's states) against autograd through
+# the plain loop (on the loop's own states), relative to each gradient's
+# largest element: the states differ by the forward's float32 rounding
+# (1e-5) or, in bfloat16, by an ulp of h (2^-8) now and then, carried
+# through the reverse recurrence.
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 2 ** -6}
+# The trainer's first step with K6 against the same step with the GRU on
+# its plain version, cuDNN deterministic on both. The loss, with the plain
+# GRU's own forward: within 1e-4 relative. The gradients: the step's
+# gradients are not continuous in the GRU's outputs (the ReLUs and clamps
+# after it; a random 1e-7 relative change of those outputs moved them by
+# up to 3.6e-3 of a leaf's largest element on the CPU at tiny_test_config),
+# so the plain step takes the kernel's output values (r + (k - r).detach())
+# and differentiates through the plain loop: each leaf within 1e-3 of its
+# largest element (floored at 1e-3 of the largest gradient anywhere, for
+# the biases ahead of a batch-statistics BN, whose gradient is rounding
+# noise). K6's backward alone agrees to about 1e-6 (GRAD_TOL's phase); the
+# backward of the batch-statistics BNs in front of it subtracts means of
+# gradients and amplifies that (3.5e-5 on the CPU at tiny_test_config, the
+# forward there the same on both sides).
+TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
 
 
 def log(*a):
@@ -1062,14 +1093,16 @@ def phase_main_path(device):
     return vf, wavs["30s"], outs, counts
 
 
-def _timed_restore(mode: str, what: str, vf, wav, device):
-    """Best-of-3 host-clock ms of vf.restore_inmem(wav)."""
+def _timed_restore(mode: str, what: str, vf, wav, device,
+                   kwargs: dict | None = None):
+    """Best-of-3 host-clock ms of vf.restore_inmem(wav, **kwargs)."""
     import torch
+    kwargs = kwargs or {}
     walls = []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        vf.restore_inmem(wav)
+        vf.restore_inmem(wav, **kwargs)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     log(f"  {mode} {what}: ms per 30 s chunk (host clock, wav in to wav out) "
@@ -1079,17 +1112,20 @@ def _timed_restore(mode: str, what: str, vf, wav, device):
     return min(walls)
 
 
-def _counted_restore(mode: str, what: str, vf, wav, want: dict):
-    """One restore, after a warm-up (cuDNN plans, kernel load), with the
-    launch counts set to 0 just before and read just after; the counts must
-    be ``want`` and the output sound."""
+def _counted_restore(mode: str, what: str, vf, wav, want: dict,
+                     kwargs: dict | None = None):
+    """One restore (``restore_inmem(wav, **kwargs)``), after a warm-up
+    (cuDNN plans, kernel load), with the launch counts set to 0 just before
+    and read just after; the counts must be ``want`` and the output
+    sound."""
     import numpy as np
     import torch
     from voicefixer_tpu_torch import kernels
-    vf.restore_inmem(wav)
+    kwargs = kwargs or {}
+    vf.restore_inmem(wav, **kwargs)
     torch.cuda.synchronize()
     kernels.reset_launches()
-    out = vf.restore_inmem(wav)
+    out = vf.restore_inmem(wav, **kwargs)
     counts = dict(kernels.launches)
     if out.shape != wav.shape or not np.isfinite(out).all() \
             or float(np.abs(out).max()) > 1.0:
@@ -1301,6 +1337,344 @@ def phase_gru_path(device):
     log(f"  launches {counts}; {ms:.3f} ms a call (projections and "
         f"{layers} gru_seq launches), nn.GRU {lib_ms:.3f} ms")
     return counts
+
+
+def phase_gru_backward(device):
+    """K6 under grad (``kernels.gru.GruBidir``) at the trainer's shape, H =
+    256, B = 2, T = 301, and at H = 1, T = 5, both types: the gradients of
+    both directions' projections, W and b against autograd through the
+    plain loop on the card; the backward timed against ``nn.GRU``'s (cuDNN)
+    on the same weights, whose backward also runs its input projection's.
+    Returns {dtype: {"ms", "library_ms", "err"}} of one launch's backward
+    at the trainer's shape."""
+    import torch
+    from voicefixer_tpu_torch import kernels
+    from voicefixer_tpu_torch.config import DEFAULT_CONFIG as C
+    from voicefixer_tpu_torch.kernels.gru import (gru_bidir_cat,
+                                                  gru_bidir_reference)
+    from voicefixer_tpu_torch.ops.precision import tf32_off
+    log("== K6 backward: GruBidir against autograd through the plain loop")
+    h0 = C.denoiser.base_width
+    gen = torch.Generator().manual_seed(SEED + 4)
+    res = {}
+    with tf32_off():
+        for dtype in ("float32", "bfloat16"):
+            mm = getattr(torch, dtype)
+            for h, t, b in ((h0, TRAIN_FRAMES, TRAIN_BATCH), (1, 5, 2)):
+                bound = h ** -0.5
+                u = lambda *s: ((torch.rand(s, generator=gen) * 2 - 1)  # noqa: E731
+                                * bound).to(device)
+                x = torch.randn((b, t, 2 * h), generator=gen).to(device)
+                w_ih = [u(3 * h, 2 * h) for _ in range(2)]
+                w_hh = [u(3 * h, h) for _ in range(2)]
+                b_ih = [u(3 * h) for _ in range(2)]
+                b_hh = [u(3 * h) for _ in range(2)]
+                args = [(x @ w_ih[0].T + b_ih[0]).requires_grad_(),
+                        (x @ w_ih[1].T + b_ih[1]).requires_grad_(),
+                        w_hh[0].T.contiguous().requires_grad_(),
+                        w_hh[1].T.contiguous().requires_grad_(),
+                        b_hh[0].clone().requires_grad_(),
+                        b_hh[1].clone().requires_grad_()]
+                kernels.reset_launches()
+                y = gru_bidir_cat(*args, matmul_dtype=mm)
+                gout = torch.randn(tuple(y.shape), generator=gen).to(device)
+                got = torch.autograd.grad(y, args, gout, retain_graph=True)
+                torch.cuda.synchronize()
+                if kernels.launches["gru_bidir"] != 1:
+                    raise AssertionError(f"K6 under grad: launches "
+                                         f"{kernels.launches}")
+                ref = torch.autograd.grad(torch.cat(gru_bidir_reference(
+                    *args, matmul_dtype=mm), -1), args, gout)
+                errs = []
+                for name, a, r in zip(("xf", "xb", "w_f", "w_b", "b_f",
+                                       "b_b"), got, ref):
+                    if not bool(torch.isfinite(a).all()):
+                        raise AssertionError(f"K6 backward {name}: "
+                                             "non-finite")
+                    errs.append(float((a - r).abs().max())
+                                / max(float(r.abs().max()), 1e-30))
+                log(f"  K6 backward {dtype} H={h} T={t} B={b}: max |err| / "
+                    f"max |ref| per gradient (xf, xb, w_f, w_b, b_f, b_b) "
+                    + ", ".join(f"{e:.2e}" for e in errs)
+                    + f" (tol {GRAD_TOL[dtype]:.1e})")
+                if max(errs) > GRAD_TOL[dtype]:
+                    raise AssertionError("K6's backward disagrees with "
+                                         "autograd through the plain loop")
+                if h != h0:
+                    continue
+                bwd = lambda: torch.autograd.grad(  # noqa: E731
+                    y, args, gout, retain_graph=True)
+                ms = cuda_ms(bwd, 3)
+                fwd_ms = cuda_ms(lambda: gru_bidir_cat(
+                    *args, matmul_dtype=mm), 3)
+                plain_ms = cuda_ms(lambda: torch.autograd.grad(
+                    torch.cat(gru_bidir_reference(*args, matmul_dtype=mm),
+                              -1), args, gout), 1, warmup=0)
+                lib = torch.nn.GRU(2 * h, h, batch_first=True,
+                                   bidirectional=True).to(device=device,
+                                                          dtype=mm)
+                with torch.no_grad():
+                    for sfx, i in (("", 0), ("_reverse", 1)):
+                        getattr(lib, "weight_ih_l0" + sfx).copy_(w_ih[i])
+                        getattr(lib, "weight_hh_l0" + sfx).copy_(w_hh[i])
+                        getattr(lib, "bias_ih_l0" + sfx).copy_(b_ih[i])
+                        getattr(lib, "bias_hh_l0" + sfx).copy_(b_hh[i])
+                x_lib = x.to(mm).requires_grad_()
+                y_lib = lib(x_lib)[0]
+                g_lib = gout.to(mm)
+                lib_args = [x_lib] + list(lib.parameters())
+                lib_ms = cuda_ms(lambda: torch.autograd.grad(
+                    y_lib, lib_args, g_lib, retain_graph=True), 3)
+                log(f"  K6 backward {dtype} [{b}, {t}, {3 * h}]: "
+                    f"{ms:.3f} ms a launch ({ms / t * 1e3:.2f} us a step; "
+                    f"the forward under grad {fwd_ms:.3f} ms), autograd "
+                    f"through the plain loop {plain_ms:.1f} ms, nn.GRU's "
+                    f"backward {lib_ms:.3f} ms ({ms / lib_ms:.2f}x)")
+                res[dtype] = {"ms": ms, "library_ms": lib_ms,
+                              "err": max(errs)}
+    return res
+
+
+def phase_mode2_path(vf, wav, outs, device):
+    """Mode 2 through ``VoiceFixer.restore_inmem(mode=2, seed=0)`` at full
+    width on the 30 s chunk, both precisions: the launches are mode 0's (K9
+    none even with ``conv_block_kernel=True``: mode 2 takes no fused
+    block), two runs with seed 0 are identical under
+    ``torch.backends.cudnn.deterministic`` and seed 1 differs, the output
+    is finite and of the input's length. Returns {precision: counts}."""
+    import numpy as np
+    import torch
+    from voicefixer_tpu_torch.ops.precision import precision
+    from voicefixer_tpu_torch.pipeline.restore import VoiceFixer
+    log("== mode 2: VoiceFixer.restore_inmem(mode=2, seed=0), 30 s")
+    cb = VoiceFixer(vf.params, vf.vocoder_params, vf.config, device=device,
+                    conv_block_kernel=True)
+    counts = {}
+    for mode in ("parity", "production"):
+        with precision(mode):
+            want = expected_launches(4 if mode == "parity" else 2)
+            m2 = {"mode": 2, "seed": 0}
+            out, counts[mode] = _counted_restore(mode, "mode 2", vf, wav,
+                                                 want, m2)
+            _counted_restore(mode, "mode 2, conv_block_kernel=True", cb, wav,
+                             want, m2)
+            prev = torch.backends.cudnn.deterministic
+            torch.backends.cudnn.deterministic = True
+            try:
+                a, b, c = (vf.restore_inmem(wav, mode=2, seed=k)
+                           for k in (0, 0, 1))
+            finally:
+                torch.backends.cudnn.deterministic = prev
+            same, differ = bool(np.array_equal(a, b)), float(
+                np.abs(a - c).max())
+            log(f"  {mode} mode 2: seed 0 twice identical {same}; seed 1 "
+                f"max abs diff {differ:.3e}; against mode 0 "
+                f"{float(np.abs(out - outs[mode, '30s']).max()):.3e}")
+            if not same or differ == 0.0:
+                raise AssertionError(f"{mode} mode 2 is not deterministic "
+                                     "given its seed")
+            _timed_restore(mode, "mode 2", vf, wav, device, m2)
+    return counts
+
+
+def phase_vocoder_hook(vf, wav, device):
+    """``your_vocoder_func``: the hook sees the denoised linear mel [1, 1,
+    T, 128] as a CUDA tensor; only the analysis stage's kernels launch
+    (stft_mel 1, gru_bidir 4), in mode 0 and mode 2."""
+    import torch
+    log("== vocoder hook: restore_inmem(your_vocoder_func=...)")
+    seen = []
+    hop = vf.config.vocoder.hop_length
+
+    def hook(mel):
+        seen.append((tuple(mel.shape), mel.device, mel.dtype))
+        return torch.zeros((1, 1, mel.shape[2] * hop), device=mel.device)
+
+    want = dict.fromkeys(KERNELS, 0)
+    want["stft_mel"], want["gru_bidir"] = 1, 4
+    for mode in (0, 2):
+        seen.clear()
+        _counted_restore("parity", f"mode {mode} with a hook", vf, wav, want,
+                         {"mode": mode, "your_vocoder_func": hook})
+        shape, dev, dtype = seen[-1]
+        log(f"  the hook saw {shape} {dtype} on {dev}")
+        if len(shape) != 4 or shape[:2] != (1, 1) or shape[3] != 128 \
+                or dev != device:
+            raise AssertionError(f"the hook saw {seen[-1]}")
+
+
+def phase_trainer(device):
+    """The analysis-stage trainer at DEFAULT_CONFIG: parameters drawn from
+    SEED, WAV pairs written to a temporary directory from a numpy seed and
+    read by ``train.data.PairedDataset`` (batches of TRAIN_BATCH x
+    TRAIN_SECONDS), ``reference_optimizer(warmup_steps=1)``. TRAIN_STEPS
+    steps through ``make_train_step``, each with gru_bidir launched 4 times
+    and nothing else; step 1's loss and gradients against the same step
+    with the GRU on its plain version; the first update (lr 0) leaves the
+    parameters, the second moves them. Then TRAIN_TIMED steps timed by
+    CUDA events, split into forward, backward and optimizer, and the peak
+    of allocated memory. Returns (counts of the last step, timings)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from voicefixer_tpu_torch import kernels
+    from voicefixer_tpu_torch.config import DEFAULT_CONFIG as C
+    from voicefixer_tpu_torch.kernels.gru import gru_bidir_reference
+    from voicefixer_tpu_torch.models import analysis
+    from voicefixer_tpu_torch.ops import gru as ops_gru
+    from voicefixer_tpu_torch.ops.precision import tf32_off
+    from voicefixer_tpu_torch.train import losses
+    from voicefixer_tpu_torch.train import step as st
+    from voicefixer_tpu_torch.train.data import PairedDataset
+    from voicefixer_tpu_torch.utils import audio_io
+    from voicefixer_tpu_torch.utils.params import count_parameters
+
+    sr = C.pipeline.sample_rate
+    params = analysis.init(C, torch.Generator().manual_seed(SEED), device)
+    log(f"== trainer: DEFAULT_CONFIG analysis stage "
+        f"({count_parameters(params)} parameters), batches of "
+        f"{TRAIN_BATCH} x {TRAIN_SECONDS} s")
+    with tempfile.TemporaryDirectory() as d:
+        rng = np.random.default_rng(SEED + 5)
+        dirs = {k: os.path.join(d, k) for k in ("clean", "degraded")}
+        for path in dirs.values():
+            os.makedirs(path)
+        for i in range(3):
+            clean = 0.1 * rng.standard_normal(5 * sr)
+            noisy = clean + 0.05 * rng.standard_normal(5 * sr)
+            for k, v in (("clean", clean), ("degraded", noisy)):
+                audio_io.save_wave(v.astype(np.float32),
+                                   os.path.join(dirs[k], f"u{i}.wav"), sr)
+        it = PairedDataset(dirs["clean"], dirs["degraded"], sample_rate=sr,
+                           chunk_seconds=TRAIN_SECONDS,
+                           seed=SEED).batches(TRAIN_BATCH)
+        batches = [next(it) for _ in range(TRAIN_STEPS + TRAIN_TIMED)]
+        it.close()
+    spec = st.reference_optimizer(warmup_steps=1)
+    state = st.init_train_state(params, spec, device=device)
+    step = st.make_train_step(C, spec)
+    p0 = [p.detach().clone() for p in state.leaves()]
+    gen = torch.Generator(device).manual_seed(SEED)
+    want = dict.fromkeys(KERNELS, 0)
+    want["gru_bidir"] = 4
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for i in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            state, m = step(state, *batches[i], gen)
+            torch.cuda.synchronize()
+            counts = dict(kernels.launches)
+            loss = float(m["loss"])
+            moved = sum(not torch.equal(p, q)
+                        for p, q in zip(state.leaves(), p0))
+            log(f"  step {i + 1}: loss {loss:.5f} (targ "
+                f"{float(m['targ_loss']):.5f}, mel "
+                f"{float(m['mel_loss']):.5f}); {moved} of {len(p0)} "
+                f"leaves changed; launches {counts}")
+            if counts != want or not math.isfinite(loss):
+                raise AssertionError(f"trainer step {i + 1}: launches "
+                                     f"{counts} != {want}, loss {loss}")
+            if (i == 0) != (moved == 0):
+                raise AssertionError(f"trainer step {i + 1}: {moved} leaves "
+                                     "moved (lr 0 at the first update only)")
+            if i == 0:
+                loss1 = loss
+                grads1 = [p.grad.detach().clone() for p in state.leaves()]
+        # step 1 again, the GRU on its plain version: the loss of its own
+        # forward (no kernel launched), then the gradients through the
+        # plain loop on the kernel's output values
+        ref_state = st.init_train_state(params, spec, device=device)
+        real = ops_gru.gru_bidir_cat
+
+        def plain(*a, matmul_dtype):
+            return torch.cat(gru_bidir_reference(
+                *a, matmul_dtype=matmul_dtype), -1)
+
+        def plain_on_kernel_values(*a, matmul_dtype):
+            with torch.no_grad():
+                k = real(*a, matmul_dtype=matmul_dtype)
+            r = plain(*a, matmul_dtype=matmul_dtype)
+            return r + (k - r).detach()
+
+        try:
+            ops_gru.gru_bidir_cat = plain
+            kernels.reset_launches()
+            wn, wc = (torch.as_tensor(b, device=device) for b in batches[0])
+            with torch.no_grad(), tf32_off():
+                total, _ = losses.analysis_loss(
+                    ref_state.params, wn, wc, C,
+                    torch.Generator(device).manual_seed(SEED))
+            torch.cuda.synchronize()
+            if any(kernels.launches.values()):
+                raise AssertionError(f"the plain step launched "
+                                     f"{kernels.launches}")
+            ops_gru.gru_bidir_cat = plain_on_kernel_values
+            st.forward_backward(ref_state, *batches[0], C,
+                                torch.Generator(device).manual_seed(SEED))
+            torch.cuda.synchronize()
+        finally:
+            ops_gru.gru_bidir_cat = real
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    refs = [p.grad for p in ref_state.leaves()]
+    top = max(float(r.abs().max()) for r in refs)
+    errs = [float((g - r).abs().max()) / max(float(r.abs().max()),
+                                             1e-3 * top)
+            for g, r in zip(grads1, refs)]
+    names = []
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{path}/{k}")
+        else:
+            names.append(path)
+    walk(ref_state.params, "")
+    worst = sorted(zip(errs, names), reverse=True)[:3]
+    log("  worst gradient leaves: " + ", ".join(f"{n} {e:.2e}"
+                                                for e, n in worst))
+    loss_err = abs(loss1 - float(total)) / abs(float(total))
+    log(f"  step 1 against the plain GRU: loss {loss1:.6f} / "
+        f"{float(total):.6f} (rel {loss_err:.2e}, tol {TRAIN_LOSS_RTOL:.0e});"
+        f" {len(refs)} gradient leaves against the plain loop's on the "
+        f"kernel's values, worst max |err| / max |ref| {max(errs):.2e} (tol "
+        f"{TRAIN_GRAD_TOL:.0e}; median {sorted(errs)[len(errs) // 2]:.2e})")
+    if loss_err > TRAIN_LOSS_RTOL or max(errs) > TRAIN_GRAD_TOL:
+        raise AssertionError("the trainer's step with K6 disagrees with the "
+                             "plain GRU's")
+    del ref_state, refs, grads1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    split, walls = [], []
+    for batch in batches[TRAIN_STEPS:]:
+        wn, wc = (torch.as_tensor(b, device=device) for b in batch)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state.optimizer.zero_grad(set_to_none=True)
+        ev[0].record()
+        with tf32_off():
+            total, _ = losses.analysis_loss(state.params, wn, wc, C, gen)
+            ev[1].record()
+            total.backward()
+        ev[2].record()
+        st.update(state)
+        ev[3].record()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        split.append([ev[k].elapsed_time(ev[k + 1]) for k in range(3)])
+    peak = torch.cuda.max_memory_allocated(device)
+    med = [sorted(c)[len(c) // 2] for c in zip(*split)]
+    log(f"  ms per step (CUDA events, median of {TRAIN_TIMED}): forward "
+        f"{med[0]:.2f}, backward {med[1]:.2f}, optimizer {med[2]:.2f}; "
+        f"host clock {['%.1f' % w for w in walls]}; peak allocated "
+        f"{peak / 2 ** 30:.2f} GiB on {torch.cuda.get_device_name(device)}")
+    return counts, {"forward_ms": med[0], "backward_ms": med[1],
+                    "optimizer_ms": med[2], "peak_bytes": peak}
 
 
 def _int16(x):
@@ -1579,7 +1953,10 @@ def phase_snr_vs_plain(vf, device):
 
 def phase_small_reference(device):
     """The port on the card against the port's plain versions on the CPU,
-    same weights, tiny config, a 2.5-segment input with a padded tail."""
+    same weights, tiny config, a 2.5-segment input with a padded tail; in
+    mode 0, then in mode 2 (dropout 0, segment by segment)."""
+    import dataclasses
+
     import numpy as np
     from voicefixer_tpu_torch.config import tiny_test_config
     from voicefixer_tpu_torch.pipeline.restore import VoiceFixer
@@ -1594,6 +1971,18 @@ def phase_small_reference(device):
     log(f"  max abs diff {err:.3e} over {len(a)} samples (tol 1e-4)")
     if a.shape != wav.shape or not err <= 1e-4:
         raise AssertionError("card and CPU disagree on the small input")
+    # mode 2 with dropout 0: the CPU's and the card's generators draw
+    # different streams
+    cfg0 = dataclasses.replace(cfg, denoiser=dataclasses.replace(
+        cfg.denoiser, dropout=0.0))
+    a, b = (VoiceFixer(cpu.params, cpu.vocoder_params, cfg0,
+                       device=dev).restore_inmem(wav, mode=2, seed=SEED)
+            for dev in (device, "cpu"))
+    err = float(np.abs(a - b).max())
+    log(f"  mode 2, dropout 0: max abs diff {err:.3e} over {len(a)} samples "
+        "(tol 1e-4)")
+    if a.shape != wav.shape or not err <= 1e-4:
+        raise AssertionError("card and CPU disagree in mode 2")
 
 
 def main() -> int:
@@ -1629,7 +2018,11 @@ def main() -> int:
     sp_counts = phase_sharded_path(vf, wav, outs, device)
     cb_counts = phase_conv_block_path(vf, wav, outs, device)
     gru_counts = phase_gru_path(device)
-    del vf
+    gru_bwd = phase_gru_backward(device)
+    phase_mode2_path(vf, wav, outs, device)
+    phase_vocoder_hook(vf, wav, device)
+    del vf, outs
+    phase_trainer(device)
     phase_small_reference(device)
     phase_file_path(device, card, build_s)
 
@@ -1672,10 +2065,16 @@ def main() -> int:
                 record[-1]["device_ms"] = total("dev_ms")
                 if rs[0]["lib_dev_ms"] is not None:
                     record[-1]["library_device_ms"] = total("lib_dev_ms")
+            if name == "gru_bidir":  # per trainer step: 4 launches' backward
+                record[-1]["backward_ms"] = 4 * gru_bwd[dtype]["ms"]
+                record[-1]["library_backward_ms"] = \
+                    4 * gru_bwd[dtype]["library_ms"]
     log(f"== done in {time.perf_counter() - t_start:.1f} s; times are per "
         "30 s chunk (B=1), summed over the launches that the kernel's path "
         "makes (the default path; res_stream: the sharded path; "
-        "conv_block_res: the conv-block path; gru_seq: the GRU path)")
+        "conv_block_res: the conv-block path; gru_seq: the GRU path); "
+        "gru_bidir's backward_ms and library_backward_ms per trainer step "
+        f"(4 launches at B={TRAIN_BATCH}, T={TRAIN_FRAMES})")
     print(json.dumps({"kernels": record}))
     print(card)
     print(json.dumps({"ok": True, "device": {

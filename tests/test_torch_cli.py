@@ -65,6 +65,39 @@ def test_real_cli_end_to_end_matches_jax(npz, tmp_path, extra, ext):
     assert np.any(a != 0) and np.abs(a - b).max() <= 1
 
 
+def test_cli_mode2_and_all(npz, tmp_path):
+    """``--mode all`` writes <base>-mode{0,1,2}<ext>: modes 0 and 1 agree
+    with the JAX CLI's files within one LSB; mode 2 (dropout drawn from
+    ``--seed`` by torch, so not the JAX package's stream) is the port's
+    ``restore_inmem(mode=2, seed=...)`` of the file, and ``--mode 2`` alone
+    writes the same file."""
+    from voicefixer_tpu_torch.config import tiny_test_config
+    from voicefixer_tpu_torch.pipeline.restore import VoiceFixer
+    inp = _make_wav(tmp_path / "in.wav")
+    ours, theirs = tmp_path / "port", tmp_path / "jax"
+    assert cli.main(["-i", inp, "-o", str(ours / "o.wav"), "--disable-cuda",
+                     "--mode", "all", "--seed", "4"] + npz) == 0
+    assert jax_cli.main(["-i", inp, "-o", str(theirs / "o.wav"), "--mode",
+                         "all"] + npz) == 0
+    assert sorted(os.listdir(ours)) == sorted(os.listdir(theirs)) == [
+        "o-mode0.wav", "o-mode1.wav", "o-mode2.wav"]
+    for m in (0, 1):
+        a, b = (_int16(str(d / f"o-mode{m}.wav")) for d in (ours, theirs))
+        assert a.shape == b.shape and np.abs(a - b).max() <= 1
+    vf = VoiceFixer(ckpt=npz[1], vocoder_ckpt=npz[3],
+                    config=tiny_test_config(), device="cpu")
+    want = vf.restore_inmem(audio_io.load_wav(inp, 44100), mode=2, seed=4)
+    got = _int16(str(ours / "o-mode2.wav"))
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(
+        got, (want * 2 ** 15).astype(np.int16).astype(np.int32))
+    single = str(tmp_path / "m2.wav")
+    assert cli.main(["-i", inp, "-o", single, "--disable-cuda", "--mode",
+                     "2", "--seed", "4"] + npz) == 0
+    assert open(single, "rb").read() == open(ours / "o-mode2.wav",
+                                             "rb").read()
+
+
 class FakeVoiceFixer:
     def __init__(self, **kwargs):
         self.kwargs = kwargs
@@ -107,13 +140,14 @@ def test_argument_errors(fake_vf, tmp_path, argv):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--mode", "2"], 7), (["--mode", "all"], 7),
+    (["--mode", "2", "--coordinator", "localhost:1234"], 8),
+    (["--mode", "all", "--num-processes", "2"], 8),
     (["--coordinator", "localhost:1234"], 8), (["--num-processes", "2"], 8),
     (["--process-id", "0"], 8), ([], 8)])
 def test_unported_raise_before_writing(fake_vf, tmp_path, monkeypatch, argv,
                                        item):
-    """Mode 2 and all, and the multi-process flags (or $VF_COORDINATOR),
-    raise naming their ROADMAP item; no directory or file is made."""
+    """The multi-process flags (or $VF_COORDINATOR), in any mode, raise
+    naming their ROADMAP item; no directory or file is made."""
     if not argv:
         monkeypatch.setenv("VF_COORDINATOR", "localhost:1234")
     inp = _make_wav(tmp_path / "in.wav", 4410)

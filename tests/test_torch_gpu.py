@@ -759,3 +759,98 @@ def test_conv_block_res_refuses(cuda):
     assert not convblock.eligible(p, x)
     with pytest.raises(ValueError):
         convblock.conv_block_res(x, p, 0.01)
+
+
+# ------------------------------------------------------------- gradients
+
+def grad_error(got, ref):
+    """max |got - ref| over max |ref|."""
+    return float((got - ref).abs().max()) / max(float(ref.abs().max()),
+                                                1e-30)
+
+
+# The backward reads the kernel's states where autograd through the plain
+# loop reads the loop's own: their gradients differ by what the forward
+# states differ by (1e-5 in float32; in bfloat16 an ulp of h, 2^-8, now
+# and then), carried through the reverse recurrence. Held relative to the
+# gradient's largest element: 1e-4 in float32, 2^-6 in bfloat16.
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 2 ** -6}
+
+
+@pytest.mark.parametrize("mm", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hidden,t,b", [(256, 301, 2), (1, 5, 2)])
+def test_gru_bidir_backward_kernel(cuda, hidden, t, b, mm):
+    """K6 under grad: one launch through ``GruBidir`` (the trainer's H and
+    3 s of frames, and H = 1), its gradients for the projections, W and b
+    of both directions against autograd through the plain loop on the
+    card."""
+    from voicefixer_tpu_torch.kernels.gru import gru_bidir_cat
+    gen = torch.Generator().manual_seed(13)
+    g = 3 * hidden
+    scales = (1.0, 1.0, 0.1, 0.1, 0.1, 0.1)
+    shapes = [(b, t, g)] * 2 + [(hidden, g)] * 2 + [(g,)] * 2
+    args = [_randn(gen, s, c).to(cuda).requires_grad_()
+            for s, c in zip(shapes, scales)]
+    dt = getattr(torch, mm)
+    n0 = kernels.launches["gru_bidir"]
+    out = gru_bidir_cat(*args, matmul_dtype=dt)
+    assert kernels.launches["gru_bidir"] == n0 + 1
+    gout = _randn(gen, tuple(out.shape)).to(cuda)
+    got = torch.autograd.grad(out, args, gout)
+    assert kernels.launches["gru_bidir"] == n0 + 1  # the backward: torch ops
+    ref = torch.autograd.grad(
+        torch.cat(gru_bidir_reference(*args, matmul_dtype=dt), -1), args,
+        gout)
+    for name, a, r in zip(("xf", "xb", "w_f", "w_b", "b_f", "b_b"), got, ref):
+        assert a.shape == r.shape and bool(torch.isfinite(a).all()), name
+        assert grad_error(a, r) <= GRAD_TOL[mm], (name, grad_error(a, r))
+
+
+def _grad_guard_calls(cuda):
+    """One call a ctypes wrapper, small shapes on the card, the input that
+    requires grad passed through ``w``."""
+    from voicefixer_tpu_torch.config import DEFAULT_CONFIG
+    from voicefixer_tpu_torch.models.analysis import mel_fbank
+    r = lambda *s: torch.randn(s, device=cuda)  # noqa: E731
+    c = 8
+    bn = {"scale": r(c), "shift": r(c)}
+    block = {"bn1": bn, "bn2": bn, "conv1": {"w": r(3, 3, c, c)}}
+    return {
+        "stft_mel": lambda w: stft_mel(w(r(1, 4096)),
+                                       mel_fbank(DEFAULT_CONFIG, cuda),
+                                       DEFAULT_CONFIG.stft),
+        "upsample": lambda w: upsample(r(1, 4, c), w(r(6, c, c)), r(c), 3),
+        "res_chain": lambda w: res_chain(r(1, 16, c), r(1, 3, c, c),
+                                         w(r(1, c)), r(1, 3, c, c), r(1, c),
+                                         (1,)),
+        "res_shift_single": lambda w: res_shift_single(
+            r(1, 16, c), r(3, c, c), r(c), w(r(3, c, c)), r(c), 1),
+        "up_res_stream": lambda w: up_res_stream(
+            w(r(1, 4, c)), r(6, c, c), r(c), r(1, 3, c, c), r(1, c),
+            r(1, 3, c, c), r(1, c), (1,), 3),
+        "res_stream": lambda w: res_stream(r(1, 16, c), r(1, 3, c, c),
+                                           r(1, c), r(1, 3, c, c),
+                                           w(r(1, c)), (1,)),
+        "gru_seq": lambda w: gru_seq(r(1, 3, 6), r(2, 6), w(r(6))),
+        "conv_block_res": lambda w: convblock.conv_block_res(
+            w(r(1, 4, 4, c)), {**block, "conv2": {"w": r(3, 3, c, c)}},
+            0.01),
+    }
+
+
+@pytest.mark.parametrize("name", ["stft_mel", "upsample", "res_chain",
+                                  "res_shift_single", "up_res_stream",
+                                  "res_stream", "gru_seq", "conv_block_res"])
+def test_kernel_raises_under_grad(cuda, name):
+    """Every kernel but K6 has no backward: with grad mode on and an input
+    that requires grad its wrapper raises before it launches; under
+    no_grad the same call launches."""
+    call = _grad_guard_calls(cuda)[name]
+    n0 = kernels.launches[name]
+    with pytest.raises(RuntimeError, match=f"^{name}: the CUDA kernel has "
+                       "no backward"):
+        call(lambda t: t.requires_grad_())
+    assert kernels.launches[name] == n0
+    with torch.no_grad():
+        call(lambda t: t.requires_grad_())
+    assert kernels.launches[name] == n0 + 1

@@ -1950,3 +1950,192 @@ def test_up_chain_wgmma_schedule(cin, cout, scale, t_in, b, dils, tm):
                                   0.3)
     _assert_close(got, jnp.asarray(ref.float().numpy()), 2 ** -7, 1e-3,
                   chained=len(dils))
+
+
+# ------------------------------------- gradients: K6's backward, the guard
+
+
+def _gru_args(rng, b, t, h, dtype=torch.float32):
+    """(xf, xb, w_f, w_b, b_f, b_b) leaves that require grad."""
+    shapes = [(b, t, 3 * h)] * 2 + [(h, 3 * h)] * 2 + [(3 * h,)] * 2
+    scales = [1.0, 1.0, 0.5, 0.5, 0.3, 0.3]
+    return [torch.tensor(_rand(rng, s, c), dtype=dtype).requires_grad_()
+            for s, c in zip(shapes, scales)]
+
+
+@pytest.mark.parametrize("mm", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t", [1, 7])
+def test_gru_bidir_backward_matches_autograd(t, mm):
+    """The Function's backward (``gru_bidir_backward``, the one the card
+    runs) against autograd through the plain loop, both directions; under
+    bfloat16 both treat the rounding of h and W as identity. rtol 1e-4,
+    atol 1e-6 (float32 sums in another order)."""
+    from voicefixer_tpu_torch.kernels.gru import (GruBidir, gru_bidir_cat,
+                                                  gru_bidir_reference)
+    rng = np.random.default_rng(t)
+    args = _gru_args(rng, 2, t, 5)
+    dt = getattr(torch, mm)
+    out = gru_bidir_cat(*args, matmul_dtype=dt)
+    assert out.grad_fn is not None and \
+        type(out.grad_fn).__name__ == GruBidir.__name__ + "Backward"
+    g = torch.tensor(_rand(rng, tuple(out.shape)))
+    got = torch.autograd.grad(out, args, g)
+    ref = torch.autograd.grad(
+        torch.cat(gru_bidir_reference(*args, matmul_dtype=dt), -1), args, g)
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("t,layers", [(1, 1), (7, 1), (7, 2)])
+def test_gru_backward_matches_jax_grad(t, layers):
+    """``ops.gru.gru`` (bidirectional: projections, then K6's Function) and
+    its gradients for the input and every weight against ``jax.grad`` of
+    the JAX package's plain ``ops.gru.gru`` (its kernel is off on the
+    CPU), rtol 1e-4, atol 1e-6."""
+    import jax
+    from voicefixer_tpu.ops import gru as jax_gru
+
+    from voicefixer_tpu_torch.ops.gru import gru
+    from voicefixer_tpu_torch.utils.weights import tree_map
+    rng = np.random.default_rng(10 + t)
+    b, cin, h = 2, 4, 5
+    x = _rand(rng, (b, t, cin))
+    params = {}
+    for layer in range(layers):
+        for sfx in ("", "_reverse"):
+            i = cin if layer == 0 else 2 * h
+            params[f"l{layer}{sfx}"] = {
+                "w_ih": _rand(rng, (3 * h, i), 0.4),
+                "w_hh": _rand(rng, (3 * h, h), 0.4),
+                "b_ih": _rand(rng, (3 * h,), 0.2),
+                "b_hh": _rand(rng, (3 * h,), 0.2)}
+    g = _rand(rng, (b, t, 2 * h))
+
+    def jax_loss(x, p):
+        return jnp.sum(jax_gru.gru(x, p, layers, bidirectional=True) * g)
+
+    jgx, jgp = jax.grad(jax_loss, argnums=(0, 1))(
+        jnp.asarray(x), tree_map(jnp.asarray, params))
+    tx = torch.tensor(x, requires_grad=True)
+    tp = tree_map(lambda v: torch.tensor(v, requires_grad=True), params)
+    (gru(tx, tp, layers, bidirectional=True) * torch.tensor(g)).sum(
+        ).backward()
+    pairs = [(tx.grad, jgx)] + [
+        (tp[k][n].grad, jgp[k][n]) for k in params for n in params[k]]
+    for got, want in pairs:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-4, atol=1e-6)
+
+
+def test_gru_bidir_gradcheck():
+    """Finite differences in float64 at a tiny size."""
+    from voicefixer_tpu_torch.kernels.gru import gru_bidir_cat
+    args = _gru_args(np.random.default_rng(3), 2, 4, 3, torch.float64)
+    assert torch.autograd.gradcheck(
+        lambda *a: gru_bidir_cat(*a, matmul_dtype=torch.float64), args)
+
+
+def test_gru_bidir_takes_the_function_only_for_grad():
+    """Grad mode on and an input that requires grad: the Function. No
+    input that requires grad, or grad mode off: the plain call, no graph;
+    the values are the same."""
+    from voicefixer_tpu_torch.kernels.gru import gru_bidir_cat
+    args = _gru_args(np.random.default_rng(4), 1, 3, 2)
+    with_grad = gru_bidir_cat(*args)
+    with torch.no_grad():
+        without = gru_bidir_cat(*args)
+    detached = gru_bidir_cat(*(a.detach() for a in args))
+    assert with_grad.grad_fn is not None
+    assert without.grad_fn is None and detached.grad_fn is None
+    assert torch.equal(with_grad.detach(), without)
+    assert torch.equal(without, detached)
+
+
+class _Launched(Exception):
+    """Raised in place of loading a kernel's library."""
+
+
+def _guard_cases():
+    """One call of each ctypes wrapper with small valid shapes."""
+    from voicefixer_tpu_torch.config import DEFAULT_CONFIG
+    from voicefixer_tpu_torch.kernels import gru as kgru
+    from voicefixer_tpu_torch.kernels import resstream
+    from voicefixer_tpu_torch.models.analysis import mel_fbank
+    r = lambda *s: torch.randn(s)  # noqa: E731
+    c = 8
+    bn = {"scale": r(c), "shift": r(c), "gamma": r(c), "beta": r(c),
+          "mean": r(c), "var": r(c).abs()}
+    block = {"bn1": bn, "bn2": bn, "conv1": {"w": r(3, 3, c, c)},
+             "conv2": {"w": r(3, 3, c, c)}}
+    return {
+        "stft_mel": lambda w: stft_mel(w(r(1, 4096)),
+                                       mel_fbank(DEFAULT_CONFIG, "cpu"),
+                                       DEFAULT_CONFIG.stft),
+        "upsample": lambda w: upsample(w(r(1, 4, c)), r(6, c, c), r(c), 3),
+        "res_chain": lambda w: res_chain(w(r(1, 16, c)), r(1, 3, c, c),
+                                         r(1, c), r(1, 3, c, c), r(1, c),
+                                         (1,)),
+        "res_shift_single": lambda w: res_shift_single(
+            w(r(1, 16, c)), r(3, c, c), r(c), r(3, c, c), r(c), 1),
+        "up_res_stream": lambda w: resstream.up_res_stream(
+            r(1, 4, c), r(6, c, c), r(c), w(r(1, 3, c, c)), r(1, c),
+            r(1, 3, c, c), r(1, c), (1,), 3),
+        "res_stream": lambda w: res_stream(w(r(1, 16, c)), r(1, 3, c, c),
+                                           r(1, c), r(1, 3, c, c), r(1, c),
+                                           (1,)),
+        "gru_seq": lambda w: gru_seq(r(1, 3, 6), w(r(2, 6)), r(6)),
+        "conv_block_res": lambda w: convblock.conv_block_res(
+            r(1, 4, 4, c), {**block, "conv2": {"w": w(r(3, 3, c, c))}},
+            0.01),
+        "gru_bidir": lambda w: kgru.gru_bidir_cat(
+            w(r(1, 3, 6)), r(1, 3, 6), r(2, 6), r(2, 6), r(6), r(6)),
+    }
+
+
+@pytest.mark.parametrize("name", ["stft_mel", "upsample", "res_chain",
+                                  "res_shift_single", "up_res_stream",
+                                  "res_stream", "gru_seq", "conv_block_res"])
+def test_kernel_launch_raises_under_grad(monkeypatch, name):
+    """Every ctypes wrapper, taken to its launch (``on_cpu`` patched to
+    say CUDA, the library load patched to raise ``_Launched``), raises
+    RuntimeError naming the kernel before it launches, where grad mode is
+    on and an input requires grad: its output would carry no gradient."""
+    from voicefixer_tpu_torch import kernels
+    from voicefixer_tpu_torch.kernels import build
+    monkeypatch.setattr(kernels, "on_cpu", lambda *a: False)
+    monkeypatch.setattr(build, "load", lambda *a: (_ for _ in ()).throw(
+        _Launched()))
+    call = _guard_cases()[name]
+    with pytest.raises(RuntimeError, match=f"^{name}: the CUDA kernel has no "
+                       "backward"):
+        call(lambda t: t.requires_grad_())
+    assert kernels.launches[name] == 0
+
+
+def test_gru_bidir_launches_inside_its_function(monkeypatch):
+    """K6 is the one kernel exempt: under grad its wrapper goes through
+    ``GruBidir``, whose forward launches with grad mode off, so the launch
+    is reached (``_Launched``) instead of the guard's error."""
+    from voicefixer_tpu_torch import kernels
+    from voicefixer_tpu_torch.kernels import build
+    monkeypatch.setattr(kernels, "on_cpu", lambda *a: False)
+    monkeypatch.setattr(build, "load", lambda *a: (_ for _ in ()).throw(
+        _Launched()))
+    with pytest.raises(_Launched):
+        _guard_cases()["gru_bidir"](lambda t: t.requires_grad_())
+
+
+def test_check_no_grad():
+    """The guard itself: nested lists and dicts are searched; no grad mode,
+    inference mode or no input that requires grad lets the launch go."""
+    from voicefixer_tpu_torch import kernels
+    leaf = torch.zeros(2, requires_grad=True)
+    plain = torch.zeros(2)
+    with pytest.raises(RuntimeError, match="^k: "):
+        kernels.check_no_grad("k", plain, {"a": [plain, leaf]})
+    kernels.check_no_grad("k", plain, {"a": [plain]})
+    with torch.no_grad():
+        kernels.check_no_grad("k", leaf)
+    with torch.inference_mode():
+        kernels.check_no_grad("k", leaf)

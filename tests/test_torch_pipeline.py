@@ -144,16 +144,6 @@ def test_restore_inmem_short_tail_unpadded(params):
     np.testing.assert_allclose(got, ref, rtol=TOL, atol=TOL)
 
 
-@pytest.mark.parametrize("kwargs", [{"mode": 2},
-                                    {"your_vocoder_func": lambda m: m}])
-def test_restore_inmem_unported_options_raise(params, kwargs):
-    _, _, pa, pv = params
-    vf = restore.VoiceFixer(pa, pv, config=CFG, device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 7$"):
-        vf.restore_inmem(_wav(1000, 7), **kwargs)
-
-
 @pytest.mark.parametrize("est_len,ref_len", [(10, 10), (14, 10), (15, 10),
                                              (7, 10), (11, 10)])
 def test_trim_center_matches_jax(est_len, ref_len):
@@ -353,3 +343,143 @@ def test_restore_file_matches_jax(params, tmp_path):
         assert sr == 44100 and d.shape == (66150, 1), k
     np.testing.assert_array_equal(outs["port.wav"][1], outs["port.flac"][1])
     assert np.abs(outs["port.wav"][1] - outs["jax.wav"][1]).max() <= 1 / 32768
+
+
+# ------------------------------------------------ mode 2 and the vocoder hook
+
+def _no_dropout(cfg):
+    """Mode 2 with dropout off: torch cannot draw the JAX package's PRNG
+    streams, so the two packages meet on batch statistics alone."""
+    return dataclasses.replace(cfg, denoiser=dataclasses.replace(
+        cfg.denoiser, dropout=0.0))
+
+
+@pytest.mark.parametrize("segments", [2.5, 1.0])
+def test_restore_inmem_mode2_matches_jax(params, segments):
+    """Mode 2 (batch-statistics BN, dropout 0) segment by segment against
+    the JAX package: 2.5 segments (the tail runs unpadded at half a
+    segment, with its own statistics) and one segment plus 700 samples."""
+    ja, jv, pa, pv = params
+    n = int(CFG.pipeline.seg_length * segments) + (700 if segments == 1.0
+                                                   else 0)
+    wav = _wav(n, 17)
+    ref = jax_restore.VoiceFixer(params=ja, vocoder_params=jv,
+                                 config=_no_dropout(JCFG)).restore_inmem(
+        wav, mode=2, seed=3)
+    got = restore.VoiceFixer(pa, pv, config=_no_dropout(CFG),
+                             device="cpu").restore_inmem(wav, mode=2, seed=3)
+    assert got.shape == ref.shape == wav.shape
+    np.testing.assert_allclose(got, ref, rtol=TOL, atol=TOL)
+    eval_out = restore.VoiceFixer(pa, pv, config=CFG,
+                                  device="cpu").restore_inmem(wav)
+    assert not np.allclose(got, eval_out, atol=1e-3)  # statistics differ
+
+
+def test_mode2_deterministic_given_seed(params):
+    """Dropout at the config's rate: one seed gives one output, another
+    seed another (the JAX package's test of its mode 2)."""
+    _, _, pa, pv = params
+    vf = restore.VoiceFixer(pa, pv, config=CFG, device="cpu")
+    wav = _wav(11025, 18)
+    a = vf.restore_inmem(wav, mode=2, seed=7)
+    b = vf.restore_inmem(wav, mode=2, seed=7)
+    c = vf.restore_inmem(wav, mode=2, seed=8)
+    assert a.shape == wav.shape and np.isfinite(a).all()
+    np.testing.assert_array_equal(a, b)
+    assert not np.allclose(a, c)
+
+
+def _hook_wave(mel):
+    """A stand-in vocoder: each frame's mean mel value held for one hop,
+    [1, 1, T * 441]; from a torch tensor a tensor, else an array."""
+    if isinstance(mel, torch.Tensor):
+        return mel[0, 0].mean(-1).repeat_interleave(441)[None, None]
+    m = np.asarray(mel)
+    return np.repeat(m[0, 0].mean(-1), 441)[None, None]
+
+
+@pytest.mark.parametrize("mode", [0, 2])
+def test_custom_vocoder_func_matches_jax(params, mode):
+    """``your_vocoder_func`` sees each segment's denoised linear mel
+    [1, 1, T, 128] (a tensor on the instance's device) and its output,
+    here a tensor, replaces the vocoder's; the mels and the stitched
+    output agree with the JAX package's (mode 2 at dropout 0). The mels
+    are held on the log10 scale the analysis stage computes them on (the
+    hook's linear mel is 10 to that power, up to ~1e4 here)."""
+    ja, jv, pa, pv = params
+    wav = _wav(int(CFG.pipeline.seg_length * 1.5), 19)
+    seen = {"jax": [], "port": []}
+
+    def hook(side):
+        def fn(mel):
+            seen[side].append(mel)
+            return _hook_wave(mel)
+        return fn
+
+    ref = jax_restore.VoiceFixer(
+        params=ja, vocoder_params=jv, config=_no_dropout(JCFG)).restore_inmem(
+        wav, mode=mode, your_vocoder_func=hook("jax"))
+    got = restore.VoiceFixer(pa, pv, config=_no_dropout(CFG),
+                             device="cpu").restore_inmem(
+        wav, mode=mode, your_vocoder_func=hook("port"))
+    assert len(seen["port"]) == len(seen["jax"]) == 2
+    for m_port, m_jax in zip(seen["port"], seen["jax"]):
+        assert isinstance(m_port, torch.Tensor)
+        assert m_port.device.type == "cpu"
+        assert m_port.shape == m_jax.shape
+        assert m_port.shape[:2] == (1, 1) and m_port.shape[3] == 128
+        np.testing.assert_allclose(np.log10(m_port.numpy()),
+                                   np.log10(np.asarray(m_jax)),
+                                   rtol=TOL, atol=TOL)
+    assert got.shape == ref.shape == wav.shape
+    np.testing.assert_allclose(got, ref, rtol=TOL, atol=TOL)
+
+
+def test_custom_vocoder_func_array_output(params):
+    """A hook that returns a numpy array (the JAX package's own test): all
+    zeros, the input's length."""
+    _, _, pa, pv = params
+    vf = restore.VoiceFixer(pa, pv, config=CFG, device="cpu")
+    wav = _wav(11025, 20)
+    out = vf.restore_inmem(wav, your_vocoder_func=lambda mel: np.zeros(
+        (1, 1, int(mel.shape[2]) * 441), dtype=np.float32))
+    assert out.shape == wav.shape and np.all(out == 0)
+
+
+def test_mode2_bypasses_the_conv_block_kernel(params, monkeypatch):
+    """Under ``conv_block_kernel=True`` mode 2 sends no block to the fused
+    kernel (it folds eval BN), and the packed tree keeps the unfolded BN
+    leaves that mode 2 reads: the output is the default instance's."""
+    from voicefixer_tpu_torch.kernels import convblock
+    _, _, pa, pv = params
+    calls = []
+    monkeypatch.setattr(convblock, "conv_block_res",
+                        lambda *a: calls.append(1))
+    cb = restore.VoiceFixer(pa, pv, config=CFG, device="cpu",
+                            conv_block_kernel=True)
+    assert {"gamma", "beta", "scale", "packed"} <= (
+        set(cb.params["unet"]["enc1"]["block1"]["bn1"])
+        | set(cb.params["unet"]["enc1"]["block1"]))
+    wav = _wav(CFG.pipeline.seg_length, 21)
+    got = cb.restore_inmem(wav, mode=2, seed=1)
+    assert calls == []
+    ref = restore.VoiceFixer(pa, pv, config=CFG, device="cpu").restore_inmem(
+        wav, mode=2, seed=1)
+    np.testing.assert_allclose(got, ref, rtol=TOL, atol=TOL)
+
+
+def test_restore_file_mode2(params, tmp_path):
+    """``restore(mode=2)``, file to file, is ``restore_inmem(mode=2)`` of
+    the file's samples, written as int16."""
+    from voicefixer_tpu_torch.utils import audio_io
+    _, _, pa, pv = params
+    vf = restore.VoiceFixer(pa, pv, config=CFG, device="cpu")
+    src, dst = str(tmp_path / "in.wav"), str(tmp_path / "out.wav")
+    audio_io.save_wave(_wav(30000, 22), src, 44100)
+    vf.restore(src, dst, mode=2, seed=5)
+    want = vf.restore_inmem(audio_io.load_wav(src, 44100), mode=2, seed=5)
+    sr, data = audio_io.read_audio(dst)
+    assert sr == 44100 and data.shape == (30000, 1)
+    np.testing.assert_array_equal(
+        np.round(data[:, 0] * 32768).astype(np.int32),
+        (want * 2 ** 15).astype(np.int16).astype(np.int32))

@@ -1,18 +1,19 @@
 """Command line of the port, with the flags of ``voicefixer_tpu/__main__.py``
 (upstream's surface):
 
-    python -m voicefixer_tpu_torch -i in.wav -o out.flac --mode {0,1}
+    python -m voicefixer_tpu_torch -i in.wav -o out.flac --mode {0,1,2,all}
     python -m voicefixer_tpu_torch -ifdr folder -ofdr outfolder
 
 It runs on the CUDA card, and raises where there is none, unless
 ``--disable-cuda`` asks for the CPU (the plain PyTorch versions). WAV,
 FLAC, AIFF and AU are read; WAV and FLAC are written (int16). A folder is
-restored file by file.
+restored file by file. ``--mode all`` writes one file a mode,
+``<base>-mode{k}<ext>``; ``--seed`` seeds mode 2's dropout.
 
 Not ported yet, and raising ``NotImplementedError`` before any file is
-written: ``--mode 2`` and ``--mode all`` (ROADMAP.md Queue 1 item 7), and
-the multi-process flags ``--coordinator``, ``--num-processes`` and
-``--process-id`` or their VF_* variables (item 8). Nothing is downloaded:
+written: the multi-process flags ``--coordinator``, ``--num-processes`` and
+``--process-id`` or their VF_* variables (ROADMAP.md Queue 1 item 8).
+Nothing is downloaded:
 ``--weight_prepare`` converts the local checkpoints (the npz cache, or the
 reference's torch cache into it) and builds the CUDA kernels unless
 VF_SKIP_PREWARM is set.
@@ -31,9 +32,14 @@ _MULTI_PROCESS = (("coordinator", "VF_COORDINATOR"),
                   ("process_id", "VF_PROCESS_ID"))
 
 
-def writefile(voicefixer, infile: str, outfile: str, mode, seed: int,
-              verbose: bool = False, chunk_overlap: float = 0.0):
-    """Restore one file."""
+def writefile(voicefixer, infile: str, outfile: str, mode, append_mode: bool,
+              seed: int, verbose: bool = False, chunk_overlap: float = 0.0):
+    """Restore one file; with ``append_mode`` (``--mode all``) to
+    ``<base>-mode{mode}<ext>``."""
+    if append_mode:
+        base, ext = os.path.splitext(os.path.basename(outfile))
+        outfile = os.path.join(os.path.dirname(outfile),
+                               f"{base}-mode{mode}{ext}")
     if verbose:
         print(f"Processing {infile}, mode={mode}")
     start = time.time()
@@ -81,10 +87,6 @@ def check_arguments(args):
 def check_unported(args):
     """Raise for what the port does not do yet, before anything is
     written."""
-    if args.mode in ("2", "all"):
-        raise NotImplementedError(
-            f"--mode {args.mode} needs mode 2, which is not ported yet: "
-            "ROADMAP.md Queue 1 item 7")
     for flag, env in _MULTI_PROCESS:
         if getattr(args, flag) is not None or os.environ.get(env):
             raise NotImplementedError(
@@ -107,8 +109,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Output folder for processed files.")
     parser.add_argument("--mode", choices=["0", "1", "2", "all"], default="0",
                         help="0: original model (default), 1: add "
-                             "preprocessing (remove higher frequencies); "
-                             "2 and all are not ported yet.")
+                             "preprocessing (remove higher frequencies), "
+                             "2: train mode (batch-stats BN + dropout), "
+                             "all: one output file per mode.")
     parser.add_argument("--disable-cuda", default=False, action="store_true",
                         help="Run on the CPU (the plain PyTorch versions). "
                              "Without it the run needs a CUDA card.")
@@ -124,8 +127,8 @@ def build_parser() -> argparse.ArgumentParser:
                              "stitches long files by crossfaded overlap-add. "
                              "Default 0: upstream's hard seams.")
     parser.add_argument("--seed", type=int, default=0,
-                        help="Seed for mode 2 (accepted; mode 2 is not "
-                             "ported yet).")
+                        help="Seed of mode 2's dropout (deterministic, "
+                             "unlike upstream's).")
     parser.add_argument("--ckpt", type=str, default=None,
                         help="Analysis checkpoint path (npz or torch vf.ckpt)")
     parser.add_argument("--vocoder-ckpt", type=str, default=None,
@@ -169,6 +172,8 @@ def main(argv=None):
         else DEFAULT_CONFIG
     voicefixer = VoiceFixer(ckpt=args.ckpt, vocoder_ckpt=args.vocoder_ckpt,
                             config=config, device=device)
+    modes = range(3) if args.mode == "all" else [args.mode]
+    append = args.mode == "all"
 
     if process_file:
         audioext = os.path.splitext(os.path.basename(args.infile))[-1]
@@ -178,9 +183,10 @@ def main(argv=None):
                 f"{', '.join(AUDIO_EXTS)}.")
         if not args.silent:
             print(f"Start processing the input file {args.infile}.")
-        writefile(voicefixer, args.infile, args.outfile, args.mode,
-                  args.seed, verbose=not args.silent,
-                  chunk_overlap=args.chunk_overlap)
+        for m in modes:
+            writefile(voicefixer, args.infile, args.outfile, m, append,
+                      args.seed, verbose=not args.silent,
+                      chunk_overlap=args.chunk_overlap)
 
     if process_folder:
         files = [f for f in sorted(os.listdir(args.infolder))
@@ -191,9 +197,11 @@ def main(argv=None):
         for f in files:
             out_file = os.path.join(args.outfolder,
                                     os.path.splitext(f)[0] + ".wav")
-            writefile(voicefixer, os.path.join(args.infolder, f), out_file,
-                      args.mode, args.seed, verbose=not args.silent,
-                      chunk_overlap=args.chunk_overlap)
+            for m in modes:
+                writefile(voicefixer, os.path.join(args.infolder, f),
+                          out_file, m, append, args.seed,
+                          verbose=not args.silent,
+                          chunk_overlap=args.chunk_overlap)
 
     if not args.silent:
         print("Done")

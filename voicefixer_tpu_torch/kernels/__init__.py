@@ -26,6 +26,14 @@ JAX package:
 Every wrapper takes its plain PyTorch version for a tensor on the CPU, and
 for a CUDA tensor launches its kernel or raises; there is no switch that
 reroutes. Each launch adds one to ``launches[name]``.
+
+A kernel writes into a tensor that autograd knows nothing of, so a
+gradient through it would be lost without a word. Every launch therefore
+goes through ``check_no_grad``, which raises where autograd would want a
+gradient of the output. The bidirectional GRU is differentiable: its
+wrapper ``gru.gru_bidir_cat`` runs the kernel inside a
+``torch.autograd.Function`` whose backward is the recurrence's exact
+backpropagation through time.
 """
 
 from __future__ import annotations
@@ -54,6 +62,26 @@ def current_device(device):
     if device.type != "cuda":
         return contextlib.nullcontext()
     return torch.cuda.device(device)
+
+
+def check_no_grad(name: str, *tensors):
+    """Raise RuntimeError when grad mode is on and any of ``tensors`` (or of
+    the tensors in a list or dict among them) requires grad: the launch of
+    kernel ``name`` would drop that gradient."""
+    if not torch.is_grad_enabled():
+        return
+    stack = list(tensors)
+    while stack:
+        t = stack.pop()
+        if isinstance(t, dict):
+            stack.extend(t.values())
+        elif isinstance(t, (list, tuple)):
+            stack.extend(t)
+        elif isinstance(t, torch.Tensor) and t.requires_grad:
+            raise RuntimeError(
+                f"{name}: the CUDA kernel has no backward, and an input "
+                "requires grad; run it under torch.no_grad() or "
+                "torch.inference_mode(), or differentiate on the CPU")
 
 
 def on_cpu(*tensors) -> bool:

@@ -358,6 +358,7 @@ def conv_block_res(x: torch.Tensor, params: dict,
                params["bn1"]["scale"], params["bn2"]["scale"]]
     if kernels.on_cpu(*tensors):
         return conv_block_res_reference(x, params, slope)
+    kernels.check_no_grad("conv_block_res", x, params)
     if not eligible(params, x):
         raise ValueError(
             f"conv_block_res: x {tuple(x.shape)} {x.dtype}, conv1 "

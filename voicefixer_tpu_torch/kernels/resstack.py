@@ -413,6 +413,7 @@ def res_chain(x: torch.Tensor, w1s, b1s, w2s, b2s, dils,
     if kernels.on_cpu(x, w1s, b1s, w2s, b2s):
         return res_chain_reference(x, w1s, b1s, w2s, b2s, dils, slope,
                                    final_slope, mask_bounds)
+    kernels.check_no_grad("res_chain", x, w1s, b1s, w2s, b2s)
     n = len(dils)
     check_stack_args("res_chain", x, (w1s, w2s), (b1s, b2s), n)
     if not 1 <= n <= MAX_BLOCKS or min(dils) < 1:
@@ -447,6 +448,7 @@ def res_shift_single(x: torch.Tensor, w1, b1, w2, b2, dil: int,
     if kernels.on_cpu(x, w1, b1, w2, b2):
         return res_shift_single_reference(x, w1, b1, w2, b2, dil, slope,
                                           final_slope, mask_bounds)
+    kernels.check_no_grad("res_shift_single", x, w1, b1, w2, b2)
     check_stack_args("res_shift_single", x, (w1[None], w2[None]),
                      (b1[None], b2[None]), 1)
     if dil < 1:

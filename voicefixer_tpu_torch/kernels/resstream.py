@@ -98,6 +98,8 @@ def up_res_stream(x_src: torch.Tensor, w_up, b_up, w1s, b1s, w2s, b2s,
     if kernels.on_cpu(x_src, w_up, b_up, w1s, b1s, w2s, b2s):
         return up_res_stream_reference(x_src, w_up, b_up, w1s, b1s, w2s, b2s,
                                        dils, scale, slope, final_slope)
+    kernels.check_no_grad("up_res_stream", x_src, w_up, b_up, w1s, b1s, w2s,
+                          b2s)
     bsz, t_in, cin = x_src.shape
     k, wcin, cout = w_up.shape
     n = len(dils)
@@ -165,6 +167,7 @@ def res_stream(x: torch.Tensor, w1s, b1s, w2s, b2s, dils,
     if kernels.on_cpu(x, w1s, b1s, w2s, b2s):
         return res_stream_reference(x, w1s, b1s, w2s, b2s, dils, slope,
                                     final_slope, mask_bounds)
+    kernels.check_no_grad("res_stream", x, w1s, b1s, w2s, b2s)
     n = len(dils)
     check_stack_args("res_stream", x, (w1s, w2s), (b1s, b2s), n)
     if n < 1 or min(dils) < 1:

@@ -36,6 +36,7 @@ def stft_mel(wav: torch.Tensor, fb: torch.Tensor,
     most 128 mel columns; anything else raises ValueError."""
     if kernels.on_cpu(wav, fb):
         return stft_mel_reference(wav, fb, cfg)
+    kernels.check_no_grad("stft_mel", wav, fb)
     if wav.dtype != torch.float32 or fb.dtype != torch.float32:
         raise TypeError("stft_mel takes float32 wav and fb")
     n_fft, hop = cfg.n_fft, cfg.hop_length

@@ -45,6 +45,7 @@ def upsample(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     Returns [B, T*s, Cout] in x's type."""
     if kernels.on_cpu(x, w, b):
         return upsample_reference(x, w, b, scale)
+    kernels.check_no_grad("upsample", x, w, b)
     bsz, t, cin = x.shape
     k, wcin, cout = w.shape
     if k != 2 * scale or wcin != cin or b.shape != (cout,):

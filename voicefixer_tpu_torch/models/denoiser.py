@@ -1,8 +1,10 @@
-"""Mel-domain denoiser mask net, eval mode, as
-``voicefixer_tpu/models/denoiser.py``: BatchNorm2d(1) / Linear / ReLU around
-two stacked 2-layer bidirectional GRUs, ending in a sigmoid mask on the
-linear mel. Activations are [B, T, F]; each BatchNorm2d(1) normalizes the
-whole tensor with scalar running statistics. Dropout is off in eval mode.
+"""Mel-domain denoiser mask net, as ``voicefixer_tpu/models/denoiser.py``:
+BatchNorm2d(1) / Linear / ReLU / Dropout around two stacked 2-layer
+bidirectional GRUs, ending in a sigmoid mask on the linear mel. Activations
+are [B, T, F]; each BatchNorm2d(1) normalizes the whole tensor with scalar
+statistics: the running ones in eval, the batch's in training (mode 2 and
+the trainer), where dropout is live too, drawn from an explicit
+``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -16,31 +18,52 @@ from voicefixer_tpu_torch.ops import gru as vgru
 from voicefixer_tpu_torch.utils.weights import uniform
 
 
-def _bn_scalar(x: torch.Tensor, p: dict) -> torch.Tensor:
-    """BatchNorm2d(1) in eval mode on [B, T, F]."""
-    inv = torch.rsqrt(p["var"][0] + 1e-5)
-    return (x - p["mean"][0]) * (inv * p["gamma"][0]) + p["beta"][0]
+def _bn_scalar(x: torch.Tensor, p: dict, training: bool) -> torch.Tensor:
+    """BatchNorm2d(1) on [B, T, F]: one channel covering everything."""
+    if training:
+        var, mean = torch.var_mean(x, correction=0)
+    else:
+        mean, var = p["mean"][0], p["var"][0]
+    inv = torch.rsqrt(var + 1e-5)
+    return (x - mean) * (inv * p["gamma"][0]) + p["beta"][0]
+
+
+def _dropout(x: torch.Tensor, rate: float, training: bool,
+             generator: torch.Generator | None) -> torch.Tensor:
+    """Keep each element with probability 1 - rate, scaled by 1 / keep."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 def _linear(x: torch.Tensor, p: dict) -> torch.Tensor:
     return x @ p["w"] + p["b"]
 
 
-def apply(params: dict, mel: torch.Tensor,
-          cfg: DenoiserConfig) -> torch.Tensor:
+def apply(params: dict, mel: torch.Tensor, cfg: DenoiserConfig,
+          training: bool = False,
+          generator: torch.Generator | None = None) -> torch.Tensor:
     """mel: [B, T, n_mel] linear mel -> sigmoid mask [B, T, n_mel]. Layer
-    names follow the upstream nn.Sequential indices."""
-    x = _bn_scalar(mel, params["bn0"])
+    names follow the upstream nn.Sequential indices. ``training``: batch
+    statistics and dropout after fc4 and after fc11, drawn from
+    ``generator`` (on mel's device), by default one seeded 0."""
+    if training and generator is None:
+        generator = torch.Generator(mel.device).manual_seed(0)
+    x = _bn_scalar(mel, params["bn0"], training)
     x = torch.relu(_linear(x, params["fc1"]))
-    x = _bn_scalar(x, params["bn3"])
-    x = torch.relu(_linear(x, params["fc4"]))
+    x = _bn_scalar(x, params["bn3"], training)
+    x = _linear(x, params["fc4"])
+    x = torch.relu(_dropout(x, cfg.dropout, training, generator))
     for name in ("gru7", "gru8"):
-        x = _bn_scalar(x, params[name]["bn"])
+        x = _bn_scalar(x, params[name]["bn"], training)
         x = vgru.gru(x, params[name]["gru"], cfg.gru_layers,
                      bidirectional=True)
-    x = torch.relu(_bn_scalar(x, params["bn9"]))
+    x = torch.relu(_bn_scalar(x, params["bn9"], training))
     x = _linear(x, params["fc11"])
-    x = torch.relu(_bn_scalar(x, params["bn13"]))
+    x = _dropout(x, cfg.dropout, training, generator)
+    x = torch.relu(_bn_scalar(x, params["bn13"], training))
     return torch.sigmoid(_linear(x, params["fc15"]))
 
 

@@ -1,5 +1,5 @@
-"""6-encoder/6-decoder residual U-Net over log-mel spectrograms, eval mode,
-as ``voicefixer_tpu/models/resunet.py``.
+"""6-encoder/6-decoder residual U-Net over log-mel spectrograms, as
+``voicefixer_tpu/models/resunet.py``.
 
 Layout [B, T, F, C] at the functions; each ConvBlockRes is
 bn -> leaky(0.01) -> 3x3 conv -> bn -> leaky -> 3x3 conv, plus a residual or
@@ -9,6 +9,10 @@ convolutions in the JAX package). As there, the fused ConvBlockRes kernel
 ``ops.precision.conv_block_kernel``: with it on, every block that
 ``convblock.eligible`` takes goes to the kernel. BN runs as one multiply-add
 on the (scale, shift) leaves that ``fold_bn_eval`` adds at construction.
+
+In training (mode 2 and the trainer) BN takes the batch's statistics, and,
+as in the JAX package, the activations stay float32 and no block goes to
+the fused kernel (it folds eval BN).
 """
 
 from __future__ import annotations
@@ -27,13 +31,15 @@ from voicefixer_tpu_torch.ops.precision import (activation_dtype,
 from voicefixer_tpu_torch.utils.weights import tree_map, uniform
 
 
-def _conv_block_res(p: dict, x: torch.Tensor, slope: float) -> torch.Tensor:
-    if use_conv_block_kernel() and convblock.eligible(p, x):
+def _conv_block_res(p: dict, x: torch.Tensor, slope: float,
+                    training: bool = False) -> torch.Tensor:
+    if (not training and use_conv_block_kernel()
+            and convblock.eligible(p, x)):
         return convblock.conv_block_res(x, p, slope)
-    h = conv2d(leaky_relu(batch_norm(x, p["bn1"]), slope), p["conv1"]["w"],
-               padding=(1, 1))
-    h = conv2d(leaky_relu(batch_norm(h, p["bn2"]), slope), p["conv2"]["w"],
-               padding=(1, 1))
+    h = conv2d(leaky_relu(batch_norm(x, p["bn1"], training), slope),
+               p["conv1"]["w"], padding=(1, 1))
+    h = conv2d(leaky_relu(batch_norm(h, p["bn2"], training), slope),
+               p["conv2"]["w"], padding=(1, 1))
     if "shortcut" in p:
         return conv2d(x, p["shortcut"]["w"], p["shortcut"]["b"]) + h
     return x + h
@@ -69,33 +75,36 @@ def pack_conv_blocks(params: dict) -> dict:
     return out
 
 
-def _encoder_block(p: dict, x: torch.Tensor, slope: float, n_blocks: int):
+def _encoder_block(p: dict, x: torch.Tensor, slope: float, n_blocks: int,
+                   training: bool):
     for i in range(n_blocks):
-        x = _conv_block_res(p[f"block{i + 1}"], x, slope)
+        x = _conv_block_res(p[f"block{i + 1}"], x, slope, training)
     return avg_pool2d(x), x
 
 
 def _decoder_block(p: dict, x: torch.Tensor, skip: torch.Tensor,
-                   slope: float, n_blocks: int) -> torch.Tensor:
+                   slope: float, n_blocks: int,
+                   training: bool) -> torch.Tensor:
     """bn -> relu -> convT(k3, s2), drop the last time row, concat skip,
     then the conv blocks."""
-    h = conv_transpose2d(torch.relu(batch_norm(x, p["bn1"])), p["conv1"]["w"],
-                         stride=(2, 2))
+    h = conv_transpose2d(torch.relu(batch_norm(x, p["bn1"], training)),
+                         p["conv1"]["w"], stride=(2, 2))
     h = torch.cat([h[:, :-1], skip], dim=-1)
     for i in range(n_blocks):
-        h = _conv_block_res(p[f"block{i + 2}"], h, slope)
+        h = _conv_block_res(p[f"block{i + 2}"], h, slope, training)
     return h
 
 
-def apply(params: dict, x: torch.Tensor, cfg: ResUNetConfig) -> torch.Tensor:
+def apply(params: dict, x: torch.Tensor, cfg: ResUNetConfig,
+          training: bool = False) -> torch.Tensor:
     """x: [B, T, 128, 2] log-mel stack -> [B, T, 128, 1]. Pads T to a
     multiple of 2^levels with zeros, drops the last freq bin, runs the
     U-Net, zero-pads the freq bin back and crops T. Production precision
-    runs it in bfloat16."""
+    runs it in bfloat16, except in training."""
     slope = cfg.leaky_slope
     in_dtype = x.dtype
     adt = activation_dtype()
-    if adt != x.dtype:
+    if not training and adt != x.dtype:
         params = _cast(params, adt)
         x = x.to(adt)
     origin_t = x.shape[1]
@@ -107,13 +116,13 @@ def apply(params: dict, x: torch.Tensor, cfg: ResUNetConfig) -> torch.Tensor:
     h = x
     for i in range(cfg.levels):
         h, pre = _encoder_block(params[f"enc{i + 1}"], h, slope,
-                                cfg.blocks_per_stage)
+                                cfg.blocks_per_stage, training)
         skips.append(pre)
-    h = _conv_block_res(params["center"], h, slope)
+    h = _conv_block_res(params["center"], h, slope, training)
     for i in range(cfg.levels):
         h = _decoder_block(params[f"dec{i + 1}"], h, skips[-1 - i], slope,
-                           cfg.blocks_per_stage)
-    h = _conv_block_res(params["after1"], h, slope)
+                           cfg.blocks_per_stage, training)
+    h = _conv_block_res(params["after1"], h, slope, training)
     h = conv2d(h, params["after2"]["w"], params["after2"]["b"])
     h = F.pad(h, (0, 0, 0, 1))  # restore the freq bin
     return h[:, :origin_t].to(in_dtype)

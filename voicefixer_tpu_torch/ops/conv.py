@@ -72,14 +72,23 @@ def avg_pool2d(x: torch.Tensor, window=(2, 2)) -> torch.Tensor:
     return F.avg_pool2d(x.permute(0, 3, 1, 2), tuple(window)).permute(0, 2, 3, 1)
 
 
-def batch_norm(x: torch.Tensor, params: dict,
+def batch_norm(x: torch.Tensor, params: dict, training: bool = False,
                eps: float = 1e-5) -> torch.Tensor:
-    """Eval-mode channel-last batch norm on running statistics. Uses the
-    folded (scale, shift) leaves when ``fold_bn_eval`` added them."""
-    if "scale" in params:
+    """Channel-last batch norm. In eval, the running statistics, as the
+    folded (scale, shift) leaves where ``fold_bn_eval`` added them. In
+    training (mode 2 and the trainer) the batch's statistics over every
+    non-channel axis, the variance biased, with gamma and beta (never the
+    folded leaves); the running statistics are not updated, as in the JAX
+    package."""
+    if training:
+        axes = tuple(range(x.ndim - 1))
+        var, mean = torch.var_mean(x, dim=axes, correction=0)
+    elif "scale" in params:
         return x * params["scale"] + params["shift"]
-    inv = torch.rsqrt(params["var"] + eps)
-    return (x - params["mean"]) * (inv * params["gamma"]) + params["beta"]
+    else:
+        mean, var = params["mean"], params["var"]
+    inv = torch.rsqrt(var + eps)
+    return (x - mean) * (inv * params["gamma"]) + params["beta"]
 
 
 def fold_batch_norm(params: dict, eps: float = 1e-5):

@@ -1,10 +1,13 @@
-"""End-to-end restoration, modes 0 and 1: wav -> analysis -> vocoder ->
-wav, as ``voicefixer_tpu/pipeline/restore.py`` (upstream
-VoiceFixer.restore_inmem and restore): 30 s segments, short and tail
-segments zero-padded to a full segment, equal lengths batched, a per-chunk
-peak cap, and the upstream centre trim; or, with ``chunk_overlap_seconds``,
-overlapping windows stitched by a crossfade. Mode 1 first zeroes the STFT
-bins above a cumulative log-energy cutoff (``remove_higher_frequency``).
+"""End-to-end restoration: wav -> analysis -> vocoder -> wav, as
+``voicefixer_tpu/pipeline/restore.py`` (upstream VoiceFixer.restore_inmem
+and restore): 30 s segments, short and tail segments zero-padded to a full
+segment, equal lengths batched, a per-chunk peak cap, and the upstream
+centre trim; or, with ``chunk_overlap_seconds``, overlapping windows
+stitched by a crossfade. Mode 1 first zeroes the STFT bins above a
+cumulative log-energy cutoff (``remove_higher_frequency``). Mode 2 runs the
+analysis stage in training mode (batch statistics, live dropout from a
+seeded generator), and it and a custom vocoder (``your_vocoder_func``) take
+the segments one by one, unpadded, as upstream does.
 """
 
 from __future__ import annotations
@@ -27,7 +30,6 @@ from voicefixer_tpu_torch.pipeline import vocoder_facade
 from voicefixer_tpu_torch.utils.weights import convert_tree, tree_map
 
 EPS = 1e-8
-UNPORTED = "ROADMAP.md Queue 1 item 7"
 
 
 def remove_higher_frequency(wav: torch.Tensor, cfg: VoiceFixerConfig,
@@ -100,17 +102,20 @@ def _trim_center(est: np.ndarray, ref_len: int) -> np.ndarray:
 
 def restore_batch(analysis_params: dict, vocoder_params,
                   wav: torch.Tensor, cfg: VoiceFixerConfig,
-                  model_devices=None):
+                  model_devices=None, training: bool = False,
+                  generator: torch.Generator | None = None):
     """A batch of equal-length chunks through both stages:
     wav [B, N] -> (wav_out [B, S], pre-cap peaks [B]). A chunk whose peak
     exceeds 1 is divided by it. With more than one entry in
     ``model_devices`` the vocoder runs time-sharded over them
     (``parallel.sp``), and ``vocoder_params`` may be a list of per-device
-    copies."""
+    copies. ``training`` and ``generator``: the analysis stage in mode 2
+    (``analysis.apply``); its statistics span the batch."""
     with tf32_off(), torch.inference_mode(), \
             kernels.current_device(wav.device):
         mel_orig = analysis.wav_to_mel(wav, cfg)
-        out = analysis.apply(analysis_params, mel_orig, cfg)
+        out = analysis.apply(analysis_params, mel_orig, cfg,
+                             training=training, generator=generator)
         denoised_mel = from_log(out["mel"])
         if model_devices is not None and len(model_devices) > 1:
             from voicefixer_tpu_torch.parallel.sp import synthesize_sp
@@ -126,9 +131,12 @@ def restore_batch(analysis_params: dict, vocoder_params,
 
 
 def restore_segment(analysis_params: dict, vocoder_params: dict,
-                    wav: torch.Tensor, cfg: VoiceFixerConfig):
+                    wav: torch.Tensor, cfg: VoiceFixerConfig,
+                    training: bool = False,
+                    generator: torch.Generator | None = None):
     """One chunk: wav [N] -> (wav_out [S], peak)."""
-    out, peaks = restore_batch(analysis_params, vocoder_params, wav[None], cfg)
+    out, peaks = restore_batch(analysis_params, vocoder_params, wav[None],
+                               cfg, training=training, generator=generator)
     return out[0], peaks[0]
 
 
@@ -143,7 +151,7 @@ def resolve_device(device) -> torch.device:
 
 
 class VoiceFixer:
-    """Restoration API mirroring upstream ``VoiceFixer``, modes 0 and 1.
+    """Restoration API mirroring upstream ``VoiceFixer``, modes 0, 1 and 2.
 
     params / vocoder_params: the port's parameter trees (``analysis.init``
     and ``vocoder.init``, or ``utils.weights.from_jax_params``). Where one
@@ -221,7 +229,8 @@ class VoiceFixer:
                 torch.from_numpy(wav).to(self.device), self.config)
         return out.cpu().numpy()
 
-    def _restore_batch(self, batch: np.ndarray):
+    def _restore_batch(self, batch: np.ndarray, training: bool = False,
+                       generator: torch.Generator | None = None):
         """restore_batch of [B, N] chunks -> (outs [B, S], peaks [B]) as
         numpy."""
         with conv_block_kernel(self.conv_block_kernel
@@ -229,30 +238,50 @@ class VoiceFixer:
             outs, peaks = restore_batch(
                 self.params, self.vocoder_params,
                 torch.from_numpy(batch).to(self.device), self.config,
-                model_devices=self.model_devices)
+                model_devices=self.model_devices, training=training,
+                generator=generator)
         return outs.float().cpu().numpy(), peaks.float().cpu().numpy()
+
+    def _denoised_mel(self, wav: np.ndarray, training: bool,
+                      generator: torch.Generator | None) -> torch.Tensor:
+        """The analysis stage of one segment: the denoised linear mel
+        [1, 1, T, n_mels] on the instance's device, what upstream hands a
+        custom vocoder."""
+        with tf32_off(), torch.inference_mode(), \
+                kernels.current_device(self.device), \
+                conv_block_kernel(self.conv_block_kernel
+                                  or use_conv_block_kernel()):
+            mel = analysis.restore_mel(
+                self.params, torch.from_numpy(wav[None]).to(self.device),
+                self.config, training=training, generator=generator)
+            return from_log(mel)[:, None]
 
     def restore_inmem(self, wav_10k: np.ndarray, cuda: bool = False,
                       mode: int = 0, your_vocoder_func=None, seed: int = 0,
                       chunk_overlap_seconds: float = 0.0) -> np.ndarray:
         """wav [N] at 44.1 kHz -> restored wav [N] (mode 1: a little shorter,
         as upstream). mode 0: eval; mode 1: eval after
-        ``remove_higher_frequency`` on each 30 s segment.
-        ``chunk_overlap_seconds`` > 0 stitches an input longer than one
-        segment from overlapping windows (``_restore_overlap``) instead of
-        hard seams. ``cuda`` and ``seed`` are accepted for API
-        compatibility; the device is the instance's."""
+        ``remove_higher_frequency`` on each 30 s segment; mode 2: the
+        analysis stage in training mode, its dropout drawn from one
+        generator on the instance's device seeded ``seed``, which serves
+        the segments in order. ``your_vocoder_func`` replaces the vocoder:
+        it receives each segment's denoised linear mel [1, 1, T, n_mels] as
+        a tensor on the device and returns the segment's samples (a tensor
+        or anything numpy takes). Mode 2 and a custom vocoder run the
+        segments one by one at their own lengths (mode 2's statistics are
+        per segment). ``chunk_overlap_seconds`` > 0 stitches an input
+        longer than one segment from overlapping windows
+        (``_restore_overlap``) instead of hard seams; eval modes only.
+        ``cuda`` is accepted for API compatibility; the device is the
+        instance's."""
         if mode not in (0, 1, 2):
             raise ValueError(f"mode must be 0, 1, or 2, got {mode}")
-        if mode == 2:
-            raise NotImplementedError(
-                f"mode 2 is not ported yet: {UNPORTED}")
-        if your_vocoder_func is not None:
-            raise NotImplementedError(
-                f"your_vocoder_func is not ported yet: {UNPORTED}")
         wav_10k = np.asarray(wav_10k, dtype=np.float32).reshape(-1)
+        training = mode == 2
         seg_length = self.config.pipeline.seg_length
-        if chunk_overlap_seconds > 0 and wav_10k.shape[0] > seg_length:
+        if (chunk_overlap_seconds > 0 and not training
+                and your_vocoder_func is None
+                and wav_10k.shape[0] > seg_length):
             return self._restore_overlap(wav_10k, mode,
                                          chunk_overlap_seconds)
         segments = [wav_10k[s: s + seg_length]
@@ -260,6 +289,9 @@ class VoiceFixer:
         if mode == 1:
             # the trims below target the shorter post-ISTFT length
             segments = [self._hf(seg) for seg in segments]
+        if training or your_vocoder_func is not None:
+            return self._restore_sequential(segments, training, seed,
+                                            your_vocoder_func)
         orig_lens: dict = {}
         if self.config.pipeline.pad_short_to_seg:
             for i, seg in enumerate(segments):
@@ -281,6 +313,29 @@ class VoiceFixer:
                 if i in orig_lens:
                     out = out[:orig_lens[i]]
                 res[i] = out
+        return np.concatenate(res, axis=-1)
+
+    def _restore_sequential(self, segments: list, training: bool, seed: int,
+                            your_vocoder_func) -> np.ndarray:
+        """Mode 2 and the custom vocoder: each segment alone, at its own
+        length, trimmed to it."""
+        generator = (torch.Generator(self.device).manual_seed(seed)
+                     if training else None)
+        res = []
+        for seg in segments:
+            if your_vocoder_func is None:
+                outs, peaks = self._restore_batch(seg[None], training,
+                                                  generator)
+                if peaks[0] > 1.0:
+                    print("Warning: Exceed energy limit,", float(peaks[0]))
+                out = outs[0]
+            else:
+                out = your_vocoder_func(
+                    self._denoised_mel(seg, training, generator))
+                if isinstance(out, torch.Tensor):
+                    out = out.detach().float().cpu()
+                out = np.asarray(out).reshape(-1)
+            res.append(_trim_center(out, seg.shape[0]))
         return np.concatenate(res, axis=-1)
 
     def _restore_overlap(self, wav: np.ndarray, mode: int,

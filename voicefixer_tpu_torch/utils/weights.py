@@ -357,14 +357,15 @@ class _Bridge:
             "stages": lambda v, p: self.seq(v, p, stage)})
 
 
-def count_leaves(tree) -> int:
-    n = 0
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of dicts, lists and tuples, in its order."""
+    out = []
+    tree_map(out.append, tree)
+    return out
 
-    def one(_):
-        nonlocal n
-        n += 1
-    tree_map(one, tree)
-    return n
+
+def count_leaves(tree) -> int:
+    return len(tree_leaves(tree))
 
 
 def convert_tree(tree: dict, which: str, device="cpu"):
@@ -385,6 +386,50 @@ def from_jax_params(analysis_tree: dict, vocoder_tree: dict, device="cpu"):
     """Both JAX package trees -> the port's (``convert_tree``)."""
     return (convert_tree(analysis_tree, "analysis", device),
             convert_tree(vocoder_tree, "vocoder", device))
+
+
+def _jax_unflatten(tree, flat):
+    """The leaves ``flat`` (an iterator, in the JAX package's flatten order:
+    dict keys sorted, lists in order) placed in ``tree``'s structure, its
+    key order kept."""
+    if isinstance(tree, dict):
+        vals = {k: _jax_unflatten(tree[k], flat) for k in sorted(tree)}
+        return {k: vals[k] for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return [_jax_unflatten(v, flat) for v in tree]
+    return next(flat)
+
+
+def from_jax_train_state(params_tree: dict, opt_state_leaves, step: int,
+                         optimizer=None, device="cuda"):
+    """A JAX package train state -> the port's ``train.step.TrainState`` on
+    ``device``. params_tree: the analysis tree (numpy leaves);
+    opt_state_leaves: the leaves of the JAX state's ``opt_state``, flattened
+    as ``jax.tree.leaves`` does for ``reference_optimizer``'s chain:
+    ScaleByAdamState(count, mu, nu), then ScaleByScheduleState(count).
+    The moments are elementwise, so ``convert_tree``'s mapping carries them
+    leaf for leaf into Adam's exp_avg and exp_avg_sq; Adam's update count
+    is the first count, the schedule's step the second. ``optimizer``: the
+    port's ``OptimizerSpec`` of the same recipe (default
+    ``reference_optimizer()``)."""
+    from voicefixer_tpu_torch.train.step import init_train_state, set_step
+    n = count_leaves(params_tree)
+    flat = [np.asarray(v) for v in opt_state_leaves]
+    if len(flat) != 2 * n + 2:
+        raise ValueError(f"optimizer state of {len(flat)} leaves; Adam and "
+                         f"its schedule over {n} parameters have {2 * n + 2}")
+    state = init_train_state(convert_tree(params_tree, "analysis"),
+                             optimizer, device)
+    moments = [tree_leaves(convert_tree(
+        _jax_unflatten(params_tree, iter(m)), "analysis",
+        state.leaves()[0].device))
+               for m in (flat[1:1 + n], flat[1 + n:1 + 2 * n])]
+    for p, m, v in zip(state.leaves(), *moments):
+        state.optimizer.state[p] = {"step": torch.tensor(float(flat[0])),
+                                    "exp_avg": m, "exp_avg_sq": v}
+    set_step(state, int(flat[-1]))
+    state.step = int(step)
+    return state
 
 
 def save_pytree_npz(params, path: str, provenance: str | None = None):
