@@ -18,16 +18,32 @@ launches of mode 0, none of conv_block_res); a custom vocoder hook (only
 stft_mel and gru_bidir); the analysis-stage trainer (``train/``: gru_bidir
 under grad, its backward in torch ops, ``kernels.gru.GruBidir``), whose
 first step is held to the same step with the GRU on its plain version; and
-the file path, three runs of the command line
-(``voicefixer_tpu_torch.__main__.main``) on upstream-layout torch
-checkpoints written by ``tools/torch_ref_state_dict.py``: mode 0, FLAC with
-overlap-add, mode 1. K6's backward is held to autograd through the plain
-loop and timed against ``nn.GRU``'s.
+the distributed entry points on a real NCCL group of one process
+(``parallel.distributed.initialize`` from the VF_* variables,
+``make_mesh()`` = (1, 1), ``parallel.inference.restore_wavs`` in modes 0
+and 1 held to ``restore_inmem``, its peak memory per chunk row, and a
+trainer step on the mesh held to the step without one); and the file path,
+three runs of the command line (``voicefixer_tpu_torch.__main__.main``) on
+upstream-layout torch checkpoints written by ``tools/torch_ref_state_dict.py``:
+mode 0, FLAC with overlap-add, mode 1. K6's backward is held to autograd
+through the plain loop and timed against ``nn.GRU``'s.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --cards N    # N >= 2 cards: only the sharded
-                                       # path, shard i on card i, against
-                                       # the unsharded restore on card 0
+    python3 chip_smoke.py --cards N    # N >= 2 cards: the paths that need N
+
+With ``--cards N`` it runs the vocoder time-sharded in one process (shard i
+on card i) against the unsharded restore on card 0, then starts N worker
+processes, one a card, on NCCL (this script with ``--rank-worker``; each is
+killed after RANKS_TIMEOUT_S): (a) ``restore_wavs`` on a (N, 1) mesh over
+2N + 1 chunks, held to one-card ``restore_inmem``, and its aggregate
+audio-s/s; (b) the vocoder over NCCL on (1, N) held to the one-process
+sharded output and to the unsharded one, with the halo exchange's ms per
+stage; (c) tensor-parallel restore on (1, N) (the ResUNet channel-sharded,
+the vocoder time-sharded; no conv_block_res launch under the opt-in) held
+to the default output; (d) the trainer on (N, 1) and, for N >= 4, (N/2, 2)
+held to the one-process step on the whole batch with the plain GRU, ms per
+step with the all-reduce's share; (e) the command line in folder mode with
+``--coordinator`` in N processes against the one-process command line.
 
 Needs one CUDA card and nvcc. Exits non-zero, printing no result, when there
 is no card or a phase fails. The last line of standard output is
@@ -1252,6 +1268,8 @@ def phase_cards(n: int):
                                       expected_launches(size, shards=n))
             _held_to_default(mode, f"{n} cards", out, outs, SHARD_ATOL)
             _timed_restore(mode, f"{n} cards", sp, wav, devices[0])
+    del sp
+    return vf, wav, outs
 
 
 def phase_conv_block_path(vf, wav, outs, device):
@@ -1985,6 +2003,911 @@ def phase_small_reference(device):
         raise AssertionError("card and CPU disagree in mode 2")
 
 
+# ----------------------------------------------------------------------
+# Process groups: a world of one on the one card, and with --cards N
+# one worker process a card (this script with --rank-worker) on NCCL.
+
+PG_ATOL = 1e-5            # restore_wavs against restore_inmem, parity
+#                           (the JAX package's, tests/test_parallel_inference.py:31)
+PG_TRAIN_RTOL = 1e-6      # a step on a (1, 1) mesh against the step without
+RANKS_TIMEOUT_S = 900     # a worker still running then is killed: a failure
+# The multi-rank trainer against the one-process step on the whole batch
+# with K6 on its plain version. The loss within RANKS_LOSS_RTOL. The
+# gradients: their sums run in another order on the ranks (BN statistics
+# all-reduced, each rank's loss mean, cuDNN at another batch), and the step's
+# gradients are not continuous in its forward values (the L1 losses' signs,
+# the ReLUs). Computing the one-process step's BN moments in two passes
+# instead of torch.var_mean's one already moves a leaf by about 1e-3 of its
+# largest element (tiny_test_config on the CPU, 3 s pairs), and at full
+# width 1.14e-3 of the whole gradient's norm and 5e-2 of a leaf's largest
+# element (this phase on 2 H100s, PERF.md). So it measures that spread for
+# each reference (``_grad_errors`` of the two-pass step against the
+# one-pass one) and holds the ranks' gradients to RANKS_SPREAD times it:
+# the whole gradient against its norm, each leaf against its largest
+# element (floored as TRAIN_GRAD_TOL's), never tighter than RANKS_GRAD_L2
+# and RANKS_GRAD_LEAF. A gradient not averaged (an error of 1 or more), a
+# sharded input's gradient not summed over the model group, or statistics
+# of a rank's own rows exceed that many times over.
+RANKS_LOSS_RTOL = 1e-5
+RANKS_GRAD_L2, RANKS_GRAD_LEAF, RANKS_SPREAD = 1e-3, 1e-2, 4.0
+# A file of the multi-process CLI against the one-process CLI's: int16
+# samples within one step (the batches hold other rows, whose convolutions
+# may sum in another order).
+CLI_LSB = 1
+TP_MARGIN_DB = 3.0        # the channel-sharded analysis rounds elsewhere
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _require_nccl(what: str):
+    """Raise unless the process group is NCCL: on the card nothing may
+    carry on on gloo."""
+    import torch
+    backend = torch.distributed.get_backend()
+    if backend != "nccl":
+        raise AssertionError(f"{what}: backend {backend}, not nccl")
+
+
+def _noise(lengths, seed: int = SEED) -> list:
+    """White noise of 0.1 sigma, one wave a length (samples), from seed."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [(0.1 * rng.standard_normal(n)).astype(np.float32)
+            for n in lengths]
+
+
+def rank_launches(size: int, vocoder_only: bool = False) -> dict:
+    """A rank's launches per batch on a mesh with a model axis: one time
+    shard of the vocoder a rank (``expected_launches`` of 2 shards,
+    halved), the analysis stage whole (K5 and K6 replicated)."""
+    want = expected_launches(size, shards=2)
+    for k in ("res_stream", "res_chain", "res_shift_single"):
+        want[k] //= 2
+    if vocoder_only:
+        want["stft_mel"] = want["gru_bidir"] = 0
+    return want
+
+
+def _hold_wavs(mode: str, what: str, got: list, ref: list, parity_ref: list):
+    """Per file: parity within PG_ATOL of ref; production at an SNR against
+    ref within SNR_MATCH_DB of production's SNR against parity."""
+    import numpy as np
+    for i, (g, r) in enumerate(zip(got, ref)):
+        if g.shape != r.shape or not np.isfinite(g).all():
+            raise AssertionError(f"{what}: file {i} shape {g.shape} / "
+                                 f"{r.shape} or not finite")
+        if mode == "parity":
+            err = float(np.abs(g - r).max())
+            log(f"  {mode} {what}, file {i} ({len(g)} samples): max abs "
+                f"diff {err:.3e} (tol {PG_ATOL:.0e})")
+            if not err <= PG_ATOL:
+                raise AssertionError(f"{what}: file {i} differs")
+        else:
+            snr = _snr_db(g, r)
+            floor = _snr_db(r, parity_ref[i]) - SNR_MATCH_DB
+            log(f"  {mode} {what}, file {i}: SNR {snr:.2f} dB against "
+                f"restore_inmem (must reach {floor:.2f})")
+            if snr < floor:
+                raise AssertionError(f"{what}: file {i} strays")
+
+
+def _peak_per_row(vf, wav, rows=(1, 5)):
+    """(fixed, per row) bytes of the peak allocated memory of restore_wavs
+    over batches of rows[0] and rows[1] copies of one 30 s chunk."""
+    import torch
+    from voicefixer_tpu_torch.parallel.inference import restore_wavs
+    peaks = []
+    for r in rows:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        restore_wavs(vf, [wav] * r, 0)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+    per_row = (peaks[1] - peaks[0]) / (rows[1] - rows[0])
+    return peaks[0] - rows[0] * per_row, per_row
+
+
+def _train_pairs(n_pairs: int):
+    """n_pairs of 3 s (clean, noisy = clean + 0.05 sigma noise)."""
+    import numpy as np
+    from voicefixer_tpu_torch.config import DEFAULT_CONFIG as C
+    n = int(TRAIN_SECONDS * C.pipeline.sample_rate)
+    rng = np.random.default_rng(SEED + 7)
+    clean = (0.1 * rng.standard_normal((n_pairs, n))).astype(np.float32)
+    noisy = (clean + 0.05 * rng.standard_normal((n_pairs, n))).astype(
+        np.float32)
+    return noisy, clean
+
+
+def _dropout0(cfg):
+    import dataclasses
+    return dataclasses.replace(cfg, denoiser=dataclasses.replace(
+        cfg.denoiser, dropout=0.0))
+
+
+def phase_process_group(device):
+    """The distributed entry points on a real NCCL group of one process:
+    ``distributed.initialize`` from VF_COORDINATOR (localhost and a free
+    port), VF_NUM_PROCESSES=1 and VF_PROCESS_ID=0; ``make_mesh()`` is
+    (1, 1). restore_wavs in modes 0 and 1 over three waves (30.1 s, 0.25 s,
+    60 s: five chunks, one batch), in both precisions, each file held to
+    restore_inmem on the same VoiceFixer and each batch's launches counted;
+    the peak allocated memory per chunk row; one trainer step pair on the
+    mesh against the same steps without one. The group is taken down and
+    the variables restored after."""
+    import os
+
+    import numpy as np
+    import torch
+    from voicefixer_tpu_torch import kernels
+    from voicefixer_tpu_torch.config import DEFAULT_CONFIG as C
+    from voicefixer_tpu_torch.models import analysis, vocoder
+    from voicefixer_tpu_torch.ops.precision import precision
+    from voicefixer_tpu_torch.parallel import distributed
+    from voicefixer_tpu_torch.parallel.inference import restore_wavs
+    from voicefixer_tpu_torch.parallel.mesh import make_mesh
+    from voicefixer_tpu_torch.pipeline.restore import VoiceFixer
+    from voicefixer_tpu_torch.train import step as st
+    from voicefixer_tpu_torch import __main__ as cli
+
+    t_phase = time.perf_counter()
+    env = {"VF_COORDINATOR": f"localhost:{_free_port()}",
+           "VF_NUM_PROCESSES": "1", "VF_PROCESS_ID": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    log(f"== process group of one: {env}")
+    try:
+        if not distributed.initialize():
+            raise AssertionError("initialize() found no coordinator")
+        _require_nccl("process group of one")
+        mesh = make_mesh()
+        shape = (mesh.size(0), mesh.size(1))
+        log(f"  backend {torch.distributed.get_backend()}, mesh {shape} on "
+            f"{distributed.local_device()}")
+        if shape != (1, 1):
+            raise AssertionError(f"mesh {shape}")
+        gen = torch.Generator().manual_seed(SEED)
+        ap = analysis.init(C, gen, device)
+        vp = vocoder.init(C.vocoder, gen, device)
+        vf = VoiceFixer(ap, vp, C, device=device, mesh=mesh)
+        sr, seg = C.pipeline.sample_rate, C.pipeline.seg_length
+        wavs = _noise([seg + sr // 10, sr // 4, 2 * seg])
+        got, ref = {}, {}
+        for mode in ("parity", "production"):
+            size = 4 if mode == "parity" else 2
+            with precision(mode):
+                for m in (0, 1):
+                    ref[mode, m] = [vf.restore_inmem(w, mode=m) for w in wavs]
+                    torch.cuda.synchronize()
+                    kernels.reset_launches()
+                    t0 = time.perf_counter()
+                    got[mode, m] = restore_wavs(vf, wavs, m)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    counts = dict(kernels.launches)
+                    log(f"  {mode} restore_wavs mode {m}: 5 chunks in one "
+                        f"batch, {wall * 1e3:.1f} ms, launches {counts}")
+                    if counts != expected_launches(size):
+                        raise AssertionError(
+                            f"restore_wavs launches {counts} != "
+                            f"{expected_launches(size)}")
+                fixed, per_row = _peak_per_row(vf, wavs[2][:seg])
+                rows_fit = int((0.9 * torch.cuda.get_device_properties(
+                    device).total_memory - fixed) // per_row)
+                log(f"  {mode} restore_wavs peak allocated memory: "
+                    f"{per_row / 2 ** 30:.3f} GiB per 30 s chunk row "
+                    f"+ {fixed / 2 ** 30:.3f} GiB fixed (batches of 1 and 5 "
+                    f"rows); {rows_fit} rows fit 90 % of this card; the "
+                    f"CLI's ROWS_PER_CARD is {cli.ROWS_PER_CARD}")
+                if rows_fit < cli.ROWS_PER_CARD:
+                    raise AssertionError("ROWS_PER_CARD rows do not fit")
+        for mode in ("parity", "production"):
+            for m in (0, 1):
+                _hold_wavs(mode, f"restore_wavs mode {m}", got[mode, m],
+                           ref[mode, m], ref["parity", m])
+        del vf, ap, vp, got, ref
+        torch.cuda.empty_cache()
+        _pg_trainer(device, mesh)
+    finally:
+        distributed.shutdown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    log(f"  process-group phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+def _pg_trainer(device, mesh):
+    """Two steps at DEFAULT_CONFIG on two 3 s pairs, warm-up 1 (the second
+    update moves the parameters), on the (1, 1) mesh and without one, from
+    one state and one generator seed, cuDNN deterministic: the losses
+    equal, every leaf within PG_TRAIN_RTOL of its largest element."""
+    import torch
+    from voicefixer_tpu_torch.config import DEFAULT_CONFIG as C
+    from voicefixer_tpu_torch.models import analysis
+    from voicefixer_tpu_torch.train import step as st
+    params = analysis.init(C, torch.Generator().manual_seed(SEED), device)
+    noisy, clean = _train_pairs(TRAIN_BATCH)
+    spec = st.reference_optimizer(warmup_steps=1)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    got = {}
+    try:
+        for m in (None, mesh):
+            state = st.init_train_state(params, spec, device)
+            if m is not None:
+                state = st.place_train_state(state, m)
+            step = st.make_train_step(C, spec, mesh=m)
+            gen = torch.Generator(device).manual_seed(SEED)
+            losses_ = []
+            for _ in range(2):
+                state, metrics = step(state, noisy, clean, gen)
+                losses_.append(float(metrics["loss"]))
+            got[m is None] = (losses_, [p.detach().clone()
+                                        for p in state.leaves()])
+            del state
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    err = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+              for a, b in zip(got[False][1], got[True][1]))
+    log(f"  trainer on the (1, 1) mesh: losses {got[False][0]} against "
+        f"{got[True][0]} without; leaves after the second update: worst "
+        f"max |diff| / max |leaf| {err:.2e} (tol {PG_TRAIN_RTOL:.0e})")
+    if got[False][0] != got[True][0] or err > PG_TRAIN_RTOL:
+        raise AssertionError("the (1, 1) mesh's step differs")
+
+
+def _rank_log(rank: int):
+    def out(*a):
+        log(f"  [rank {rank}]", *a)
+    return out
+
+
+def rank_worker(rank: int, n: int, port: int, d: str) -> int:
+    """One rank of the --cards N phases, on card ``rank``: (a) restore_wavs
+    on (N, 1), (b) the vocoder over NCCL on (1, N), (c) tensor-parallel
+    restore on (1, N), (d) the trainer on (N, 1) and (N/2, 2). Reads the
+    parent's inputs from ``d``, writes rank 0's outputs and every rank's
+    report (rank_K.json) there."""
+    import json
+    import os
+
+    import torch
+    from voicefixer_tpu_torch.config import DEFAULT_CONFIG
+    from voicefixer_tpu_torch.models import analysis, vocoder
+    from voicefixer_tpu_torch.parallel import distributed
+    from voicefixer_tpu_torch.parallel.mesh import make_mesh
+    cfg = DEFAULT_CONFIG
+    distributed.initialize(f"localhost:{port}", n, rank,
+                           timeout_s=RANKS_TIMEOUT_S)
+    device = distributed.local_device()
+    say = _rank_log(rank)
+    say(f"backend {torch.distributed.get_backend()} on {device} "
+        f"({torch.cuda.get_device_name(device)})")
+    _require_nccl(f"rank {rank}")
+    report = {}
+    try:
+        gen = torch.Generator().manual_seed(SEED)
+        ap = analysis.init(cfg, gen, device)
+        vp = vocoder.init(cfg.vocoder, gen, device)
+        dp, mp = make_mesh(n, 1), make_mesh(1, n)
+        _rank_restore_wavs(cfg, ap, vp, dp, d, report, say)
+        _rank_vocoder(cfg, vp, mp, d, report, say)
+        _rank_tp_restore(cfg, ap, vp, mp, d, report, say)
+        del ap, vp
+        torch.cuda.empty_cache()
+        _rank_trainer(cfg, dp, d, report, say)
+    finally:
+        distributed.shutdown()
+    with open(os.path.join(d, f"rank_{rank}.json"), "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+def _rank_sync():
+    import torch
+    from voicefixer_tpu_torch.parallel import distributed
+    torch.cuda.synchronize()
+    distributed.barrier()
+
+
+def _rank_restore_wavs(cfg, ap, vp, mesh, d, report, say):
+    """(a): 2N + 1 chunks (a (2N - 1) x 30 s + 0.1 s wave and a 0.25 s
+    one) on the (N, 1) mesh, both precisions; every rank's launches per
+    batch; rank 0 holds each file to restore_inmem on its own card. The
+    aggregate audio-s/s of the N cards, best of 3."""
+    import numpy as np
+    import torch
+    from voicefixer_tpu_torch import kernels
+    from voicefixer_tpu_torch.ops.precision import precision
+    from voicefixer_tpu_torch.parallel.inference import restore_wavs
+    from voicefixer_tpu_torch.pipeline.restore import VoiceFixer
+    n, rank = mesh.size(0), mesh.get_local_rank("data")
+    sr, seg = cfg.pipeline.sample_rate, cfg.pipeline.seg_length
+    wavs = _noise([(2 * n - 1) * seg + sr // 10, sr // 4], SEED + 11)
+    seconds = sum(len(w) for w in wavs) / sr
+    vf = VoiceFixer(ap, vp, cfg, device=ap["unet"]["after2"]["w"].device,
+                    mesh=mesh)
+    got, ref = {}, {}
+    for mode in ("parity", "production"):
+        with precision(mode):
+            restore_wavs(vf, wavs)  # warm-up
+            _rank_sync()
+            kernels.reset_launches()
+            got[mode] = restore_wavs(vf, wavs)
+            counts = dict(kernels.launches)
+            want = expected_launches(4 if mode == "parity" else 2)
+            if counts != want:
+                raise AssertionError(f"restore_wavs launches {counts} != "
+                                     f"{want}")
+            walls = []
+            for _ in range(3):
+                _rank_sync()
+                t0 = time.perf_counter()
+                restore_wavs(vf, wavs)
+                _rank_sync()
+                walls.append(time.perf_counter() - t0)
+            report[f"dp_{mode}_audio_s_per_s"] = seconds / min(walls)
+            report[f"dp_{mode}_wall_ms"] = [w * 1e3 for w in walls]
+            say(f"(a) {mode} restore_wavs of {seconds:.2f} s in "
+                f"{3 * n} rows ({2 * n + 1} chunks): "
+                f"{['%.1f' % (w * 1e3) for w in walls]} ms, "
+                f"{seconds / min(walls):.1f} audio-s/s on {n} cards; "
+                f"launches {counts}")
+            if rank == 0:
+                ref[mode] = [vf.restore_inmem(w) for w in wavs]
+    if rank == 0:
+        for mode in ("parity", "production"):
+            _hold_wavs(mode, "(a) restore_wavs on the data axis", got[mode],
+                       ref[mode], ref["parity"])
+
+
+def _rank_vocoder(cfg, vp, mesh, d, report, say):
+    """(b): synthesize_sp on the (1, N) mesh on the parent's denoised mel of
+    the 30 s chunk, both precisions: a rank's launches, the halo exchange's
+    ms by CUDA events around each exchange (summed per stage), ms per chunk
+    best of 3; rank 0 writes the waveform."""
+    import os
+
+    import numpy as np
+    import torch
+    from voicefixer_tpu_torch import kernels
+    from voicefixer_tpu_torch.ops.precision import precision, tf32_off
+    from voicefixer_tpu_torch.parallel import sp
+    rank = mesh.get_local_rank("model")
+    device = vp["pre"]["w"].device
+    real = sp._exchange_halo_ranks
+    marks = []
+
+    def timed(x, h, m):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        y = real(x, h, m)
+        b.record()
+        marks.append((a, b))
+        return y
+
+    for mode in ("parity", "production"):
+        mel = torch.from_numpy(np.load(os.path.join(d, f"mel_{mode}.npy"))
+                               ).to(device)
+        with precision(mode), tf32_off(), torch.inference_mode():
+            def synth():
+                return sp.synthesize_sp(vp, mel, cfg.vocoder, mesh=mesh)
+            synth()
+            _rank_sync()
+            kernels.reset_launches()
+            sp._exchange_halo_ranks = timed
+            try:
+                out = synth()
+            finally:
+                sp._exchange_halo_ranks = real
+            torch.cuda.synchronize()
+            counts = dict(kernels.launches)
+            want = rank_launches(4 if mode == "parity" else 2, True)
+            if counts != want:
+                raise AssertionError(f"vocoder launches {counts} != {want}")
+            ms = [a.elapsed_time(b) for a, b in marks]
+            marks.clear()
+            stages = [ms[2 * i] + ms[2 * i + 1] for i in range(4)] + ms[8:]
+            walls = []
+            for _ in range(3):
+                _rank_sync()
+                t0 = time.perf_counter()
+                synth()
+                _rank_sync()
+                walls.append((time.perf_counter() - t0) * 1e3)
+        report[f"sp_{mode}_halo_ms"] = stages
+        report[f"sp_{mode}_ms"] = walls
+        say(f"(b) {mode} vocoder over NCCL: halo exchange ms per stage "
+            f"(upsample's row + the ResStack's halo; then the post-conv's) "
+            f"{['%.3f' % t for t in stages]}, {sum(stages):.2f} ms of a "
+            f"chunk; ms per chunk {['%.1f' % w for w in walls]}; launches "
+            f"{counts}")
+        if rank == 0:
+            np.save(os.path.join(d, f"voc_{mode}.npy"),
+                    out.float().cpu().numpy())
+
+
+def _rank_tp_restore(cfg, ap, vp, mesh, d, report, say):
+    """(c): restore_inmem of the 30 s chunk on VoiceFixer(mesh=(1, N)), both
+    precisions: a rank's launches, ms per chunk best of 3; rank 0 writes
+    the outputs. Then conv_block_kernel=True: no conv_block_res launch."""
+    import os
+
+    import numpy as np
+    import torch
+    from voicefixer_tpu_torch import kernels
+    from voicefixer_tpu_torch.ops.precision import precision
+    from voicefixer_tpu_torch.pipeline.restore import VoiceFixer
+    rank = mesh.get_local_rank("model")
+    device = vp["pre"]["w"].device
+    wav = _noise([cfg.pipeline.seg_length])[0]
+    for cb in (False, True):
+        vf = VoiceFixer(ap, vp, cfg, device=device, mesh=mesh,
+                        conv_block_kernel=cb)
+        leaf = vf.params["unet"]["center"]["conv1"]["w"]
+        for mode in (("parity", "production") if not cb else ("parity",)):
+            with precision(mode):
+                vf.restore_inmem(wav)
+                _rank_sync()
+                kernels.reset_launches()
+                out = vf.restore_inmem(wav)
+                counts = dict(kernels.launches)
+                want = rank_launches(4 if mode == "parity" else 2)
+                if counts != want:
+                    raise AssertionError(f"TP restore launches {counts} != "
+                                         f"{want}")
+                if cb:
+                    say(f"(c) conv_block_kernel=True under the model axis: "
+                        f"launches {counts} (conv_block_res 0)")
+                    continue
+                walls = []
+                for _ in range(3):
+                    _rank_sync()
+                    t0 = time.perf_counter()
+                    vf.restore_inmem(wav)
+                    _rank_sync()
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                report[f"tp_{mode}_ms"] = walls
+                say(f"(c) {mode} tensor-parallel restore: ms per 30 s chunk "
+                    f"{['%.1f' % w for w in walls]}; launches {counts}; "
+                    f"the centre block's conv1 {tuple(leaf.shape)} on this "
+                    "rank")
+                if rank == 0:
+                    np.save(os.path.join(d, f"tp_{mode}.npy"), out)
+        del vf
+        torch.cuda.empty_cache()
+
+
+def _rank_trainer(cfg, dp, d, report, say):
+    """(d): the trainer at dropout 0 on (N, 1), then (N/2, 2) for N >= 4,
+    two 3 s pairs a data rank: step 1's loss and gradients (gathered
+    whole) written by rank 0; then TRAIN_TIMED steps split into forward,
+    backward, all-reduce and optimizer by CUDA events, and the peak of
+    allocated memory."""
+    import os
+
+    import numpy as np
+    import torch
+    from voicefixer_tpu_torch.models import analysis
+    from voicefixer_tpu_torch.ops.precision import tf32_off
+    from voicefixer_tpu_torch.parallel import tp
+    from voicefixer_tpu_torch.parallel.mesh import (axis_group, axis_size,
+                                                    make_mesh, shard_batch)
+    from voicefixer_tpu_torch.parallel.sharding import (gather_params,
+                                                        param_specs)
+    from voicefixer_tpu_torch.train import losses
+    from voicefixer_tpu_torch.train import step as st
+    from voicefixer_tpu_torch.utils.weights import tree_leaves, tree_map
+    from voicefixer_tpu_torch.parallel import distributed
+    device = distributed.local_device()
+    n = dp.size(0)
+    cfg0 = _dropout0(cfg)
+    with np.load(os.path.join(d, "train_batch.npz")) as z:
+        noisy, clean = torch.from_numpy(z["noisy"]), torch.from_numpy(
+            z["clean"])
+    params = analysis.init(cfg, torch.Generator().manual_seed(SEED), device)
+    spec = st.reference_optimizer(warmup_steps=1)
+    shapes = [(n, 1)] + ([(n // 2, 2)] if n >= 4 else [])
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for nd, nm in shapes:
+            tag = f"{nd}x{nm}"
+            mesh = dp if nm == 1 else make_mesh(nd, nm)
+            rank = torch.distributed.get_rank()
+            state = st.place_train_state(
+                st.init_train_state(params, spec, device), mesh)
+            step = st.make_train_step(cfg0, spec, mesh=mesh)
+            rows = TRAIN_BATCH * nd
+            wn, wc = (shard_batch(mesh, t[:rows]).to(device)
+                      for t in (noisy, clean))
+            state, m = step(state, wn, wc)
+            grads = gather_params(
+                tree_map(lambda p: p.grad.detach(), state.params),
+                param_specs(params, nm), mesh)
+            if rank == 0:
+                np.savez(os.path.join(d, f"train_{tag}.npz"),
+                         loss=np.array(float(m["loss"])),
+                         **{f"g{j}": g.cpu().numpy()
+                            for j, g in enumerate(tree_leaves(grads))})
+            del grads
+            gen = None
+            split = []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            for _ in range(TRAIN_TIMED):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+                _rank_sync()
+                state.optimizer.zero_grad(set_to_none=True)
+                ev[0].record()
+                with tf32_off(), tp.use_mesh(mesh), \
+                        tp.global_batch_stats(mesh):
+                    total, _ = losses.analysis_loss(state.params, wn, wc,
+                                                    cfg0, gen)
+                    ev[1].record()
+                    total.backward()
+                ev[2].record()
+                for p in state.leaves():
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                if axis_size(mesh, "data") > 1:
+                    st.all_reduce_mean([p.grad for p in state.leaves()],
+                                       axis_group(mesh, "data"))
+                ev[3].record()
+                st.update(state)
+                ev[4].record()
+                torch.cuda.synchronize()
+                split.append([ev[k].elapsed_time(ev[k + 1])
+                              for k in range(4)])
+            peak = torch.cuda.max_memory_allocated(device)
+            med = [sorted(c)[len(c) // 2] for c in zip(*split)]
+            report[f"train_{tag}_ms"] = med
+            report[f"train_{tag}_peak_bytes"] = peak
+            say(f"(d) trainer on ({nd}, {nm}), {TRAIN_BATCH} pairs a data rank: ms per "
+                f"step (events, median of {TRAIN_TIMED}) forward {med[0]:.2f}, "
+                f"backward {med[1]:.2f}, all-reduce {med[2]:.2f} "
+                f"({med[2] / sum(med):.1%}), optimizer {med[3]:.2f}; peak "
+                f"allocated {peak / 2 ** 30:.2f} GiB")
+            del state, step
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def _two_pass_moments(x, dims=None):
+    """``parallel.tp.batch_moments``'s sums on one process: the mean, then
+    the mean square deviation."""
+    def total(t):
+        return t.sum() if dims is None else t.sum(dim=dims)
+    count = x.numel() if dims is None else x.numel() // x.shape[-1]
+    mean = total(x) / count
+    d = x - mean
+    return mean, total(d * d) / count
+
+
+def _trainer_reference(cfg, device, noisy, clean, two_pass: bool = False):
+    """The one-process step on the whole batch at dropout 0 with K6 on its
+    plain version, cuDNN deterministic, as the trainer phase holds its
+    step: the loss of the plain forward, and the gradients of the plain
+    loop taken on K6's output values, K6 launched on TRAIN_BATCH rows at a
+    time as each data rank launches it. ``two_pass``: the BN moments in
+    two passes, as the ranks sum them, for the spread of the gradients
+    under another rounding of the same step."""
+    import torch
+    from voicefixer_tpu_torch.kernels.gru import gru_bidir_reference
+    from voicefixer_tpu_torch.models import analysis, denoiser
+    from voicefixer_tpu_torch.ops import conv
+    from voicefixer_tpu_torch.ops import gru as ops_gru
+    from voicefixer_tpu_torch.ops.precision import tf32_off
+    from voicefixer_tpu_torch.train import losses
+    from voicefixer_tpu_torch.train import step as st
+    cfg0 = _dropout0(cfg)
+    params = analysis.init(cfg, torch.Generator().manual_seed(SEED), device)
+    state = st.init_train_state(params, st.reference_optimizer(), device)
+    real = ops_gru.gru_bidir_cat
+
+    def plain(*a, matmul_dtype):
+        return torch.cat(gru_bidir_reference(*a, matmul_dtype=matmul_dtype),
+                         -1)
+
+    def plain_on_kernel_values(xf, xb, *a, matmul_dtype):
+        with torch.no_grad():
+            k = torch.cat([real(xf[i:i + TRAIN_BATCH], xb[i:i + TRAIN_BATCH],
+                                *a, matmul_dtype=matmul_dtype)
+                           for i in range(0, xf.shape[0], TRAIN_BATCH)])
+        r = plain(xf, xb, *a, matmul_dtype=matmul_dtype)
+        return r + (k - r).detach()
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    moments = conv.batch_moments
+    if two_pass:
+        conv.batch_moments = denoiser.batch_moments = _two_pass_moments
+    wn, wc = (torch.as_tensor(t, device=device) for t in (noisy, clean))
+    try:
+        ops_gru.gru_bidir_cat = plain
+        with torch.no_grad(), tf32_off():
+            total, _ = losses.analysis_loss(state.params, wn, wc, cfg0)
+        ops_gru.gru_bidir_cat = plain_on_kernel_values
+        st.forward_backward(state, wn, wc, cfg0)
+    finally:
+        ops_gru.gru_bidir_cat = real
+        conv.batch_moments = denoiser.batch_moments = moments
+        torch.backends.cudnn.deterministic = prev
+    return float(total), [p.grad.detach().cpu() for p in state.leaves()]
+
+
+def phase_ranks(n: int, vf, wav, outs):
+    """The --cards N multi-process phases: inputs and references here (the
+    denoised mel and the vocoder's output one-process sharded over the N
+    cards and unsharded; the trainer's one-process step on the whole
+    batch), then N workers, one a card, on NCCL (timeout RANKS_TIMEOUT_S),
+    then (b)-(d) held here, then (e) the CLI in folder mode over 2N files
+    with --coordinator, against the one-process CLI."""
+    import json
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from voicefixer_tpu_torch.config import DEFAULT_CONFIG as C
+    from voicefixer_tpu_torch.ops.precision import precision, tf32_off
+    from voicefixer_tpu_torch.parallel.sp import synthesize_sp
+    from voicefixer_tpu_torch.pipeline import vocoder_facade
+    from voicefixer_tpu_torch.utils.weights import tree_map
+    device = vf.device
+    cards = _cards(n)
+    with tempfile.TemporaryDirectory() as d:
+        log(f"== {n} processes on {n} cards, NCCL")
+        voc_ref, voc_sp, voc_sp_ms = {}, {}, {}
+        copies = [tree_map(lambda t, c=c: t.to(c), vf.vocoder_params)
+                  for c in cards]
+        for mode in ("parity", "production"):
+            with precision(mode), tf32_off(), torch.inference_mode():
+                _, mel = _denoised_mel(vf, wav, device)
+                np.save(os.path.join(d, f"mel_{mode}.npy"),
+                        mel.float().cpu().numpy())
+                voc_ref[mode, "30s"] = vocoder_facade.synthesize(
+                    vf.vocoder_params, mel, C.vocoder).float().cpu().numpy()
+                sharded = lambda: synthesize_sp(  # noqa: E731
+                    copies, mel, C.vocoder, cards)
+                voc_sp[mode] = sharded().float().cpu().numpy()
+                voc_sp_ms[mode] = cuda_ms(sharded, 3)
+            log(f"  {mode} vocoder one process over {n} cards: "
+                f"{voc_sp_ms[mode]:.1f} ms per 30 s chunk (CUDA events)")
+        noisy, clean = _train_pairs(2 * n)
+        np.savez(os.path.join(d, "train_batch.npz"), noisy=noisy,
+                 clean=clean)
+        train_ref, spread = {}, {}
+        for tag, rows in [(f"{n}x1", 2 * n)] + ([(f"{n // 2}x2", n)]
+                                                 if n >= 4 else []):
+            train_ref[tag] = _trainer_reference(C, device, noisy[:rows],
+                                                clean[:rows])
+            _, other = _trainer_reference(C, device, noisy[:rows],
+                                          clean[:rows], True)
+            spread[tag] = _grad_errors(other, train_ref[tag][1])
+            log(f"  {rows} pairs: the one-process step's gradients with its "
+                "BN moments in two passes against one (the spread of "
+                f"another rounding): whole {spread[tag][0]:.2e} of its "
+                "norm; worst leaves " + ", ".join(
+                    f"{nm} {e:.2e}" for e, nm in spread[tag][1][:3]))
+        del copies
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+        port = _free_port()
+        failed = _run_ranks(
+            [[sys.executable, os.path.abspath(__file__), "--rank-worker",
+              str(k), str(n), str(port), d] for k in range(n)], d, "rank")
+        if failed:
+            raise AssertionError(f"rank workers failed: {failed}")
+        reports = []
+        for k in range(n):
+            with open(os.path.join(d, f"rank_{k}.json")) as f:
+                reports.append(json.load(f))
+
+        for mode in ("parity", "production"):
+            got = np.load(os.path.join(d, f"voc_{mode}.npy"))
+            err = float(np.abs(got - voc_sp[mode]).max())
+            log(f"  {mode} (b) vocoder over NCCL against one process over "
+                f"the same {n} cards: max abs diff {err:.3e}")
+            if mode == "parity" and not err <= 1e-6:
+                raise AssertionError("(b) differs from the one-process "
+                                     "sharded vocoder")
+            _held_to_default(mode, f"(b) vocoder over {n} ranks",
+                             got[..., 0], {k: v[..., 0] for k, v in
+                                           voc_ref.items()}, SHARD_ATOL)
+            halo = [r[f"sp_{mode}_halo_ms"] for r in reports]
+            log(f"  {mode} (b) halo exchange ms per stage, per rank: "
+                + "; ".join(str(['%.3f' % t for t in h]) for h in halo)
+                + f"; ms per chunk (rank 0) "
+                f"{min(reports[0][f'sp_{mode}_ms']):.1f} against "
+                f"{voc_sp_ms[mode]:.1f} in one process")
+            tp_out = np.load(os.path.join(d, f"tp_{mode}.npy"))
+            _held_to_default(mode, f"(c) tensor parallel over {n} ranks",
+                             tp_out, outs, SHARD_ATOL, TP_MARGIN_DB)
+            log(f"  {mode} (a) {reports[0][f'dp_{mode}_audio_s_per_s']:.1f} "
+                f"audio-s/s on {n} cards; (c) "
+                f"{min(reports[0][f'tp_{mode}_ms']):.1f} ms per 30 s chunk")
+        for tag, (loss, ref) in train_ref.items():
+            with np.load(os.path.join(d, f"train_{tag}.npz")) as z:
+                got_loss = float(z["loss"])
+                grads = [z[f"g{j}"] for j in range(len(ref))]
+            whole, worst = _grad_errors(grads, ref)
+            tol_whole = max(RANKS_GRAD_L2, RANKS_SPREAD * spread[tag][0])
+            tol_leaf = max(RANKS_GRAD_LEAF,
+                           RANKS_SPREAD * spread[tag][1][0][0])
+            rel = abs(got_loss - loss) / abs(loss)
+            ms = reports[0][f"train_{tag}_ms"]
+            log(f"  (d) trainer on ({tag.replace('x', ', ')}) against one "
+                f"process on the whole batch with the plain GRU: loss "
+                f"{got_loss:.6f} / {loss:.6f} (rel {rel:.2e}, tol "
+                f"{RANKS_LOSS_RTOL:.0e}); whole gradient {whole:.2e} of its "
+                f"norm (tol {tol_whole:.2e}); worst leaves "
+                + ", ".join(f"{nm} {e:.2e}" for e, nm in worst[:3])
+                + f" (tol {tol_leaf:.2e}); ms per step {sum(ms):.2f}, "
+                f"all-reduce {ms[2] / sum(ms):.1%}")
+            if rel > RANKS_LOSS_RTOL or whole > tol_whole \
+                    or worst[0][0] > tol_leaf:
+                raise AssertionError(f"(d) the trainer on {tag} disagrees")
+        _ranks_cli(n, vf, d)
+
+
+def _grad_errors(got: list, ref: list):
+    """(|got - ref| / |ref| over every leaf at once, [(error, name)] of each
+    leaf's max |got - ref| over its largest |ref|, floored at 1e-3 of the
+    largest anywhere, worst first)."""
+    import numpy as np
+    ref = [np.asarray(r, np.float64) for r in ref]
+    got = [np.asarray(g, np.float64) for g in got]
+    top = max(float(np.abs(r).max()) for r in ref)
+    errs = [float(np.abs(g - r).max()) / max(float(np.abs(r).max()),
+                                             1e-3 * top)
+            for g, r in zip(got, ref)]
+    whole = math.sqrt(sum(float(((g - r) ** 2).sum())
+                          for g, r in zip(got, ref))
+                      / sum(float((r ** 2).sum()) for r in ref))
+    names = _leaf_names()
+    return whole, sorted(zip(errs, names), reverse=True)
+
+
+def _cards(n: int) -> tuple:
+    import torch
+    return tuple(torch.device("cuda", i) for i in range(n))
+
+
+def _leaf_names() -> list:
+    """The analysis tree's leaf paths, in its order."""
+    import torch
+    from voicefixer_tpu_torch.config import DEFAULT_CONFIG as cfg
+    from voicefixer_tpu_torch.models import analysis
+    names = []
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{path}/{k}")
+        else:
+            names.append(path)
+    walk(analysis.init(cfg, torch.Generator(), "meta"), "")
+    return names
+
+
+def _run_ranks(cmds: list, d: str, what: str) -> list:
+    """Run one process a command, their output to files in ``d``, and wait
+    for all under RANKS_TIMEOUT_S; echo each one's standard output. A
+    process that fails or outlasts the timeout is a failure, listed in the
+    result; none is left running. Returns the failures."""
+    import os
+    logs = [(open(os.path.join(d, f"{what}{k}.out"), "w+"),
+             open(os.path.join(d, f"{what}{k}.err"), "w+"))
+            for k in range(len(cmds))]
+    procs = [subprocess.Popen(c, stdout=o, stderr=e, text=True)
+             for c, (o, e) in zip(cmds, logs)]
+    deadline = time.monotonic() + RANKS_TIMEOUT_S
+    failed = []
+    try:
+        for k, p in enumerate(procs):
+            try:
+                p.wait(timeout=max(deadline - time.monotonic(), 1))
+            except subprocess.TimeoutExpired:
+                failed.append(f"{what} {k}: still running after "
+                              f"{RANKS_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for k, (p, (o, e)) in enumerate(zip(procs, logs)):
+        o.seek(0)
+        e.seek(0)
+        for line in o.read().splitlines():
+            log(line)
+        if p.returncode:
+            failed.append(f"{what} {k}: exit {p.returncode}")
+            log(f"  [{what} {k}] stderr:\n{e.read()[-4000:]}")
+        o.close()
+        e.close()
+    return failed
+
+
+def _ranks_cli(n: int, vf, d: str):
+    """(e): the CLI in folder mode over 2N files (1.0 to 3.1 s) with
+    --coordinator localhost:<port> in N processes, and in this process
+    without: the same file names, each rank reporting its share files[k::N]
+    in one batched run, every file within CLI_LSB of the one-process
+    file."""
+    import os
+
+    import numpy as np
+    import torch
+    from voicefixer_tpu_torch import __main__ as cli
+    from voicefixer_tpu_torch.models import analysis, vocoder
+    from voicefixer_tpu_torch.utils import audio_io
+    from voicefixer_tpu_torch.utils.weights import save_pytree_npz
+    cfg = vf.config
+    sr = cfg.pipeline.sample_rate
+    indir = os.path.join(d, "in")
+    os.makedirs(indir)
+    for i, w in enumerate(_noise([int(sr * (1.0 + 0.3 * i))
+                                  for i in range(2 * n)], SEED + 13)):
+        audio_io.save_wave(w, os.path.join(indir, f"f{i}.wav"), sr)
+    ana, voc = os.path.join(d, "ana.npz"), os.path.join(d, "voc.npz")
+    gen = torch.Generator().manual_seed(SEED)
+    save_pytree_npz(analysis.init(cfg, gen), ana)
+    save_pytree_npz(vocoder.init(cfg.vocoder, gen), voc)
+    flags = ["--ckpt", ana, "--vocoder-ckpt", voc]
+    one = os.path.join(d, "one")
+    t0 = time.perf_counter()
+    cli.main(["-ifdr", indir, "-ofdr", one, "--silent"] + flags)
+    log(f"  (e) one-process CLI over {2 * n} files: "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = os.path.join(d, "out")
+    port = _free_port()
+    t0 = time.perf_counter()
+    failed = _run_ranks(
+        [[sys.executable, "-m", "voicefixer_tpu_torch", "-ifdr", indir,
+          "-ofdr", out, "--coordinator", f"localhost:{port}",
+          "--num-processes", str(n), "--process-id", str(k)] + flags
+         for k in range(n)], d, "cli")
+    if failed:
+        raise AssertionError(f"(e) CLI processes failed: {failed}")
+    log(f"  (e) CLI in {n} processes: {time.perf_counter() - t0:.1f} s "
+        "(each process's start-up included)")
+    files = sorted(os.listdir(indir))
+    if sorted(os.listdir(out)) != sorted(os.listdir(one)):
+        raise AssertionError(f"(e) files {sorted(os.listdir(out))}")
+    for k in range(n):
+        with open(os.path.join(d, f"cli{k}.out")) as f:
+            lines = [ln for ln in f.read().splitlines() if "files, mode" in ln]
+        share = len(files[k::n])
+        if len(lines) != 1 or f"({share} files, mode 0, process {k}/{n})" \
+                not in lines[0]:
+            raise AssertionError(f"(e) rank {k} did not restore its "
+                                 f"{share} files: {lines}")
+    worst = 0
+    for f in files:
+        a, b = (np.round(audio_io.read_audio(os.path.join(p, f))[1][:, 0]
+                         * 2 ** 15).astype(np.int32) for p in (out, one))
+        if a.shape != b.shape:
+            raise AssertionError(f"(e) {f}: {a.shape} != {b.shape}")
+        worst = max(worst, int(np.abs(a - b).max()))
+    log(f"  (e) {len(files)} files, each written by the rank files[k::{n}] "
+        f"gives it, against the one-process CLI: worst {worst} int16 steps "
+        f"(tol {CLI_LSB})")
+    if worst > CLI_LSB:
+        raise AssertionError("(e) the multi-process CLI's files differ")
+
+
 def main() -> int:
     try:
         import torch
@@ -2000,6 +2923,9 @@ def main() -> int:
         print(f"chip_smoke: run it from the root of a checkout ({e})",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--rank-worker"]:
+        rank, n, port = (int(a) for a in sys.argv[2:5])
+        return rank_worker(rank, n, port, sys.argv[5])
     device = torch.device("cuda", 0)
     t_start = time.perf_counter()
     card = phase_card()
@@ -2010,8 +2936,13 @@ def main() -> int:
             print("chip_smoke: usage: chip_smoke.py [--cards N], 2 <= N <= "
                   f"{torch.cuda.device_count()} cards", file=sys.stderr)
             return 2
-        phase_cards(int(sys.argv[2]))
+        n = int(sys.argv[2])
+        phase_ranks(n, *phase_cards(n))
+        log(f"== done in {time.perf_counter() - t_start:.1f} s on {n} cards")
         print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
         return 0
     rows = phase_kernels(device)
     vf, wav, outs, counts = phase_main_path(device)
@@ -2023,6 +2954,7 @@ def main() -> int:
     phase_vocoder_hook(vf, wav, device)
     del vf, outs
     phase_trainer(device)
+    phase_process_group(device)
     phase_small_reference(device)
     phase_file_path(device, card, build_s)
 

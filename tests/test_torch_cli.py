@@ -1,8 +1,8 @@
 """The port's command line (``python -m voicefixer_tpu_torch``) against the
 JAX package's: the same files restored by both CLIs from one pair of npz
 params at ``tiny_test_config`` (the port with ``--disable-cuda``), its
-argument errors, what it refuses before writing anything, a folder run and
-``--weight_prepare``."""
+argument errors, a folder run (batched and file by file), the
+multi-process runs on gloo and ``--weight_prepare``."""
 
 import os
 import subprocess
@@ -139,27 +139,130 @@ def test_argument_errors(fake_vf, tmp_path, argv):
         cli.main(argv + ["--disable-cuda"])
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--mode", "2", "--coordinator", "localhost:1234"], 8),
-    (["--mode", "all", "--num-processes", "2"], 8),
-    (["--coordinator", "localhost:1234"], 8), (["--num-processes", "2"], 8),
-    (["--process-id", "0"], 8), ([], 8)])
-def test_unported_raise_before_writing(fake_vf, tmp_path, monkeypatch, argv,
-                                       item):
-    """The multi-process flags (or $VF_COORDINATOR), in any mode, raise
-    naming their ROADMAP item; no directory or file is made."""
-    if not argv:
-        monkeypatch.setenv("VF_COORDINATOR", "localhost:1234")
-    inp = _make_wav(tmp_path / "in.wav", 4410)
-    before = sorted(os.listdir(tmp_path))
-    out = str(tmp_path / "sub" / "out.wav")
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md Queue 1 item {item}$"):
-        cli.main(["-i", inp, "-o", out, "--disable-cuda"] + argv)
-    with pytest.raises(NotImplementedError):
-        cli.main(["-ifdr", str(tmp_path), "-ofdr", str(tmp_path / "o"),
-                  "--disable-cuda"] + argv)
-    assert sorted(os.listdir(tmp_path)) == before
+def _folder(tmp_path):
+    """Three files of other lengths (two chunks, one, one) in tmp/in."""
+    indir = tmp_path / "in"
+    indir.mkdir()
+    _make_wav(indir / "a.wav", 50000, 1)
+    x = (np.random.default_rng(2).standard_normal(30000) * 3000).astype(
+        np.int16)
+    audio_io.save_wave(x, str(indir / "b.flac"), 44100)
+    _make_wav(indir / "c.wav", 20000, 3)
+    return indir
+
+
+def _cli_ranks(n, argv, tmp_path, env=None, timeout=120):
+    """The CLI in n processes on gloo, meeting by a file in tmp_path; each
+    one's standard output. A rank that fails or outlasts the timeout
+    raises, and no process is left running."""
+    init = "file://" + str(tmp_path / "rdzv")
+    env = dict(os.environ, OMP_NUM_THREADS="1", **(env or {}))
+    env["PYTHONPATH"] = os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "voicefixer_tpu_torch"] + argv
+        + ["--disable-cuda", "--coordinator", init, "--num-processes",
+           str(n), "--process-id", str(k)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for k in range(n)]
+    outs = []
+    try:
+        for k, p in enumerate(procs):
+            out, err = p.communicate(timeout=timeout)
+            assert p.returncode == 0, f"rank {k}: {err[-3000:]}"
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def _same_within_lsb(a_path, b_path, exact=False):
+    a, b = _int16(str(a_path)), _int16(str(b_path))
+    assert a.shape == b.shape and np.any(a != 0)
+    assert np.abs(a - b).max() <= (0 if exact else 1)
+
+
+@pytest.mark.parametrize("case", ["folder", "mode_all", "single_file",
+                                  "env_coordinator", "no_dp", "bad_flags"])
+def test_multi_process_cli(npz, tmp_path, monkeypatch, case):
+    """The CLI across processes (gloo, ``--disable-cuda``), against the
+    one-process CLI on the same inputs.
+
+    - folder: two processes share three files round-robin (a and c on rank
+      0, b on rank 1), each reports and writes only its own, every file is
+      written, only rank 0 prints "Done"; the files are the one-process
+      folder run's within one LSB (batches of other rows round in other
+      places).
+    - mode_all: the same with ``--mode all``; mode 2 (file by file, seeded)
+      equal to the one-process run's byte for byte.
+    - single_file: ``-i``/``-o`` in two processes: rank 0 restores and
+      writes it, rank 1 does nothing; the file is the one-process one.
+    - env_coordinator: VF_COORDINATOR alone is a world of one on gloo; the
+      same files as without it.
+    - no_dp: VF_NO_DP takes the per-file path: each file equal to the
+      single-file run of it, byte for byte.
+    - bad_flags: a process id outside the count, or a count without a
+      coordinator, raises before any directory or file is made."""
+    base = ["--silent"] if case == "bad_flags" else npz[:-1]
+    if case == "bad_flags":
+        before = sorted(os.listdir(tmp_path))
+        inp = _make_wav(tmp_path / "in.wav", 4410)
+        before = sorted(os.listdir(tmp_path))
+        for extra in (["--coordinator", "file://" + str(tmp_path / "r"),
+                       "--num-processes", "2", "--process-id", "2"],
+                      ["--num-processes", "2"], ["--process-id", "0"]):
+            with pytest.raises(ValueError):
+                cli.main(["-i", inp, "-o", str(tmp_path / "o" / "x.wav"),
+                          "--disable-cuda"] + base + extra)
+        monkeypatch.setenv("VF_PROCESS_ID", "1")
+        with pytest.raises(ValueError):
+            cli.main(["-ifdr", str(tmp_path), "-ofdr", str(tmp_path / "o"),
+                      "--disable-cuda"] + base)
+        assert sorted(os.listdir(tmp_path)) == before
+        return
+    if case == "single_file":
+        inp = _make_wav(tmp_path / "in.wav", 50000)
+        outs = _cli_ranks(2, ["-i", inp, "-o", str(tmp_path / "o.wav")]
+                          + base, tmp_path)
+        assert "Restoration took" in outs[0] and "Done" in outs[0]
+        assert outs[1] == ""
+        cli.main(["-i", inp, "-o", str(tmp_path / "one.wav"),
+                  "--disable-cuda"] + npz)
+        _same_within_lsb(tmp_path / "o.wav", tmp_path / "one.wav", True)
+        return
+    indir = _folder(tmp_path)
+    mode = ["--mode", "all"] if case == "mode_all" else []
+    one = tmp_path / "one"
+    if case == "no_dp":
+        monkeypatch.setenv("VF_NO_DP", "1")
+    cli.main(["-ifdr", str(indir), "-ofdr", str(one), "--disable-cuda"]
+             + npz + mode)
+    out = tmp_path / "out"
+    argv = ["-ifdr", str(indir), "-ofdr", str(out)] + base + mode
+    if case == "env_coordinator":
+        monkeypatch.setenv("VF_COORDINATOR", "file://" + str(tmp_path / "r"))
+        assert cli.main(argv + ["--disable-cuda", "--silent"]) == 0
+        for f in sorted(os.listdir(one)):
+            _same_within_lsb(out / f, one / f, exact=True)
+        return
+    env = {"VF_NO_DP": "1"} if case == "no_dp" else {}
+    outs = _cli_ranks(2, argv, tmp_path, env)
+    names = sorted(os.listdir(one))
+    assert sorted(os.listdir(out)) == names
+    assert "Done" in outs[0] and "Done" not in outs[1]
+    if case != "no_dp":
+        for k, n_files in ((0, 2), (1, 1)):
+            reports = [line for line in outs[k].splitlines()
+                       if "files, mode" in line]  # the batched modes
+            assert reports and all(f"({n_files} files, mode" in line
+                                   and f"process {k}/2)" in line
+                                   for line in reports)
+    for f in names:
+        _same_within_lsb(out / f, one / f,
+                         exact=case == "no_dp" or "mode2" in f)
 
 
 def test_card_required_without_disable_cuda(npz, tmp_path, monkeypatch):
@@ -173,10 +276,16 @@ def test_card_required_without_disable_cuda(npz, tmp_path, monkeypatch):
     assert not os.path.exists(out)
 
 
-def test_folder_run(npz, tmp_path):
+@pytest.mark.parametrize("batched", [False, True])
+def test_folder_run(npz, tmp_path, monkeypatch, batched):
     """A WAV and a FLAC in a folder (and a file that is neither, skipped),
-    restored one by one to <name>.wav; each as the single-file run gives
-    it."""
+    restored to <name>.wav. File by file (VF_NO_DP) each is what the
+    single-file run gives, byte for byte. Batched (``restore_wavs``, the
+    default in modes 0 and 1) each agrees with the single-file run and with
+    the JAX CLI's batched folder run within one LSB: the chunks of both
+    files share a batch, whose rows round in other places."""
+    if not batched:
+        monkeypatch.setenv("VF_NO_DP", "1")
     indir = tmp_path / "in"
     indir.mkdir()
     _make_wav(indir / "a.wav", 50000, 1)
@@ -188,12 +297,20 @@ def test_folder_run(npz, tmp_path):
     assert cli.main(["-ifdr", str(indir), "-ofdr", str(outdir),
                      "--disable-cuda"] + npz) == 0
     assert sorted(os.listdir(outdir)) == ["a.wav", "b.wav"]
+    if batched:
+        assert jax_cli.main(["-ifdr", str(indir), "-ofdr",
+                             str(tmp_path / "jax")] + npz) == 0
     for name in ("a.wav", "b.flac"):
         single = str(tmp_path / f"single-{name}.wav")
         cli.main(["-i", str(indir / name), "-o", single, "--disable-cuda"]
                  + npz)
-        assert open(single, "rb").read() == open(
-            outdir / (name[0] + ".wav"), "rb").read()
+        if batched:
+            _same_within_lsb(outdir / (name[0] + ".wav"), single)
+            _same_within_lsb(outdir / (name[0] + ".wav"),
+                             tmp_path / "jax" / (name[0] + ".wav"))
+        else:
+            assert open(single, "rb").read() == open(
+                outdir / (name[0] + ".wav"), "rb").read()
 
 
 def test_weight_prepare(tmp_path, monkeypatch):

@@ -854,3 +854,76 @@ def test_kernel_raises_under_grad(cuda, name):
     with torch.no_grad():
         call(lambda t: t.requires_grad_())
     assert kernels.launches[name] == n0 + 1
+
+
+# ------------------------------------------- a process group of one (NCCL)
+
+@pytest.fixture
+def nccl_world(cuda, tmp_path):
+    """This process as a world of one on NCCL, by a rendezvous file; the
+    group is taken down after the test."""
+    from voicefixer_tpu_torch.parallel import distributed
+    assert distributed.initialize("file://" + str(tmp_path / "rdzv"), 1, 0)
+    try:
+        yield torch.distributed.get_backend()
+    finally:
+        distributed.shutdown()
+
+
+@pytest.mark.parametrize("case", ["restore_wavs", "train_step", "halo"])
+def test_world_of_one_nccl(nccl_world, case):
+    """On the card the group is NCCL and ``make_mesh()`` is (1, 1). Over
+    it: restore_wavs equals restore_inmem per file (1e-5, the JAX tests'
+    tolerance); a trainer step on the mesh equals the step without one
+    (the same kernels on the same inputs); exchange_halo on one rank pads
+    with zeros and gather of the batch is the batch."""
+    import numpy as np
+    from voicefixer_tpu_torch.config import tiny_test_config
+    from voicefixer_tpu_torch.models import analysis
+    from voicefixer_tpu_torch.parallel.inference import restore_wavs
+    from voicefixer_tpu_torch.parallel.mesh import global_batch, make_mesh
+    from voicefixer_tpu_torch.parallel.sp import exchange_halo
+    from voicefixer_tpu_torch.pipeline.restore import VoiceFixer
+    from voicefixer_tpu_torch.train import step as st
+    assert nccl_world == "nccl"
+    mesh = make_mesh()
+    assert (mesh.size(0), mesh.size(1)) == (1, 1)
+    cfg = tiny_test_config()
+    rng = np.random.default_rng(0)
+    if case == "restore_wavs":
+        vf = VoiceFixer.random(0, cfg, mesh=mesh)
+        assert vf.device.type == "cuda"
+        wavs = [(0.1 * rng.standard_normal(n)).astype(np.float32)
+                for n in (50000, 11025, 88200)]
+        for mode in (0, 1):
+            for w, out in zip(wavs, restore_wavs(vf, wavs, mode)):
+                ref = vf.restore_inmem(w, mode=mode)
+                assert out.shape == ref.shape
+                assert np.abs(out - ref).max() <= 1e-5
+    elif case == "train_step":
+        params = analysis.init(cfg, torch.Generator().manual_seed(0))
+        wav = [torch.from_numpy((0.1 * rng.standard_normal((2, 4410)))
+                                .astype(np.float32)) for _ in range(2)]
+        spec = st.reference_optimizer(warmup_steps=1)
+        got = {}
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True  # cuDNN repeats exactly
+        for m in (None, mesh):
+            state = st.init_train_state(params, spec, "cuda")
+            if m is not None:
+                state = st.place_train_state(state, m)
+            step = st.make_train_step(cfg, spec, mesh=m)
+            for _ in range(2):
+                state, metrics = step(state, *wav,
+                                      torch.Generator("cuda").manual_seed(1))
+            got[m is None] = (float(metrics["loss"]),
+                              [p.detach() for p in state.leaves()])
+        torch.backends.cudnn.deterministic = deterministic
+        assert got[True][0] == got[False][0]
+        for a, b in zip(got[True][1], got[False][1]):
+            assert torch.allclose(a, b, rtol=1e-6, atol=0)
+    else:
+        x = torch.randn(2, 8, 4, device="cuda")
+        assert torch.equal(exchange_halo(x, 3, mesh),
+                           torch.nn.functional.pad(x, (0, 0, 3, 3)))
+        assert torch.equal(global_batch(mesh, x, 2), x)

@@ -581,8 +581,7 @@ def test_train_steps_move_the_parameters(trees):
 
 def test_trainer_refusals(trees, monkeypatch):
     ja, _ = trees
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 8$"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         st.make_train_step(CFG, mesh=object())
     state = st.init_train_state(ja, device="cpu")
     step = st.make_train_step(CFG, st.reference_optimizer(lr=1e-3))

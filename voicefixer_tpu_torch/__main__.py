@@ -6,13 +6,27 @@
 
 It runs on the CUDA card, and raises where there is none, unless
 ``--disable-cuda`` asks for the CPU (the plain PyTorch versions). WAV,
-FLAC, AIFF and AU are read; WAV and FLAC are written (int16). A folder is
-restored file by file. ``--mode all`` writes one file a mode,
-``<base>-mode{k}<ext>``; ``--seed`` seeds mode 2's dropout.
+FLAC, AIFF and AU are read; WAV and FLAC are written (int16). ``--mode
+all`` writes one file a mode, ``<base>-mode{k}<ext>``; ``--seed`` seeds
+mode 2's dropout. In a folder, modes 0 and 1 without ``--chunk-overlap``
+restore every chunk of every file in batches of equal lengths
+(``parallel.inference.restore_wavs``, at most ``ROWS_PER_CARD`` chunks a
+batch on a card), unless VF_NO_DP is set; mode 2 and overlap-add go file by
+file.
 
-Not ported yet, and raising ``NotImplementedError`` before any file is
-written: the multi-process flags ``--coordinator``, ``--num-processes`` and
-``--process-id`` or their VF_* variables (ROADMAP.md Queue 1 item 8).
+Several processes, one per card (``parallel.distributed``):
+
+    python -m voicefixer_tpu_torch -ifdr in -ofdr out \
+        --coordinator host:port --num-processes N --process-id K
+
+or VF_COORDINATOR / VF_NUM_PROCESSES / VF_PROCESS_ID. Process K drives
+``cuda:{K % device_count}`` on NCCL (gloo with ``--disable-cuda``). A
+folder's files are shared round-robin, ``files[K::N]``, and each process
+writes only its own; a single file is restored and written by process 0.
+Only process 0 prints "Done", after every process has finished. A process
+id outside [0, N), or a count or id without a coordinator, raises before
+anything is written.
+
 Nothing is downloaded:
 ``--weight_prepare`` converts the local checkpoints (the npz cache, or the
 reference's torch cache into it) and builds the CUDA kernels unless
@@ -27,9 +41,10 @@ import sys
 import time
 
 AUDIO_EXTS = (".wav", ".flac")
-_MULTI_PROCESS = (("coordinator", "VF_COORDINATOR"),
-                  ("num_processes", "VF_NUM_PROCESSES"),
-                  ("process_id", "VF_PROCESS_ID"))
+# chunks a card restores at once in folder mode (restore_wavs' max_batch):
+# the peak device memory of a full-width 30 s chunk row, measured by
+# chip_smoke.py, bounds it on an 80 GB card (PERF.md)
+ROWS_PER_CARD = 16
 
 
 def writefile(voicefixer, infile: str, outfile: str, mode, append_mode: bool,
@@ -84,16 +99,6 @@ def check_arguments(args):
     return process_file, process_folder
 
 
-def check_unported(args):
-    """Raise for what the port does not do yet, before anything is
-    written."""
-    for flag, env in _MULTI_PROCESS:
-        if getattr(args, flag) is not None or os.environ.get(env):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} / ${env}: multi-process runs "
-                "are not ported yet: ROADMAP.md Queue 1 item 8")
-
-
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="voicefixer_tpu_torch",
@@ -139,19 +144,32 @@ def build_parser() -> argparse.ArgumentParser:
                              "(needs matching --ckpt/--vocoder-ckpt npz "
                              "params)")
     parser.add_argument("--coordinator", type=str, default=None,
-                        help="Multi-process runs: not ported yet.")
+                        help="Multi-process runs: host:port of process 0 "
+                             "(or a tcp:// or file:// URL, or 'auto' for "
+                             "a launcher's env://); env VF_COORDINATOR")
     parser.add_argument("--num-processes", type=int, default=None,
-                        help="Multi-process runs: not ported yet.")
+                        help="Multi-process runs: the number of processes, "
+                             "one per card; env VF_NUM_PROCESSES")
     parser.add_argument("--process-id", type=int, default=None,
-                        help="Multi-process runs: not ported yet.")
+                        help="Multi-process runs: this process's rank; env "
+                             "VF_PROCESS_ID")
     return parser
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    check_unported(args)
     device = "cpu" if args.disable_cuda else None
+    from voicefixer_tpu_torch.parallel import distributed
+    distributed.initialize(args.coordinator, args.num_processes,
+                           args.process_id, device=device)
+    try:
+        return _run(args, device, distributed.process_index(),
+                    distributed.process_count())
+    finally:
+        distributed.shutdown()
 
+
+def _run(args, device, pid: int, n_proc: int) -> int:
     if args.weight_prepare:
         from voicefixer_tpu_torch.pipeline import checkpoints
         checkpoints.load_analysis_params(args.ckpt)
@@ -164,7 +182,7 @@ def main(argv=None):
         return 0
 
     process_file, process_folder = check_arguments(args)
-    if not args.silent:
+    if not args.silent and pid == 0:
         print("Initializing VoiceFixer")
     from voicefixer_tpu_torch.config import DEFAULT_CONFIG, tiny_test_config
     from voicefixer_tpu_torch.pipeline.restore import VoiceFixer
@@ -181,31 +199,68 @@ def main(argv=None):
             raise SystemExit(
                 f"Error: unsupported input format {audioext}; supported: "
                 f"{', '.join(AUDIO_EXTS)}.")
-        if not args.silent:
-            print(f"Start processing the input file {args.infile}.")
-        for m in modes:
-            writefile(voicefixer, args.infile, args.outfile, m, append,
-                      args.seed, verbose=not args.silent,
-                      chunk_overlap=args.chunk_overlap)
+        if pid == 0:  # one unit of work: process 0 restores and writes it
+            if not args.silent:
+                print(f"Start processing the input file {args.infile}.")
+            for m in modes:
+                writefile(voicefixer, args.infile, args.outfile, m, append,
+                          args.seed, verbose=not args.silent,
+                          chunk_overlap=args.chunk_overlap)
 
     if process_folder:
         files = [f for f in sorted(os.listdir(args.infolder))
                  if os.path.splitext(f)[-1].lower() in AUDIO_EXTS]
-        if not args.silent:
+        if not args.silent and pid == 0:
             print(f"Found {len(files)} audio files in the input folder "
                   f"{args.infolder}. Start processing.")
-        for f in files:
+        my_files = files[pid::n_proc]
+        dp_modes = [m for m in modes if int(m) in (0, 1)
+                    and args.chunk_overlap == 0 and my_files
+                    and not os.environ.get("VF_NO_DP")]
+        if dp_modes:
+            _restore_folder_batched(voicefixer, args, my_files, dp_modes,
+                                    append, pid, n_proc)
+        for f in my_files:
             out_file = os.path.join(args.outfolder,
                                     os.path.splitext(f)[0] + ".wav")
             for m in modes:
-                writefile(voicefixer, os.path.join(args.infolder, f),
-                          out_file, m, append, args.seed,
-                          verbose=not args.silent,
-                          chunk_overlap=args.chunk_overlap)
+                if m not in dp_modes:
+                    writefile(voicefixer, os.path.join(args.infolder, f),
+                              out_file, m, append, args.seed,
+                              verbose=not args.silent,
+                              chunk_overlap=args.chunk_overlap)
 
-    if not args.silent:
+    from voicefixer_tpu_torch.parallel import distributed
+    distributed.barrier()
+    if not args.silent and pid == 0:
         print("Done")
     return 0
+
+
+def _restore_folder_batched(voicefixer, args, files: list, modes: list,
+                            append: bool, pid: int, n_proc: int):
+    """Modes 0 and 1 of this process's files through ``restore_wavs`` on
+    its own card: every chunk of every file, batched by length."""
+    from voicefixer_tpu_torch.parallel.inference import restore_wavs
+    from voicefixer_tpu_torch.utils import audio_io
+    sr = voicefixer.config.pipeline.sample_rate
+    wavs = [audio_io.load_wav(os.path.join(args.infolder, f), sr)
+            for f in files]
+    for m in modes:
+        start = time.time()
+        outs = restore_wavs(voicefixer, wavs, mode=int(m),
+                            max_batch=ROWS_PER_CARD)
+        for f, out in zip(files, outs):
+            dst = os.path.join(args.outfolder, os.path.splitext(f)[0]
+                               + ".wav")
+            if append:
+                base, ext = os.path.splitext(os.path.basename(dst))
+                dst = os.path.join(os.path.dirname(dst),
+                                   f"{base}-mode{m}{ext}")
+            audio_io.save_wave(out, fname=dst, sample_rate=sr)
+        if not args.silent:
+            print(f"Restoration took {round(time.time() - start, 1)} s "
+                  f"({len(files)} files, mode {m}, process {pid}/{n_proc})")
 
 
 if __name__ == "__main__":

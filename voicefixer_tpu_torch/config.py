@@ -145,6 +145,20 @@ class VoiceFixerConfig:
 DEFAULT_CONFIG = VoiceFixerConfig()
 
 
+def small_tp_config() -> VoiceFixerConfig:
+    """Small config whose channel widths are wide enough (>= 64) for the
+    "model" axis to shard convolutions (``parallel.sharding``'s
+    min_channels): the tensor-parallel tests. Not numerically related to
+    any trained checkpoint."""
+    return VoiceFixerConfig(
+        denoiser=DenoiserConfig(base_width=64),
+        unet=ResUNetConfig(encoder_channels=(16, 64), blocks_per_stage=1,
+                           center_channels=64),
+        vocoder=VocoderConfig(cond_channels=64, channels=256),
+        pipeline=PipelineConfig(seg_length_seconds=1),
+    )
+
+
 def tiny_test_config() -> VoiceFixerConfig:
     """Scaled-down config (same structure, tiny channels, 1 s segments) for
     tests. Not numerically related to any trained checkpoint."""

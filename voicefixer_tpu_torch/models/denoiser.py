@@ -15,13 +15,16 @@ import torch
 
 from voicefixer_tpu_torch.config import DenoiserConfig
 from voicefixer_tpu_torch.ops import gru as vgru
+from voicefixer_tpu_torch.parallel.tp import batch_moments
 from voicefixer_tpu_torch.utils.weights import uniform
 
 
 def _bn_scalar(x: torch.Tensor, p: dict, training: bool) -> torch.Tensor:
-    """BatchNorm2d(1) on [B, T, F]: one channel covering everything."""
+    """BatchNorm2d(1) on [B, T, F]: one channel covering everything (in
+    training, the rows of every data rank inside
+    ``parallel.tp.global_batch_stats``)."""
     if training:
-        var, mean = torch.var_mean(x, correction=0)
+        mean, var = batch_moments(x)
     else:
         mean, var = p["mean"][0], p["var"][0]
     inv = torch.rsqrt(var + 1e-5)

@@ -13,6 +13,14 @@ on the (scale, shift) leaves that ``fold_bn_eval`` adds at construction.
 In training (mode 2 and the trainer) BN takes the batch's statistics, and,
 as in the JAX package, the activations stay float32 and no block goes to
 the fused kernel (it folds eval BN).
+
+Under a model axis (``parallel.tp.use_mesh``) a block's weights may hold
+only this rank's output channels (``parallel.sharding.shard_params``): each
+convolution makes its slice and ``tp.channel_sharded`` gathers the rest, so
+BN, the residual adds and the pooling see whole activations. The fused
+kernel needs every channel, so it does not run there, even under
+``conv_block_kernel``: the blocks take the sliced cuDNN path, as the JAX
+package's do.
 """
 
 from __future__ import annotations
@@ -28,20 +36,25 @@ from voicefixer_tpu_torch.ops.conv import (avg_pool2d, batch_norm, conv2d,
                                           conv_transpose2d, leaky_relu)
 from voicefixer_tpu_torch.ops.precision import (activation_dtype,
                                                use_conv_block_kernel)
+from voicefixer_tpu_torch.parallel import tp
 from voicefixer_tpu_torch.utils.weights import tree_map, uniform
 
 
 def _conv_block_res(p: dict, x: torch.Tensor, slope: float,
                     training: bool = False) -> torch.Tensor:
-    if (not training and use_conv_block_kernel()
+    if (not training and use_conv_block_kernel() and not tp.model_parallel()
             and convblock.eligible(p, x)):
         return convblock.conv_block_res(x, p, slope)
-    h = conv2d(leaky_relu(batch_norm(x, p["bn1"], training), slope),
-               p["conv1"]["w"], padding=(1, 1))
-    h = conv2d(leaky_relu(batch_norm(h, p["bn2"], training), slope),
-               p["conv2"]["w"], padding=(1, 1))
+    co = p["bn2"]["gamma"].shape[0]  # replicated: the block's full width
+    h = tp.channel_sharded(
+        conv2d, leaky_relu(batch_norm(x, p["bn1"], training), slope),
+        p["conv1"]["w"], None, co, padding=(1, 1))
+    h = tp.channel_sharded(
+        conv2d, leaky_relu(batch_norm(h, p["bn2"], training), slope),
+        p["conv2"]["w"], None, co, padding=(1, 1))
     if "shortcut" in p:
-        return conv2d(x, p["shortcut"]["w"], p["shortcut"]["b"]) + h
+        return tp.channel_sharded(conv2d, x, p["shortcut"]["w"],
+                                  p["shortcut"]["b"], co) + h
     return x + h
 
 
@@ -87,8 +100,9 @@ def _decoder_block(p: dict, x: torch.Tensor, skip: torch.Tensor,
                    training: bool) -> torch.Tensor:
     """bn -> relu -> convT(k3, s2), drop the last time row, concat skip,
     then the conv blocks."""
-    h = conv_transpose2d(torch.relu(batch_norm(x, p["bn1"], training)),
-                         p["conv1"]["w"], stride=(2, 2))
+    h = tp.channel_sharded(
+        conv_transpose2d, torch.relu(batch_norm(x, p["bn1"], training)),
+        p["conv1"]["w"], None, skip.shape[-1], stride=(2, 2))
     h = torch.cat([h[:, :-1], skip], dim=-1)
     for i in range(n_blocks):
         h = _conv_block_res(p[f"block{i + 2}"], h, slope, training)

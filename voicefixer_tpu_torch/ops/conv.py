@@ -14,6 +14,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from voicefixer_tpu_torch.parallel.tp import batch_moments
+
 
 def _nwc_as_nchw(x: torch.Tensor) -> torch.Tensor:
     """[B, W, C] -> [B, C, 1, W] view."""
@@ -79,10 +81,10 @@ def batch_norm(x: torch.Tensor, params: dict, training: bool = False,
     training (mode 2 and the trainer) the batch's statistics over every
     non-channel axis, the variance biased, with gamma and beta (never the
     folded leaves); the running statistics are not updated, as in the JAX
-    package."""
+    package. Inside ``parallel.tp.global_batch_stats`` the statistics span
+    the rows of every data rank."""
     if training:
-        axes = tuple(range(x.ndim - 1))
-        var, mean = torch.var_mean(x, dim=axes, correction=0)
+        mean, var = batch_moments(x, tuple(range(x.ndim - 1)))
     elif "scale" in params:
         return x * params["scale"] + params["shift"]
     else:

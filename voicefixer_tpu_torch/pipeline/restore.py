@@ -26,6 +26,9 @@ from voicefixer_tpu_torch.ops.norm import from_log
 from voicefixer_tpu_torch.ops import stft as vstft
 from voicefixer_tpu_torch.ops.precision import (conv_block_kernel, tf32_off,
                                                use_conv_block_kernel)
+from voicefixer_tpu_torch.parallel import distributed, tp
+from voicefixer_tpu_torch.parallel.mesh import axis_size, check_mesh
+from voicefixer_tpu_torch.parallel.sharding import shard_params
 from voicefixer_tpu_torch.pipeline import vocoder_facade
 from voicefixer_tpu_torch.utils.weights import convert_tree, tree_map
 
@@ -103,21 +106,29 @@ def _trim_center(est: np.ndarray, ref_len: int) -> np.ndarray:
 def restore_batch(analysis_params: dict, vocoder_params,
                   wav: torch.Tensor, cfg: VoiceFixerConfig,
                   model_devices=None, training: bool = False,
-                  generator: torch.Generator | None = None):
+                  generator: torch.Generator | None = None, mesh=None):
     """A batch of equal-length chunks through both stages:
     wav [B, N] -> (wav_out [B, S], pre-cap peaks [B]). A chunk whose peak
     exceeds 1 is divided by it. With more than one entry in
     ``model_devices`` the vocoder runs time-sharded over them
     (``parallel.sp``), and ``vocoder_params`` may be a list of per-device
-    copies. ``training`` and ``generator``: the analysis stage in mode 2
+    copies. With a ``mesh`` of more than one "model" rank, every rank of
+    the model group calls this with the same wav: the analysis stage runs
+    channel-sharded (``parallel.tp``, ``analysis_params`` from
+    ``parallel.sharding.shard_params``) and the vocoder time-sharded over
+    the group. ``training`` and ``generator``: the analysis stage in mode 2
     (``analysis.apply``); its statistics span the batch."""
     with tf32_off(), torch.inference_mode(), \
-            kernels.current_device(wav.device):
+            kernels.current_device(wav.device), tp.use_mesh(mesh):
         mel_orig = analysis.wav_to_mel(wav, cfg)
         out = analysis.apply(analysis_params, mel_orig, cfg,
                              training=training, generator=generator)
         denoised_mel = from_log(out["mel"])
-        if model_devices is not None and len(model_devices) > 1:
+        if tp.model_parallel():
+            from voicefixer_tpu_torch.parallel.sp import synthesize_sp
+            wav_out = synthesize_sp(vocoder_params, denoised_mel,
+                                    cfg.vocoder, mesh=mesh)[..., 0]
+        elif model_devices is not None and len(model_devices) > 1:
             from voicefixer_tpu_torch.parallel.sp import synthesize_sp
             wav_out = synthesize_sp(vocoder_params, denoised_mel,
                                     cfg.vocoder, model_devices)[..., 0]
@@ -141,8 +152,11 @@ def restore_segment(analysis_params: dict, vocoder_params: dict,
 
 
 def resolve_device(device) -> torch.device:
-    """None means CUDA. A CUDA device without a card raises: the port never
+    """None means CUDA: in a process group (``parallel.distributed``) this
+    process's device. A CUDA device without a card raises: the port never
     carries on on the CPU unless asked to."""
+    if device is None and distributed.is_initialized():
+        return distributed.local_device()
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' to run "
@@ -170,20 +184,34 @@ class VoiceFixer:
     on ``device``. One device may be listed several times. One process
     drives all of them.
 
+    mesh: a ("data", "model") mesh over processes
+    (``parallel.mesh.make_mesh``), the JAX package's ``mesh=``. With more
+    than one "model" rank, the analysis tree keeps this rank's slice of
+    each large convolution (``parallel.sharding.shard_params``) and runs
+    channel-sharded, the vocoder tree stays whole and runs time-sharded
+    (``parallel.sp``), and every rank of a model group must make each
+    restore call with the same input. The "data" axis is for
+    ``parallel.inference.restore_wavs``. Not with ``model_devices``.
+
     conv_block_kernel: route the ResUNet blocks that
     ``kernels.convblock.eligible`` takes to the fused ConvBlockRes kernel
     instead of the library convolutions, their operands packed once here
     (``resunet.pack_conv_blocks``). Off by default, as in the JAX
-    package."""
+    package. Under a model axis the blocks take the sliced library path
+    all the same (the kernel needs every channel)."""
 
     def __init__(self, params: dict | None = None,
                  vocoder_params: dict | None = None,
                  config: VoiceFixerConfig = DEFAULT_CONFIG, device=None,
                  model_devices=None, conv_block_kernel: bool = False,
                  ckpt: str | None = None, vocoder_ckpt: str | None = None,
-                 download: bool = True):
+                 download: bool = True, mesh=None):
+        check_mesh(mesh)
+        if mesh is not None and model_devices is not None:
+            raise ValueError("mesh= and model_devices= do not combine")
         self.device = resolve_device(device)
         self.config = config
+        self.mesh = mesh
         if params is None or vocoder_params is None:
             from voicefixer_tpu_torch.pipeline import checkpoints
             if params is None:
@@ -197,7 +225,9 @@ class VoiceFixer:
         self.conv_block_kernel = bool(conv_block_kernel)
         self.params = fold_bn_eval(
             tree_map(lambda t: t.to(self.device), params))
-        if self.conv_block_kernel:
+        if axis_size(mesh, "model") > 1:
+            self.params = shard_params(self.params, mesh)
+        elif self.conv_block_kernel:
             self.params["unet"] = resunet.pack_conv_blocks(
                 self.params["unet"])
         self.model_devices = None
@@ -229,18 +259,25 @@ class VoiceFixer:
                 torch.from_numpy(wav).to(self.device), self.config)
         return out.cpu().numpy()
 
-    def _restore_batch(self, batch: np.ndarray, training: bool = False,
-                       generator: torch.Generator | None = None):
-        """restore_batch of [B, N] chunks -> (outs [B, S], peaks [B]) as
-        numpy."""
+    def _restore_batch_device(self, batch, training: bool = False,
+                              generator: torch.Generator | None = None):
+        """restore_batch of [B, N] chunks (numpy or a tensor) -> (outs
+        [B, S], peaks [B]), float32 on the instance's device."""
         with conv_block_kernel(self.conv_block_kernel
                                or use_conv_block_kernel()):
             outs, peaks = restore_batch(
                 self.params, self.vocoder_params,
-                torch.from_numpy(batch).to(self.device), self.config,
+                torch.as_tensor(batch).to(self.device), self.config,
                 model_devices=self.model_devices, training=training,
-                generator=generator)
-        return outs.float().cpu().numpy(), peaks.float().cpu().numpy()
+                generator=generator, mesh=self.mesh)
+        return outs.float(), peaks.float()
+
+    def _restore_batch(self, batch: np.ndarray, training: bool = False,
+                       generator: torch.Generator | None = None):
+        """restore_batch of [B, N] chunks -> (outs [B, S], peaks [B]) as
+        numpy."""
+        outs, peaks = self._restore_batch_device(batch, training, generator)
+        return outs.cpu().numpy(), peaks.cpu().numpy()
 
     def _denoised_mel(self, wav: np.ndarray, training: bool,
                       generator: torch.Generator | None) -> torch.Tensor:
@@ -248,7 +285,7 @@ class VoiceFixer:
         [1, 1, T, n_mels] on the instance's device, what upstream hands a
         custom vocoder."""
         with tf32_off(), torch.inference_mode(), \
-                kernels.current_device(self.device), \
+                kernels.current_device(self.device), tp.use_mesh(self.mesh), \
                 conv_block_kernel(self.conv_block_kernel
                                   or use_conv_block_kernel()):
             mel = analysis.restore_mel(

@@ -1,7 +1,21 @@
 """One training step of the analysis stage, as ``voicefixer_tpu/train/
-step.py`` without a mesh: the loss of ``train.losses``, its gradients by
-autograd (through the GRU kernel's backward on the card), and Adam with
-upstream's schedule.
+step.py``: the loss of ``train.losses``, its gradients by autograd (through
+the GRU kernel's backward on the card), and Adam with upstream's schedule;
+with a mesh, data and tensor parallel over processes.
+
+On a ("data", "model") mesh (``parallel.mesh.make_mesh``) each rank passes
+its own rows of the global batch (``parallel.mesh.shard_batch``; the ranks
+of one model group pass the same rows):
+- "data": training-mode BN takes its statistics over the whole batch
+  (``parallel.tp.global_batch_stats``), as GSPMD computes them for the JAX
+  step; the gradients are averaged over the data group in a few flat
+  buckets, so the update is the global batch mean's, and so are the
+  metrics.
+- "model": after ``place_train_state`` each rank holds its slice of the
+  ResUNet's large convolutions and of their Adam moments
+  (``parallel.sharding``), and the collectives of ``parallel.tp`` make the
+  activations whole and the gradients right. The denoiser is replicated,
+  its GRU (K6, ``kernels.gru.GruBidir``) on every rank.
 
 Upstream's optimizer recipe: Adam at lr 3e-4, betas (0.5, 0.999), a linear
 warm-up over 1000 steps, then a factor 0.85 every 15000 steps. As with
@@ -20,15 +34,22 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from voicefixer_tpu_torch import kernels
 from voicefixer_tpu_torch.config import VoiceFixerConfig
 from voicefixer_tpu_torch.ops.precision import tf32_off
+from voicefixer_tpu_torch.parallel import tp
+from voicefixer_tpu_torch.parallel.mesh import (axis_group, axis_rank,
+                                                axis_size, check_mesh,
+                                                rank_generator)
+from voicefixer_tpu_torch.parallel.sharding import param_specs, shard_params
 from voicefixer_tpu_torch.pipeline.restore import resolve_device
 from voicefixer_tpu_torch.train import losses
 from voicefixer_tpu_torch.utils.weights import tree_leaves, tree_map
 
-MESH_UNPORTED = "ROADMAP.md Queue 1 item 8"
+# gradients are averaged over the data group in flat buckets of this size
+BUCKET_BYTES = 32 << 20
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,23 +141,79 @@ def make_train_step(cfg: VoiceFixerConfig,
     (state, metrics): one update on the parameters' device (numpy batches
     are moved there); ``generator`` draws the dropout. The state is updated
     in place and returned. ``optimizer`` must be the state's (the default
-    is ``reference_optimizer()``). A mesh (data and tensor parallel
-    training) is not ported yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"make_train_step(mesh=...) is not ported yet: {MESH_UNPORTED}")
+    is ``reference_optimizer()``).
+
+    ``mesh``: a ("data", "model") mesh over processes; every rank calls the
+    step with its own rows (the module docstring), the state placed by
+    ``place_train_state``, and a generator of its own
+    (``parallel.mesh.rank_generator``, the default seeded 0). Anything else
+    than a mesh raises TypeError."""
+    check_mesh(mesh)
     spec = optimizer or reference_optimizer()
+    gens: dict = {}
 
     def step(state: TrainState, wav_noisy, wav_clean, generator=None):
         if state.spec != spec:
             raise ValueError(f"the state's optimizer {state.spec} is not "
                              f"this step's {spec}")
-        _, metrics = forward_backward(state, wav_noisy, wav_clean, cfg,
-                                      generator)
+        if mesh is not None and generator is None:
+            dev = state.leaves()[0].device
+            generator = gens.setdefault(dev, rank_generator(mesh, 0, dev))
+        with tp.use_mesh(mesh), tp.global_batch_stats(mesh):
+            _, metrics = forward_backward(state, wav_noisy, wav_clean, cfg,
+                                          generator)
+        if axis_size(mesh, "data") > 1:
+            group = axis_group(mesh, "data")
+            all_reduce_mean([p.grad for p in state.leaves()], group)
+            names = sorted(metrics)
+            vals = torch.stack([metrics[k] for k in names])
+            all_reduce_mean([vals], group)
+            metrics = dict(zip(names, vals))
         update(state)
         return state, metrics
 
     return step
+
+
+def all_reduce_mean(tensors: list, group, bucket_bytes: int = BUCKET_BYTES):
+    """Average each tensor in place over ``group``: one all-reduce per flat
+    bucket of about ``bucket_bytes``, not one per tensor."""
+    n = dist.get_world_size(group)
+    bucket, size = [], 0
+    for i, t in enumerate(tensors):
+        bucket.append(t)
+        size += t.numel() * t.element_size()
+        if size >= bucket_bytes or i == len(tensors) - 1:
+            flat = torch.cat([b.reshape(-1) for b in bucket])
+            dist.all_reduce(flat, group=group)
+            flat /= n
+            for b, part in zip(bucket, flat.split([b.numel()
+                                                   for b in bucket])):
+                b.copy_(part.view_as(b))
+            bucket, size = [], 0
+
+
+def place_train_state(state: TrainState, mesh) -> TrainState:
+    """The state for ``make_train_step(mesh=mesh)``: this model rank's
+    slice of every sharded parameter (``parallel.sharding``) and of its
+    Adam moments, as new leaves that require grad, the rest whole; the
+    step count and schedule carried over."""
+    check_mesh(mesh)
+    specs = tree_leaves(param_specs(state.params, axis_size(mesh, "model")))
+    params = tree_map(lambda t: t.detach().clone().requires_grad_(),
+                      shard_params(state.params, mesh))
+    new = tree_leaves(params)
+    opt, _ = state.spec.build(new)
+    n, r = axis_size(mesh, "model"), axis_rank(mesh, "model")
+    for old, leaf, ax in zip(state.leaves(), new, specs):
+        if old in state.optimizer.state:
+            opt.state[leaf] = {
+                k: (v.chunk(n, dim=ax)[r] if ax is not None and k != "step"
+                    else v).clone()
+                for k, v in state.optimizer.state[old].items()}
+    placed = TrainState(params, opt, None, state.spec)
+    set_step(placed, state.step)
+    return placed
 
 
 def forward_backward(state: TrainState, wav_noisy, wav_clean,
