@@ -28,6 +28,16 @@ upstream-layout torch checkpoints written by ``tools/torch_ref_state_dict.py``:
 mode 0, FLAC with overlap-add, mode 1. K6's backward is held to autograd
 through the plain loop and timed against ``nn.GRU``'s.
 
+Around those paths: the main path's analytic FLOPs (``utils.flops``) over
+its best wall, as TFLOP/s and the share of the card's peak, printed as a
+``{"flops": ...}`` line; one restore under ``utils.profiling.trace``, whose
+trace must name a kernel of each counter and each stage span; the
+complex and subband spectrogram transforms and the PQMF (``ops.fdomain``,
+``ops.pqmf``) at full length against the CPU and their round-trip floors;
+``restore_wavs`` over more chunk rows than fit one call; and the FLAC file
+run decoded by the native decoder (``utils.flac_native``, built from
+``csrc/flacdec.cpp`` with the kernels), timed against the Python one.
+
     python3 chip_smoke.py
     python3 chip_smoke.py --cards N    # N >= 2 cards: the paths that need N
 
@@ -45,8 +55,8 @@ held to the one-process step on the whole batch with the plain GRU, ms per
 step with the all-reduce's share; (e) the command line in folder mode with
 ``--coordinator`` in N processes against the one-process command line.
 
-Needs one CUDA card and nvcc. Exits non-zero, printing no result, when there
-is no card or a phase fails. The last line of standard output is
+Needs one CUDA card, nvcc and g++. Exits non-zero, printing no result, when
+there is no card or a phase fails. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit, and the one before that the per-kernel JSON record. Every time
 printed is measured in this run on this card.
@@ -495,8 +505,9 @@ def phase_build():
     took = build.build_all()
     build_s = time.perf_counter() - t0
     log(f"  built {sorted(took) or 'nothing (cached)'} in "
-        f"{build_s:.1f} s (nvcc in parallel)")
-    for name in build.SOURCES:
+        f"{build_s:.1f} s (nvcc and, for the FLAC decoder, g++ in "
+        "parallel)")
+    for name in build.SOURCES + build.HOST_SOURCES:
         build.load(name)
         report = (build.BUILD / f"{name}.log")
         if report.exists():
@@ -1066,7 +1077,7 @@ def phase_main_path(device):
     seg = DEFAULT_CONFIG.pipeline.seg_length
     wavs = {"30s": (0.1 * rng.standard_normal(seg)).astype(np.float32),
             "45s": (0.1 * rng.standard_normal(seg * 3 // 2)).astype(np.float32)}
-    outs, counts = {}, {}
+    outs, counts, walls = {}, {}, {}
     for mode in ("parity", "production"):
         with precision(mode):
             for name, wav in wavs.items():
@@ -1074,8 +1085,8 @@ def phase_main_path(device):
                 outs[mode, name], counts[mode, name] = _counted_restore(
                     mode, name, vf, wav,
                     expected_launches(4 if mode == "parity" else 2))
-            wall = _timed_restore(mode, "default path", vf, wavs["30s"],
-                                  device)
+            wall = walls[mode] = _timed_restore(mode, "default path", vf,
+                                                wavs["30s"], device)
             # stage breakdown on device time, one 30 s batch
             wav = torch.from_numpy(wavs["30s"][None]).to(device)
             p, vp, cfg = vf.params, vf.vocoder_params, vf.config
@@ -1106,7 +1117,7 @@ def phase_main_path(device):
         if snr < SNR_FLOOR_DB:
             raise AssertionError(f"{name}: SNR {snr:.2f} dB < {SNR_FLOOR_DB}")
     phase_snr_vs_plain(vf, device)
-    return vf, wavs["30s"], outs, counts
+    return vf, wavs["30s"], outs, counts, walls
 
 
 def _timed_restore(mode: str, what: str, vf, wav, device,
@@ -1744,7 +1755,7 @@ def phase_file_path(device, card: str, build_s: float):
     from voicefixer_tpu_torch.pipeline import vocoder_facade
     from voicefixer_tpu_torch.pipeline.restore import (
         VoiceFixer, _fit_length, overlap_add, remove_higher_frequency)
-    from voicefixer_tpu_torch.utils import audio_io
+    from voicefixer_tpu_torch.utils import audio_io, flac, flac_native
 
     t_phase = time.perf_counter()
     sr, seg = C.pipeline.sample_rate, C.pipeline.seg_length
@@ -1764,6 +1775,22 @@ def phase_file_path(device, card: str, build_s: float):
                "flac": os.path.join(d, "in.flac")}
         for path in src.values():
             audio_io.save_wave(wav, path, sr)
+        decode_s, decoded = {}, {}
+        for what, dec in (("native", flac_native.read_flac),
+                          ("python", flac.read_flac)):
+            t0 = time.perf_counter()
+            decoded[what] = dec(src["flac"])[1]
+            decode_s[what] = time.perf_counter() - t0
+        if not np.array_equal(decoded["native"], decoded["python"]):
+            raise AssertionError("the input FLAC: native and Python "
+                                 "decoders disagree")
+        t0 = time.perf_counter()
+        audio_io.save_wave(wav, os.path.join(d, "again.flac"), sr)
+        encode_s = time.perf_counter() - t0
+        log(f"  {FILE_SECONDS} s FLAC input: decode {decode_s['native']:.4f} "
+            f"s native, {decode_s['python']:.3f} s Python "
+            f"({decode_s['python'] / decode_s['native']:.0f}x), the same "
+            f"samples; encode (Python, utils.flac_enc) {encode_s:.3f} s")
         runs = {"mode 0, WAV": ("wav", "out0.wav", []),
                 "overlap 1.0 s, FLAC": ("flac", "out_ov.flac",
                                         ["--chunk-overlap", "1.0"]),
@@ -1774,6 +1801,7 @@ def phase_file_path(device, card: str, build_s: float):
         for what, (kind, out, extra) in runs.items():
             torch.cuda.synchronize()
             kernels.reset_launches()
+            decodes = dict(audio_io.flac_decodes)
             t0 = time.perf_counter()
             rc = cli.main(["-i", src[kind], "-o", os.path.join(d, out),
                            "--ckpt", ana, "--vocoder-ckpt", voc, "--silent"]
@@ -1784,8 +1812,20 @@ def phase_file_path(device, card: str, build_s: float):
             if rc != 0 or counts[what] != want:
                 raise AssertionError(f"CLI {what}: exit {rc}, launches "
                                      f"{counts[what]} != {want}")
+            used = {k: v - decodes[k]
+                    for k, v in audio_io.flac_decodes.items()}
+            if kind == "flac" and used != {"native": 1, "python": 0}:
+                raise AssertionError(f"CLI {what}: FLAC decodes {used}, "
+                                     "want one native")
             log(f"  CLI {what}: {walls[what]:.2f} s, launches "
-                f"{counts[what]}")
+                f"{counts[what]}, FLAC decodes {used}")
+        out_ov = os.path.join(d, "out_ov.flac")
+        if not np.array_equal(flac_native.read_flac(out_ov)[1],
+                              flac.read_flac(out_ov)[1]):
+            raise AssertionError("the output FLAC: native and Python "
+                                 "decoders disagree")
+        log("  output FLAC: the native and Python decoders give the same "
+            "samples")
 
         vf = VoiceFixer(ckpt=ana, vocoder_ckpt=voc, config=C, device=device)
         x = audio_io.load_wav(src["wav"], sr)
@@ -1847,7 +1887,203 @@ def phase_file_path(device, card: str, build_s: float):
         + f"; {first} with the kernels' build ({build_s:.1f} s) "
         f"{(walls[first] + build_s) / FILE_SECONDS:.4f}; the phase "
         f"{time.perf_counter() - t_phase:.1f} s")
+    flac_run = "overlap 1.0 s, FLAC"
+    log(f"  CLI FLAC to FLAC, native decoder: {walls[flac_run]:.3f} s = "
+        f"{walls[flac_run] / FILE_SECONDS:.4f} s per audio second "
+        "(0.1307-0.1668 with the Python decoder, PERF.md)")
     return walls, counts
+
+
+# The transforms phase (ops.fdomain, ops.pqmf) at full length, on the card
+# against the same functions on the CPU: float32 products of 2048- or
+# 512-point DFTs and 63-tap convolutions summed in another order, TF32 off,
+# within XFORM_RTOL of the largest |CPU result| (a phase, cos and sin, held
+# through the real and imaginary parts it stands for). Round trips:
+# tests/test_pqmf.py's floors, tests/test_fdomain.py's 55 dB for the
+# subband pairs (inside the edges, over the length the subband STFT keeps:
+# at S = 4 its hop is 441 // 4 = 110 samples), and the complex pair within
+# tests/test_fdomain.py's 1e-4.
+XFORM_RTOL = 1e-5
+PQMF_FLOOR_DB = {2: 25.0, 4: 35.0, 8: 35.0}
+SUBBAND_FLOOR_DB = 55.0
+COMPLEX_ATOL = 1e-4
+XFORM_SECONDS = 30
+
+
+def _xform_err(got, ref) -> float:
+    """max |got - ref| over max |ref|; for (mag, cos, sin) the largest of
+    mag's and of mag_ref * cos, mag_ref * sin."""
+    if isinstance(ref, tuple):
+        mag = ref[0]
+        return max([_xform_err(got[0], mag)]
+                   + [_xform_err(mag.to(g.device) * g, mag * r)
+                      for g, r in zip(got[1:], ref[1:])])
+    return float((got.cpu() - ref).abs().max() / ref.abs().max())
+
+
+def _interior_snr(back, x, edge: int = 128) -> float:
+    """tests/test_fdomain.py's SNR over the common length, edges cut."""
+    m = min(back.shape[-1], x.shape[-1])
+    a = back[..., edge:m - edge].double()
+    b = x[..., edge:m - edge].double()
+    return float(10 * ((b * b).sum() / ((a - b) ** 2).sum()).log10())
+
+
+def _pqmf_snr(back, x, delay: int = 62, lags: int = 66) -> float:
+    """tests/test_pqmf.py's SNR: the best lag within +-lags, edges cut."""
+    a = x[..., delay:-delay].double()
+    err = min(float(((a - back.roll(lag, -1)[..., delay:-delay].double())
+                     ** 2).mean().sqrt()) for lag in range(-lags, lags + 1))
+    return 20 * math.log10(float((a ** 2).mean().sqrt()) / (err + 1e-12))
+
+
+def phase_transforms(device):
+    """The complex and subband spectrogram transforms and the PQMF at full
+    length: 30 s of stereo white noise at 0.1 sigma from SEED, [1, 2,
+    1 323 000], on the card in float32 with TF32 off. Each forward and
+    inverse is held to the CPU, each round trip to its floor, and timed
+    by CUDA events (mean of 3 after a warm-up)."""
+    import numpy as np
+    import torch
+    from voicefixer_tpu_torch.config import DEFAULT_CONFIG as C
+    from voicefixer_tpu_torch.ops import fdomain, pqmf
+    from voicefixer_tpu_torch.ops.precision import tf32_off
+
+    t_phase = time.perf_counter()
+    cfg, n = C.stft, XFORM_SECONDS * C.pipeline.sample_rate
+    x = torch.from_numpy((0.1 * np.random.default_rng(SEED + 11)
+                          .standard_normal((1, 2, n))).astype(np.float32))
+    xd = x.to(device)
+    log(f"== transforms: ops.fdomain and ops.pqmf on stereo {tuple(x.shape)}"
+        f" (n_fft {cfg.n_fft}, hop {cfg.hop_length}), card against CPU "
+        f"(tol {XFORM_RTOL:.0e} of max |ref|)")
+    cases = {
+        "complex": (
+            lambda w: fdomain.wav_to_complex_spectrogram(w, cfg),
+            lambda s: fdomain.complex_spectrogram_to_wav(s, cfg, length=n)),
+        "complex subband S=4": (
+            lambda w: fdomain.wav_to_complex_subband_spectrogram(w, cfg, 4),
+            lambda s: fdomain.complex_subband_spectrogram_to_wav(
+                s, cfg, 4, length=n // 4)),
+        "mag-phase subband S=4": (
+            lambda w: fdomain.wav_to_mag_phase_subband_spectrogram(w, cfg,
+                                                                   4),
+            lambda s: fdomain.mag_phase_subband_spectrogram_to_wav(
+                *s, cfg, 4, length=n // 4)),
+    }
+    for bands in (2, 4, 8):
+        cases[f"pqmf S={bands}"] = (
+            lambda w, b=bands: pqmf.analysis(w.reshape(2, n, 1), bands=b),
+            lambda s, b=bands: pqmf.synthesis(s, bands=b).reshape(1, 2, n))
+    report = {}
+    with tf32_off(), torch.inference_mode():
+        for name, (fwd, inv) in cases.items():
+            spec, spec_ref = fwd(xd), fwd(x)
+            back, back_ref = inv(spec), inv(spec_ref)
+            errs = (_xform_err(spec, spec_ref), _xform_err(back, back_ref))
+            fwd_ms = cuda_ms(lambda: fwd(xd), 3)
+            inv_ms = cuda_ms(lambda: inv(spec), 3)
+            if name.startswith("pqmf"):
+                bands = int(name[-1])
+                got, floor = _pqmf_snr(back, xd), PQMF_FLOOR_DB[bands]
+                trip = f"SNR {got:.2f} dB (floor {floor})"
+                ok = got > floor
+            elif "subband" in name:
+                got = _interior_snr(back, xd)
+                trip = (f"SNR {got:.2f} dB over {back.shape[-1]} samples "
+                        f"(floor {SUBBAND_FLOOR_DB})")
+                ok = got > SUBBAND_FLOOR_DB
+            else:
+                got = float((back - xd).abs().max())
+                trip = f"max abs {got:.3e} (tol {COMPLEX_ATOL:.0e})"
+                ok = got <= COMPLEX_ATOL
+            shape = tuple((spec[0] if isinstance(spec, tuple) else spec)
+                          .shape)
+            log(f"  {name}: forward {shape} {fwd_ms:.3f} ms, inverse "
+                f"{inv_ms:.3f} ms on the card; card vs CPU {errs[0]:.2e} / "
+                f"{errs[1]:.2e}; round trip {trip}")
+            if max(errs) > XFORM_RTOL or not ok \
+                    or not torch.isfinite(back).all():
+                raise AssertionError(f"transforms, {name}: card vs CPU "
+                                     f"{errs}, round trip {trip}")
+            report[name] = {"forward_ms": fwd_ms, "inverse_ms": inv_ms,
+                            "err": max(errs), "round_trip": got}
+    log(f"  transforms phase took {time.perf_counter() - t_phase:.1f} s")
+    return report
+
+
+def phase_flops(walls: dict, card: str):
+    """The main path's analytic work (``utils.flops.pipeline_flops``, the
+    JAX package's count: the STFT as a matrix DFT) over the best-of-3 wall
+    of a 30 s chunk in each precision, as achieved TFLOP/s and the share
+    of the card's peak for the mode's type (mfu): dense bfloat16 for
+    production, float32 for parity."""
+    from voicefixer_tpu_torch.config import DEFAULT_CONFIG
+    from voicefixer_tpu_torch.utils import flops
+    work = flops.pipeline_flops(DEFAULT_CONFIG, 30.0)
+    peaks = {"parity": PEAK_FP32, "production": PEAK_BF16}
+    line = {"pipeline_flops": work, "card": card}
+    for mode, wall_ms in walls.items():
+        rate = work / (wall_ms / 1e3)
+        line[mode] = {"wall_ms": wall_ms, "tflops": rate / 1e12,
+                      "mfu": rate / peaks[mode]}
+        log(f"  {mode}: {work / 1e12:.4f} TFLOP per 30 s chunk in "
+            f"{wall_ms:.1f} ms = {rate / 1e12:.2f} TFLOP/s, mfu "
+            f"{rate / peaks[mode]:.4f} of {peaks[mode] / 1e12:.0f} TFLOP/s "
+            f"on {card}")
+    print(json.dumps({"flops": line}), flush=True)
+    return line
+
+
+# a kernel of each counter of the parity main path, as the profiler names
+# it (the __global__ function of its source)
+TRACE_KERNELS = {"stft_mel": "stft_mel_kernel",
+                 "gru_bidir": "gru_bidir_kernel",
+                 "upsample": "upsample_f32_kernel",
+                 "res_chain": "chain_f32_kernel",
+                 "res_shift_single": "shift_f32_kernel",
+                 "up_res_stream": "chain_f32_kernel"}
+TRACE_SPANS = ("vf.stft_mel", "vf.denoiser", "vf.resunet", "vf.vocoder")
+
+
+def phase_profile(vf, wav, device):
+    """One mode-0 restore of the 30 s chunk (parity) under
+    ``utils.profiling.trace`` inside an ``annotate`` span of its own: the
+    trace file must exist and name a kernel of each counter of the main
+    path and each stage span of ``pipeline.restore.restore_batch``."""
+    import os
+    import tempfile
+
+    from voicefixer_tpu_torch.utils import profiling
+
+    log("== profiling: utils.profiling.trace of one mode-0 restore")
+    with tempfile.TemporaryDirectory() as d:
+        vf.restore_inmem(wav)
+        t0 = time.perf_counter()
+        with profiling.trace(d, device=device):
+            with profiling.annotate("vf.restore"):
+                vf.restore_inmem(wav)
+        took = time.perf_counter() - t0
+        path = os.path.join(d, profiling.TRACE_FILE)
+        events = json.load(open(path))["traceEvents"]
+        size = os.path.getsize(path)
+    names = [e.get("name", "") for e in events]
+    kernels = [nm for e, nm in zip(events, names) if e.get("cat") == "kernel"]
+    missing = [f"{k} ({sym})" for k, sym in TRACE_KERNELS.items()
+               if not any(sym in nm for nm in kernels)]
+    missing += [sp for sp in TRACE_SPANS + ("vf.restore",)
+                if sp not in names]
+    spans = {}
+    for e in events:
+        if e.get("name") in TRACE_SPANS and "dur" in e:
+            key = (e.get("cat"), e["name"])
+            spans[key] = spans.get(key, 0.0) + e["dur"] / 1e3
+    log(f"  trace {size / 2 ** 20:.1f} MiB, {len(events)} events, "
+        f"{len(kernels)} kernel launches, written in {took:.1f} s; ms per "
+        "span: " + ", ".join(f"{nm} ({cat}) {v:.2f}" for (cat, nm), v in
+                             sorted(spans.items())))
+    if missing:
+        raise AssertionError(f"the trace lacks {missing}")
 
 
 # csrc/convblock.cu's kernels: conv_block_f32_kernel and
@@ -2114,6 +2350,48 @@ def _peak_per_row(vf, wav, rows=(1, 5)):
     return peaks[0] - rows[0] * per_row, per_row
 
 
+def _rows_over_cap(vf, chunk, mesh):
+    """restore_wavs with its default max_batch over more copies of one
+    30 s chunk than one call takes on this card (at least max_batch's 64):
+    it must split them into calls of at most ``rows_per_call`` rows (a
+    call launches stft_mel once; a call of 26 or more full-width rows
+    fails in the vocoder's reflection pad, whose input then passes 2^31
+    elements) and give every row as restore_inmem."""
+    import inspect
+
+    import numpy as np
+    import torch
+    from voicefixer_tpu_torch import kernels
+    from voicefixer_tpu_torch.parallel import inference
+    seg = len(chunk)
+    cap = inference.rows_per_call(vf, seg, mesh)
+    max_batch = inspect.signature(inference.restore_wavs).parameters[
+        "max_batch"].default
+    rows = max(max_batch, cap + 1)
+    per_batch = [min(max_batch, rows - i) for i in range(0, rows, max_batch)]
+    calls = sum(math.ceil(b / cap) for b in per_batch)
+    ref = vf.restore_inmem(chunk)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    got = inference.restore_wavs(vf, [chunk] * rows, 0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = kernels.launches["stft_mel"]
+    err = max(float(np.abs(g - ref).max()) for g in got)
+    by_index = inference.INDEX_LIMIT // inference.row_elements(vf.config,
+                                                               seg)
+    log(f"  parity restore_wavs over {rows} rows of one 30 s chunk "
+        f"(default max_batch {max_batch}): {cap} rows per call (the "
+        f"32-bit index limit allows {by_index}), "
+        f"{launched} calls (want {calls}), {wall:.2f} s, peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB; max abs "
+        f"diff to restore_inmem {err:.3e} (tol {PG_ATOL:.0e})")
+    if launched != calls or cap >= rows or not err <= PG_ATOL \
+            or any(g.shape != ref.shape for g in got):
+        raise AssertionError("restore_wavs over the row cap")
+
+
 def _train_pairs(n_pairs: int):
     """n_pairs of 3 s (clean, noisy = clean + 0.05 sigma noise)."""
     import numpy as np
@@ -2150,12 +2428,10 @@ def phase_process_group(device):
     from voicefixer_tpu_torch.config import DEFAULT_CONFIG as C
     from voicefixer_tpu_torch.models import analysis, vocoder
     from voicefixer_tpu_torch.ops.precision import precision
-    from voicefixer_tpu_torch.parallel import distributed
+    from voicefixer_tpu_torch.parallel import distributed, inference
     from voicefixer_tpu_torch.parallel.inference import restore_wavs
     from voicefixer_tpu_torch.parallel.mesh import make_mesh
     from voicefixer_tpu_torch.pipeline.restore import VoiceFixer
-    from voicefixer_tpu_torch.train import step as st
-    from voicefixer_tpu_torch import __main__ as cli
 
     t_phase = time.perf_counter()
     env = {"VF_COORDINATOR": f"localhost:{_free_port()}",
@@ -2201,13 +2477,17 @@ def phase_process_group(device):
                 fixed, per_row = _peak_per_row(vf, wavs[2][:seg])
                 rows_fit = int((0.9 * torch.cuda.get_device_properties(
                     device).total_memory - fixed) // per_row)
+                est = inference.row_bytes(C, seg)
                 log(f"  {mode} restore_wavs peak allocated memory: "
                     f"{per_row / 2 ** 30:.3f} GiB per 30 s chunk row "
                     f"+ {fixed / 2 ** 30:.3f} GiB fixed (batches of 1 and 5 "
-                    f"rows); {rows_fit} rows fit 90 % of this card; the "
-                    f"CLI's ROWS_PER_CARD is {cli.ROWS_PER_CARD}")
-                if rows_fit < cli.ROWS_PER_CARD:
-                    raise AssertionError("ROWS_PER_CARD rows do not fit")
+                    f"rows); {rows_fit} rows fit 90 % of this card; "
+                    f"inference.row_bytes {est / 2 ** 30:.3f} GiB")
+                if est < per_row:
+                    raise AssertionError("row_bytes is below the measured "
+                                         "peak per row")
+                if mode == "parity":
+                    _rows_over_cap(vf, wavs[2][:seg], mesh)
         for mode in ("parity", "production"):
             for m in (0, 1):
                 _hold_wavs(mode, f"restore_wavs mode {m}", got[mode, m],
@@ -2945,7 +3225,10 @@ def main() -> int:
             "count": torch.cuda.device_count()}}))
         return 0
     rows = phase_kernels(device)
-    vf, wav, outs, counts = phase_main_path(device)
+    vf, wav, outs, counts, walls = phase_main_path(device)
+    log("== FLOPs of the main path (utils.flops)")
+    phase_flops(walls, card)
+    phase_profile(vf, wav, device)
     sp_counts = phase_sharded_path(vf, wav, outs, device)
     cb_counts = phase_conv_block_path(vf, wav, outs, device)
     gru_counts = phase_gru_path(device)
@@ -2956,6 +3239,7 @@ def main() -> int:
     phase_trainer(device)
     phase_process_group(device)
     phase_small_reference(device)
+    phase_transforms(device)
     phase_file_path(device, card, build_s)
 
     def launches(name, mode):

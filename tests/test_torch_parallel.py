@@ -295,3 +295,87 @@ def test_bn_statistics_span_the_data_axis(tmp_path):
                                        rtol=1e-4, atol=1e-5)
             assert np.abs(out[f"{name}_local"]
                           - y.detach().numpy()[rows]).max() > 0.1
+
+
+# --------------------------------------------- local_device, restore_wavs' cap
+
+def test_local_device_needs_a_card_outside_a_group(monkeypatch):
+    from voicefixer_tpu_torch.parallel import distributed
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert not distributed.is_initialized()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        distributed.local_device()
+
+
+def test_local_device_is_the_cpu_in_a_gloo_group(tmp_path, monkeypatch):
+    from voicefixer_tpu_torch.parallel import distributed
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for k in ("VF_COORDINATOR", "VF_NUM_PROCESSES", "VF_PROCESS_ID"):
+        monkeypatch.delenv(k, raising=False)
+    assert distributed.initialize(f"file://{tmp_path}/rdzv", 1, 0,
+                                  device="cpu", timeout_s=30)
+    try:
+        assert torch.distributed.get_backend() == "gloo"
+        assert distributed.local_device() == torch.device("cpu")
+    finally:
+        distributed.shutdown()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        distributed.local_device()
+
+
+@pytest.fixture(scope="module")
+def tiny_vf():
+    pa, pv = from_jax_params(*jax_param_trees(0), "cpu")
+    return VoiceFixer(pa, pv, config=tiny_test_config(), device="cpu")
+
+
+@pytest.mark.parametrize("max_batch,max_rows,calls", [
+    (64, 1, [1] * 6), (64, 2, [2, 2, 2]), (64, 4, [3, 3]),
+    (4, 3, [2, 2, 2]), (4, None, [4, 2])])
+def test_restore_wavs_row_cap(tiny_vf, monkeypatch, max_batch, max_rows,
+                              calls):
+    from voicefixer_tpu_torch.parallel import inference
+    """Six chunks of one length (three waves, the short one padded): a cap
+    on the rows of a call splits each batch of max_batch into equal calls,
+    and every file comes out as the single batch's. Within 1e-6, not bit
+    for bit: the CPU library blocks a product by its row count, so the
+    denoiser's dense layers round differently at another batch (6e-8 on
+    the mask, 3e-8 on the waveform)."""
+    rng = np.random.default_rng(0)
+    wavs = [(0.1 * rng.standard_normal(n)).astype(np.float32)
+            for n in (2 * SEG + 100, SEG // 3, 2 * SEG)]
+    whole = restore_wavs(tiny_vf, wavs, 0)
+    seen = []
+    run = tiny_vf._restore_batch_device
+
+    def counted(batch, *a, **k):
+        seen.append(batch.shape[0])
+        return run(batch, *a, **k)
+
+    monkeypatch.setattr(tiny_vf, "_restore_batch_device", counted)
+    # the rows a call may take on a card (the CPU takes no cap: None)
+    monkeypatch.setattr(inference, "rows_per_call", lambda *a: max_rows)
+    got = restore_wavs(tiny_vf, wavs, 0, max_batch=max_batch)
+    assert seen == calls
+    for g, w in zip(got, whole):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-6)
+
+
+def test_row_bytes_calibration(tiny_vf):
+    """Full width: ROW_COPIES of the last activation is 1.42 GiB a 30 s
+    row in parity and half that in production, above the 1.383 and 0.699
+    GiB measured, and 25 rows the most under the 32-bit index limit; the
+    CPU takes no cap."""
+    from voicefixer_tpu_torch.config import DEFAULT_CONFIG
+    from voicefixer_tpu_torch.ops.precision import precision
+    from voicefixer_tpu_torch.parallel import inference
+    seg = DEFAULT_CONFIG.pipeline.seg_length
+    parity = inference.row_bytes(DEFAULT_CONFIG, seg) / 2 ** 30
+    with precision("production"):
+        production = inference.row_bytes(DEFAULT_CONFIG, seg) / 2 ** 30
+    assert 1.383 < parity < 1.5 and 0.699 < production < 0.75
+    # 25 full-width rows keep the last activation under 2^31 elements
+    assert inference.INDEX_LIMIT // inference.row_elements(
+        DEFAULT_CONFIG, seg) == 25
+    assert inference.rows_per_call(tiny_vf, SEG) is None

@@ -11,6 +11,7 @@ statistics so that every leaf matters.
 import functools
 import math
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -192,7 +193,9 @@ def test_port_imports_no_jax():
         "          'utils.audio_io', 'utils.flac', 'utils.flac_enc',\n"
         "          '__main__', 'train', 'train.step', 'train.losses',\n"
         "          'train.data', 'train.augment', 'train.checkpoint',\n"
-        "          'utils.params'):\n"
+        "          'utils.params', 'ops.pqmf', 'ops.fdomain', 'utils.flops',\n"
+        "          'utils.profiling', 'utils.io', 'utils.plotting',\n"
+        "          'utils.flac_native'):\n"
         "    assert 'voicefixer_tpu_torch.' + m in sys.modules, m\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in\n"
         "       ('jax', 'optax', 'voicefixer_tpu')]\n"
@@ -218,6 +221,14 @@ def test_port_imports_no_jax():
         bad = [n for n in names if n.split(".")[0] in ("jax",
                                                        "voicefixer_tpu")]
         assert not bad, (rel, bad)
+    # nothing of the port builds from or loads the JAX package's native/
+    pkg = root / "voicefixer_tpu_torch"
+    files = [f for f in pkg.rglob("*") if f.is_file()
+             and f.suffix in (".py", ".cpp", ".cu", ".cuh")]
+    assert pkg / "csrc" / "flacdec.cpp" in files
+    refer = [str(f.relative_to(root)) for f in files
+             if re.search(r"native/|[\"']native[\"']\s*\)", f.read_text())]
+    assert not refer, refer
 
 
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch):

@@ -10,8 +10,8 @@ FLAC, AIFF and AU are read; WAV and FLAC are written (int16). ``--mode
 all`` writes one file a mode, ``<base>-mode{k}<ext>``; ``--seed`` seeds
 mode 2's dropout. In a folder, modes 0 and 1 without ``--chunk-overlap``
 restore every chunk of every file in batches of equal lengths
-(``parallel.inference.restore_wavs``, at most ``ROWS_PER_CARD`` chunks a
-batch on a card), unless VF_NO_DP is set; mode 2 and overlap-add go file by
+(``parallel.inference.restore_wavs``, each batch in calls of as many chunks
+as fit the card), unless VF_NO_DP is set; mode 2 and overlap-add go file by
 file.
 
 Several processes, one per card (``parallel.distributed``):
@@ -41,10 +41,6 @@ import sys
 import time
 
 AUDIO_EXTS = (".wav", ".flac")
-# chunks a card restores at once in folder mode (restore_wavs' max_batch):
-# the peak device memory of a full-width 30 s chunk row, measured by
-# chip_smoke.py, bounds it on an 80 GB card (PERF.md)
-ROWS_PER_CARD = 16
 
 
 def writefile(voicefixer, infile: str, outfile: str, mode, append_mode: bool,
@@ -248,8 +244,7 @@ def _restore_folder_batched(voicefixer, args, files: list, modes: list,
             for f in files]
     for m in modes:
         start = time.time()
-        outs = restore_wavs(voicefixer, wavs, mode=int(m),
-                            max_batch=ROWS_PER_CARD)
+        outs = restore_wavs(voicefixer, wavs, mode=int(m))
         for f, out in zip(files, outs):
             dst = os.path.join(args.outfolder, os.path.splitext(f)[0]
                                + ".wav")

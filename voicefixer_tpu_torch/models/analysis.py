@@ -18,6 +18,7 @@ from voicefixer_tpu_torch.models import resunet
 from voicefixer_tpu_torch.ops import mel as vmel
 from voicefixer_tpu_torch.ops import stft as vstft
 from voicefixer_tpu_torch.ops.norm import to_log
+from voicefixer_tpu_torch.utils.profiling import annotate
 
 
 def mel_fbank(cfg: VoiceFixerConfig, device) -> torch.Tensor:
@@ -52,13 +53,15 @@ def apply(params: dict, mel_orig: torch.Tensor, cfg: VoiceFixerConfig,
     """mel_orig: [B, T, 128] linear mel. Returns {'mel': restored log10 mel,
     'clean': masked linear mel, 'unet_out'}, each [B, T, 128]. ``generator``
     draws the denoiser's dropout in training."""
-    mask = dn.apply(params["denoiser"], mel_orig, cfg.denoiser,
-                    training=training, generator=generator)
+    with annotate("vf.denoiser"):
+        mask = dn.apply(params["denoiser"], mel_orig, cfg.denoiser,
+                        training=training, generator=generator)
     clean = mask * mel_orig
     x = to_log(clean)
     unet_in = torch.stack([to_log(mel_orig), x], dim=-1)  # [B, T, 128, 2]
-    unet_out = resunet.apply(params["unet"], unet_in, cfg.unet,
-                             training=training)[..., 0]
+    with annotate("vf.resunet"):
+        unet_out = resunet.apply(params["unet"], unet_in, cfg.unet,
+                                 training=training)[..., 0]
     return {"mel": unet_out + x, "clean": clean, "unet_out": unet_out}
 
 

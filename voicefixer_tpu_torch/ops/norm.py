@@ -39,3 +39,13 @@ def vocoder_normalize_mel(mel: torch.Tensor,
                           cfg: VocoderConfig) -> torch.Tensor:
     """db_normalize(amp_to_db(|mel|) - ref_level_db)."""
     return db_normalize(amp_to_db(torch.abs(mel), cfg) - cfg.ref_level_db, cfg)
+
+
+def pad_tail_frames(mel_bct: torch.Tensor,
+                    cfg: VocoderConfig) -> torch.Tensor:
+    """Append T % 2 + 4 frames of -max_abs_value along time (the last
+    axis; the mel layout is [B, n_mels, T])."""
+    t = mel_bct.shape[-1]
+    pad = mel_bct.new_full(mel_bct.shape[:-1] + (t % 2 + 4,),
+                           -cfg.max_abs_value)
+    return torch.cat([mel_bct, pad], dim=-1)

@@ -68,7 +68,7 @@ def num_frames(n_samples: int, cfg: STFTConfig) -> int:
 
 
 def center_pad(x: torch.Tensor, cfg: STFTConfig) -> torch.Tensor:
-    """[B, N] -> [B, N + 2*(n_fft//2)] with the configured pad mode.
+    """[..., N] -> [..., N + 2*(n_fft//2)] with the configured pad mode.
 
     "reflect" is ``jnp.pad``'s (and numpy's) for any pad length: a pad of N
     samples or more reflects again off the far end, with period 2(N - 1),
@@ -78,23 +78,25 @@ def center_pad(x: torch.Tensor, cfg: STFTConfig) -> torch.Tensor:
     pad = cfg.n_fft // 2
     n = x.shape[-1]
     if cfg.pad_mode != "reflect" or pad < n:
-        return F.pad(x[:, None], (pad, pad), mode=cfg.pad_mode)[:, 0]
+        y = F.pad(x.reshape(-1, 1, n), (pad, pad), mode=cfg.pad_mode)
+        return y.reshape(*x.shape[:-1], n + 2 * pad)
     idx = torch.arange(-pad, n + pad, device=x.device)
     if n == 1:
         idx = torch.zeros_like(idx)
     else:
         idx = torch.remainder(idx, 2 * (n - 1))
         idx = torch.where(idx < n, idx, 2 * (n - 1) - idx)
-    return x[:, idx]
+    return x[..., idx]
 
 
 def frame_signal(x: torch.Tensor, cfg: STFTConfig) -> torch.Tensor:
-    """[B, N] -> [B, T, n_fft] overlapping frames after centre padding."""
+    """[..., N] -> [..., T, n_fft] overlapping frames after centre
+    padding."""
     return center_pad(x, cfg).unfold(-1, cfg.n_fft, cfg.hop_length)
 
 
 def stft_real_imag(x: torch.Tensor, cfg: STFTConfig):
-    """[B, N] -> (real, imag), each [B, T, n_freqs]."""
+    """[..., N] -> (real, imag), each [..., T, n_freqs]."""
     frames = frame_signal(x, cfg)
     w_re, w_im = dft_matrices(cfg.n_fft, cfg.win_length, x.device)
     return frames @ w_re, frames @ w_im
@@ -111,12 +113,19 @@ def spectrogram(x: torch.Tensor, cfg: STFTConfig,
 
 
 def spectrogram_phase(x: torch.Tensor, cfg: STFTConfig, eps: float = 1e-8):
-    """(mag, cos, sin), each [B, T, n_freqs]; eps clamps the power before
+    """(mag, cos, sin), each [..., T, n_freqs]; eps clamps the power before
     the square root."""
     real, imag = stft_real_imag(x, cfg)
     power = real * real + imag * imag
     mag = torch.sqrt(torch.clamp(power, min=eps))
     return mag, real / mag, imag / mag
+
+
+def wav_to_spectrogram_phase(x: torch.Tensor, cfg: STFTConfig,
+                             eps: float = 1e-8):
+    """[B, C, N] -> (mag, cos, sin), each [B, C, T, n_freqs]: the channels
+    as a batch axis."""
+    return spectrogram_phase(x, cfg, eps=eps)
 
 
 def spectrogram_to_wav(mag: torch.Tensor, cos: torch.Tensor,

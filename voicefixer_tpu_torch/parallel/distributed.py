@@ -105,11 +105,16 @@ def initialize(coordinator: str | None = None,
 
 
 def local_device() -> torch.device:
-    """The device this process drives: its card, or the CPU on gloo. Without
-    a process group, "cuda" where there is a card, else the CPU."""
+    """The device this process drives: its card, or the CPU in a gloo group
+    that asked for it (``initialize(device="cpu")``). Without a process
+    group, "cuda", and raises without a card: nothing carries on on the CPU
+    unless asked to."""
     if _local_device is not None and is_initialized():
         return _local_device
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; initialize(device='cpu') "
+                           "for a process group on the CPU")
+    return torch.device("cuda")
 
 
 def shutdown():

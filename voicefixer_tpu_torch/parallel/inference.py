@@ -6,21 +6,80 @@ of each batch on its own card. Chunks are independent in the eval modes
 (BN on running statistics), so the result is the per-file
 ``VoiceFixer.restore_inmem`` of each file.
 
-Memory: a chunk row at full width holds stage 3's [1.32 M, 64] activation
-and its neighbours at once (PERF.md records the peak per row), so a rank's
-share of ``max_batch`` rows must fit its card; the CLI bounds it
-(``__main__.ROWS_PER_CARD``).
+Memory: a chunk row at full width holds the vocoder's last stage, a
+[1.33 M, 64] activation, and its neighbours at once, so a rank's share of
+``max_batch`` rows may not fit its card. Each global batch is therefore
+restored in as few calls as keep a rank's rows within ``rows_per_call``:
+the card's free memory over ``row_bytes``, and at most as many rows as
+keep that activation under 2^31 elements, the same on every rank.
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from voicefixer_tpu_torch.ops.precision import activation_dtype
 from voicefixer_tpu_torch.parallel import distributed
 from voicefixer_tpu_torch.parallel.mesh import (axis_rank, axis_size,
                                                 global_batch, shard_batch)
 from voicefixer_tpu_torch.pipeline.restore import _trim_center
+
+# The peak device memory of one 30 s chunk row at full width, 1.383 GiB in
+# parity and 0.699 GiB in production (chip_smoke.py on an H100 80GB HBM3,
+# 700 W; PERF.md), is 4.38 and 4.42 times the vocoder's last activation
+# ([1 325 646, 64] float32 or bfloat16); ROW_COPIES of it leave a margin.
+ROW_COPIES = 4.5
+# the share of the free memory that the rows of one call may take
+FREE_SHARE = 0.9
+# PyTorch's CUDA reflection pad (the vocoder's post-conv) indexes with 32-bit
+# integers and raises on a tensor of 2^31 elements or more: 26 rows of the
+# full-width last activation
+INDEX_LIMIT = 2 ** 31 - 1
+
+
+def row_elements(cfg, seg_len: int) -> int:
+    """Elements of the vocoder's last activation for one chunk row of
+    ``seg_len`` samples, [frames x upsample, channels / 2^stages]: a
+    row's largest tensor."""
+    v = cfg.vocoder
+    t = seg_len // cfg.stft.hop_length + 1
+    samples = (t + t % 2 + 4) * v.total_upsample
+    return samples * (v.channels // 2 ** len(v.upsample_scales))
+
+
+def row_bytes(cfg, seg_len: int) -> int:
+    """Peak device bytes of one chunk row of ``seg_len`` samples:
+    ROW_COPIES times its last activation in the precision's activation
+    type."""
+    size = torch.empty((), dtype=activation_dtype()).element_size()
+    return int(ROW_COPIES * row_elements(cfg, seg_len) * size)
+
+
+def rows_per_call(vf, seg_len: int, mesh=None) -> int | None:
+    """Chunk rows of ``seg_len`` samples that one call restores on this
+    rank's card: FREE_SHARE of its free memory (as the CUDA runtime reports
+    it, plus what the caching allocator holds unused) over ``row_bytes``,
+    at most
+    INDEX_LIMIT over ``row_elements``, at least 1; the least over the
+    mesh's ranks, so that all take the same calls. None on the CPU: no
+    cap."""
+    if vf.device.type != "cuda":
+        return None
+    free, _ = torch.cuda.mem_get_info(vf.device)
+    free += (torch.cuda.memory_reserved(vf.device)
+             - torch.cuda.memory_allocated(vf.device))
+    rows = min(int(FREE_SHARE * free // row_bytes(vf.config, seg_len)),
+               INDEX_LIMIT // row_elements(vf.config, seg_len))
+    rows = max(1, rows)
+    if mesh is not None and mesh.size() > 1:
+        t = torch.tensor([rows], device=vf.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MIN)
+        rows = int(t.item())
+    return rows
 
 
 def _segments_of(vf, wav: np.ndarray, mode: int):
@@ -54,7 +113,9 @@ def restore_wavs(vf, wavs, mode: int = 0, mesh=None,
     the whole list: each data rank restores its rows of each global batch
     of ``max_batch`` chunks (padded to a multiple of the data axis), and the
     rows are all-gathered. A ``VoiceFixer`` built on a mesh with a model
-    axis restores each rank's rows tensor-parallel over it."""
+    axis restores each rank's rows tensor-parallel over it. A global
+    batch whose share per rank exceeds ``rows_per_call`` is restored in
+    equal calls; the results do not change."""
     if mode not in (0, 1):
         raise ValueError("data-parallel restore supports eval modes 0/1; "
                          "mode 2's per-chunk BN statistics are inherently "
@@ -73,10 +134,19 @@ def restore_wavs(vf, wavs, mode: int = 0, mesh=None,
         for si, seg in enumerate(segs):
             groups.setdefault(seg.shape[0], []).append((fi, si, seg))
 
+    n_data = axis_size(mesh, "data")
     results: dict = {}
     for seg_len, items in groups.items():
+        cap = rows_per_call(vf, seg_len, mesh)
+        calls = []
         for start in range(0, len(items), max_batch):
-            chunk_items = items[start: start + max_batch]
+            batch_items = items[start: start + max_batch]
+            n_calls = 1 if cap is None else math.ceil(
+                math.ceil(len(batch_items) / n_data) / cap)
+            step = math.ceil(len(batch_items) / n_calls)
+            calls += [batch_items[i: i + step]
+                      for i in range(0, len(batch_items), step)]
+        for chunk_items in calls:
             batch = len(chunk_items)
             stacked = torch.from_numpy(np.stack([seg for _, _, seg
                                                  in chunk_items]))

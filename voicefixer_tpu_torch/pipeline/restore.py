@@ -30,6 +30,7 @@ from voicefixer_tpu_torch.parallel import distributed, tp
 from voicefixer_tpu_torch.parallel.mesh import axis_size, check_mesh
 from voicefixer_tpu_torch.parallel.sharding import shard_params
 from voicefixer_tpu_torch.pipeline import vocoder_facade
+from voicefixer_tpu_torch.utils.profiling import annotate
 from voicefixer_tpu_torch.utils.weights import convert_tree, tree_map
 
 EPS = 1e-8
@@ -117,24 +118,28 @@ def restore_batch(analysis_params: dict, vocoder_params,
     channel-sharded (``parallel.tp``, ``analysis_params`` from
     ``parallel.sharding.shard_params``) and the vocoder time-sharded over
     the group. ``training`` and ``generator``: the analysis stage in mode 2
-    (``analysis.apply``); its statistics span the batch."""
+    (``analysis.apply``); its statistics span the batch. The stages are
+    named in profiler traces (``utils.profiling.annotate``): vf.stft_mel,
+    vf.denoiser, vf.resunet, vf.vocoder."""
     with tf32_off(), torch.inference_mode(), \
             kernels.current_device(wav.device), tp.use_mesh(mesh):
-        mel_orig = analysis.wav_to_mel(wav, cfg)
+        with annotate("vf.stft_mel"):
+            mel_orig = analysis.wav_to_mel(wav, cfg)
         out = analysis.apply(analysis_params, mel_orig, cfg,
                              training=training, generator=generator)
         denoised_mel = from_log(out["mel"])
-        if tp.model_parallel():
-            from voicefixer_tpu_torch.parallel.sp import synthesize_sp
-            wav_out = synthesize_sp(vocoder_params, denoised_mel,
-                                    cfg.vocoder, mesh=mesh)[..., 0]
-        elif model_devices is not None and len(model_devices) > 1:
-            from voicefixer_tpu_torch.parallel.sp import synthesize_sp
-            wav_out = synthesize_sp(vocoder_params, denoised_mel,
-                                    cfg.vocoder, model_devices)[..., 0]
-        else:
-            wav_out = vocoder_facade.synthesize(vocoder_params, denoised_mel,
-                                                cfg.vocoder)[..., 0]
+        with annotate("vf.vocoder"):
+            if tp.model_parallel():
+                from voicefixer_tpu_torch.parallel.sp import synthesize_sp
+                wav_out = synthesize_sp(vocoder_params, denoised_mel,
+                                        cfg.vocoder, mesh=mesh)[..., 0]
+            elif model_devices is not None and len(model_devices) > 1:
+                from voicefixer_tpu_torch.parallel.sp import synthesize_sp
+                wav_out = synthesize_sp(vocoder_params, denoised_mel,
+                                        cfg.vocoder, model_devices)[..., 0]
+            else:
+                wav_out = vocoder_facade.synthesize(
+                    vocoder_params, denoised_mel, cfg.vocoder)[..., 0]
         peaks = wav_out.abs().amax(dim=-1)
         wav_out = torch.where((peaks > 1.0)[:, None],
                               wav_out / peaks[:, None], wav_out)

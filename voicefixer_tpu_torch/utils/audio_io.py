@@ -4,7 +4,10 @@ library).
 
 WAV is read and written by scipy.io.wavfile; resampling to the pipeline's
 rate is scipy.signal.resample_poly. The container is chosen by the file's
-magic, not its extension: FLAC ('fLaC') by ``utils.flac``, AIFF/AIFC
+magic, not its extension: FLAC ('fLaC') by the native decoder
+(``utils.flac_native``), or by the pure-Python ``utils.flac`` for a stream
+of unknown length, the one the native decoder declines; ``flac_decodes``
+counts the files each decoder read. AIFF/AIFC
 ('FORM..AIFF/AIFC') and Sun AU ('.snd') by the standard library's readers.
 A lossy container (mp3, ogg, m4a, webm) is read by soundfile where that is
 installed, and raises a clear error where it is not. ``save_wave`` writes
@@ -19,6 +22,8 @@ import os
 import numpy as np
 from scipy.io import wavfile
 from scipy.signal import resample_poly
+
+flac_decodes = {"native": 0, "python": 0}
 
 
 def _to_float(data: np.ndarray) -> np.ndarray:
@@ -134,8 +139,14 @@ def read_audio(fname: str):
     with open(fname, "rb") as f:
         magic = f.read(12)
     if magic[:4] == b"fLaC":
-        from voicefixer_tpu_torch.utils.flac import read_flac
-        sr, data = read_flac(fname)
+        from voicefixer_tpu_torch.utils import flac, flac_native
+        native = flac_native.read_flac(fname)
+        if native is not None:
+            sr, data = native
+            flac_decodes["native"] += 1
+        else:
+            sr, data = flac.read_flac(fname)
+            flac_decodes["python"] += 1
     elif magic[:4] == b"FORM" and magic[8:12] in (b"AIFF", b"AIFC"):
         sr, data = _read_aiff(fname)
     elif magic[:4] == b".snd":
