@@ -3,10 +3,12 @@
 the sources in this checkout, hold each against its plain PyTorch version at
 the shapes its path gives it, drive full-width mode-0 restore through
 ``VoiceFixer`` in parity and production precision, and check the output. The
-nine kernels: stft_mel, gru_bidir, upsample, the vocoder's ResStack kernels
-res_chain, res_shift_single and up_res_stream, and res_stream, gru_seq and
-conv_block_res, each also timed against the library call (cuFFT, cuDNN) that
-computes the same function and that the port does not use.
+kernels: the nine that replace the TPU kernels, stft_mel, gru_bidir,
+upsample, the vocoder's ResStack kernels res_chain, res_shift_single and
+up_res_stream, and res_stream, gru_seq and conv_block_res; and
+gru_bidir_backward, gru_bidir's gradient, which replaces none. Each is also
+timed against the library call (cuFFT, cuDNN) that computes the same
+function and that the port does not use.
 
 These paths are driven, each with the launch counts set to 0 just before
 and read and asserted just after: the default main path; the same restore
@@ -16,8 +18,10 @@ the fused ConvBlockRes kernel opted in (conv_block_res); a two-layer
 unidirectional GRU (gru_seq); mode 2 (batch statistics and dropout, the
 launches of mode 0, none of conv_block_res); a custom vocoder hook (only
 stft_mel and gru_bidir); the analysis-stage trainer (``train/``: gru_bidir
-under grad, its backward in torch ops, ``kernels.gru.GruBidir``), whose
-first step is held to the same step with the GRU on its plain version; and
+under grad, ``kernels.gru.GruBidir``, its backward the kernel
+gru_bidir_backward), whose first step is held to the same step with the
+GRU on its plain version; restore_inmem of a 13-minute input (26 segments,
+more rows than one call takes) held to its segments restored one by one; and
 the distributed entry points on a real NCCL group of one process
 (``parallel.distributed.initialize`` from the VF_* variables,
 ``make_mesh()`` = (1, 1), ``parallel.inference.restore_wavs`` in modes 0
@@ -25,8 +29,9 @@ and 1 held to ``restore_inmem``, its peak memory per chunk row, and a
 trainer step on the mesh held to the step without one); and the file path,
 three runs of the command line (``voicefixer_tpu_torch.__main__.main``) on
 upstream-layout torch checkpoints written by ``tools/torch_ref_state_dict.py``:
-mode 0, FLAC with overlap-add, mode 1. K6's backward is held to autograd
-through the plain loop and timed against ``nn.GRU``'s.
+mode 0, FLAC with overlap-add, mode 1. K6's backward kernel is held to its
+plain version and to autograd through the plain loop, and timed against
+both and ``nn.GRU``'s backward.
 
 Around those paths: the main path's analytic FLOPs (``utils.flops``) over
 its best wall, as TFLOP/s and the share of the card's peak, printed as a
@@ -89,6 +94,9 @@ REPLACES = {
     "res_stream": "voicefixer_tpu/kernels/resstream.py:416",
     "gru_seq": "voicefixer_tpu/kernels/gru.py:193",
     "conv_block_res": "voicefixer_tpu/kernels/convblock.py:132",
+    # no TPU kernel: the gradient that the JAX trainer takes of this
+    # lax.scan (voicefixer_tpu/train/step.py:74)
+    "gru_bidir_backward": "voicefixer_tpu/ops/gru.py:59",
 }
 SOURCES = {
     "stft_mel": "voicefixer_tpu_torch/csrc/stft_mel.cu",
@@ -102,6 +110,7 @@ SOURCES = {
     "res_stream": "voicefixer_tpu_torch/kernels/resstream.py",
     "gru_seq": "voicefixer_tpu_torch/csrc/gru_bidir.cu",
     "conv_block_res": "voicefixer_tpu_torch/csrc/convblock.cu",
+    "gru_bidir_backward": "voicefixer_tpu_torch/csrc/gru_bidir.cu",
 }
 # a kernel whose bfloat16 path has a source of its own
 SOURCES_BF16 = {
@@ -151,12 +160,22 @@ HF_ATOL = 1e-4
 # default chunk), 301 STFT frames; three counted steps, then timed ones.
 TRAIN_BATCH, TRAIN_SECONDS, TRAIN_STEPS, TRAIN_TIMED = 2, 3.0, 3, 3
 TRAIN_FRAMES = 301
-# K6's backward (torch ops on the kernel's states) against autograd through
-# the plain loop (on the loop's own states), relative to each gradient's
-# largest element: the states differ by the forward's float32 rounding
-# (1e-5) or, in bfloat16, by an ulp of h (2^-8) now and then, carried
-# through the reverse recurrence.
+# K6's backward kernel (on the forward kernel's states) against autograd
+# through the plain loop (on the loop's own states), relative to each
+# gradient's largest element: the states differ by the forward's float32
+# rounding (1e-5) or, in bfloat16, by an ulp of h (2^-8) now and then,
+# carried through the reverse recurrence. The same budget holds it to its
+# plain version on the same states (float32 sums in another order).
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 2 ** -6}
+# K6's backward: (H, T, B) of the trainer (the denoiser's width, 3 s of
+# frames), H = 1, and a batch past the clusters of 16 that run at once
+GRU_BACKWARD_SHAPES = ((256, TRAIN_FRAMES, TRAIN_BATCH), (1, 5, 2),
+                       (16, 17, 9))
+# restore_inmem over more rows than one call takes: 26 segments of 30 s,
+# production, held to each segment restored alone. Two production runs
+# whose batches differ may take other cuDNN algorithms and round other
+# bfloat16 sums: held at the floor production keeps against parity.
+LONG_SEGMENTS = 26
 # The trainer's first step with K6 against the same step with the GRU on
 # its plain version, cuDNN deterministic on both. The loss, with the plain
 # GRU's own forward: within 1e-4 relative. The gradients: the step's
@@ -241,6 +260,16 @@ def stft_work(n: int, t: int, n_fft: int, n_freqs: int, n_mels: int,
     flops = (t * 2.5 * n_fft * math.log2(n_fft) + 4 * t * n_freqs
              + 2 * t * fb_nnz)
     return flops, 4 * (n + n_freqs * n_mels + t * n_mels)
+
+
+def gru_backward_work(t: int, h: int, b: int):
+    """The gradient of one bidirectional layer over b rows of t steps: per
+    direction three products of 2 b t H 3H (hp recomputed from h, dh Wᵀ,
+    dW); x, the output, its gradient, W and b in, dx, dW and db out, all
+    float32 (the kernel's gradients are float32 in both types)."""
+    g = 3 * h
+    flops = 2 * 3 * 2 * b * t * h * g
+    return flops, 2 * 4 * (2 * b * t * g + 2 * b * t * h + 2 * h * g + 2 * g)
 
 
 def gru_work(t: int, h: int, w_size: int, directions: int = 2):
@@ -1369,27 +1398,35 @@ def phase_gru_path(device):
 
 
 def phase_gru_backward(device):
-    """K6 under grad (``kernels.gru.GruBidir``) at the trainer's shape, H =
-    256, B = 2, T = 301, and at H = 1, T = 5, both types: the gradients of
-    both directions' projections, W and b against autograd through the
-    plain loop on the card; the backward timed against ``nn.GRU``'s (cuDNN)
-    on the same weights, whose backward also runs its input projection's.
-    Returns {dtype: {"ms", "library_ms", "err"}} of one launch's backward
-    at the trainer's shape."""
+    """K6 under grad (``kernels.gru.GruBidir``) at GRU_BACKWARD_SHAPES, both
+    types: one forward and one backward launch a call; the backward
+    kernel's gradients of both directions' projections, W and b against
+    its plain version (``gru_bidir_backward`` on the kernel's states) and
+    against autograd through the plain loop on the card. At the trainer's
+    shape the backward (the kernel and its products) is timed against the
+    plain version and ``nn.GRU``'s backward (cuDNN) on the same weights,
+    whose backward also runs its input projection's; the kernel alone by
+    the profiler's device time. Returns {dtype: {...}} of one launch's
+    backward at the trainer's shape."""
     import torch
     from voicefixer_tpu_torch import kernels
-    from voicefixer_tpu_torch.config import DEFAULT_CONFIG as C
-    from voicefixer_tpu_torch.kernels.gru import (gru_bidir_cat,
+    from voicefixer_tpu_torch.kernels import build
+    from voicefixer_tpu_torch.kernels.gru import (gru_bidir_backward,
+                                                  gru_bidir_cat,
                                                   gru_bidir_reference)
     from voicefixer_tpu_torch.ops.precision import tf32_off
-    log("== K6 backward: GruBidir against autograd through the plain loop")
-    h0 = C.denoiser.base_width
+    log("== K6 backward: the kernel against its plain version and autograd "
+        "through the plain loop")
+    wide = build.load("gru_bidir").vf_gru_backward_wide_clusters()
+    log(f"  the card runs {wide} clusters of 16 blocks of the float32 "
+        f"backward at once: a launch of 2 B clusters takes clusters of 16 "
+        f"up to B = {wide // 2}, of 8 beyond")
     gen = torch.Generator().manual_seed(SEED + 4)
     res = {}
     with tf32_off():
         for dtype in ("float32", "bfloat16"):
             mm = getattr(torch, dtype)
-            for h, t, b in ((h0, TRAIN_FRAMES, TRAIN_BATCH), (1, 5, 2)):
+            for h, t, b in GRU_BACKWARD_SHAPES:
                 bound = h ** -0.5
                 u = lambda *s: ((torch.rand(s, generator=gen) * 2 - 1)  # noqa: E731
                                 * bound).to(device)
@@ -1409,36 +1446,47 @@ def phase_gru_backward(device):
                 gout = torch.randn(tuple(y.shape), generator=gen).to(device)
                 got = torch.autograd.grad(y, args, gout, retain_graph=True)
                 torch.cuda.synchronize()
-                if kernels.launches["gru_bidir"] != 1:
-                    raise AssertionError(f"K6 under grad: launches "
-                                         f"{kernels.launches}")
+                counts = dict(kernels.launches)
+                if counts["gru_bidir"] != 1 or \
+                        counts["gru_bidir_backward"] != 1:
+                    raise AssertionError(f"K6 under grad: launches {counts}")
+                saved = [a.detach() for a in args] + [y.detach()]
+                with torch.no_grad():
+                    plain = gru_bidir_backward(gout, *saved, mm)
                 ref = torch.autograd.grad(torch.cat(gru_bidir_reference(
                     *args, matmul_dtype=mm), -1), args, gout)
-                errs = []
-                for name, a, r in zip(("xf", "xb", "w_f", "w_b", "b_f",
-                                       "b_b"), got, ref):
+                errs, abs_err = [], 0.0
+                for name, a, p, r in zip(("xf", "xb", "w_f", "w_b", "b_f",
+                                          "b_b"), got, plain, ref):
                     if not bool(torch.isfinite(a).all()):
                         raise AssertionError(f"K6 backward {name}: "
                                              "non-finite")
-                    errs.append(float((a - r).abs().max())
-                                / max(float(r.abs().max()), 1e-30))
+                    abs_err = max(abs_err, float((a - p).abs().max()))
+                    errs.append([float((a - v).abs().max())
+                                 / max(float(v.abs().max()), 1e-30)
+                                 for v in (p, r)])
                 log(f"  K6 backward {dtype} H={h} T={t} B={b}: max |err| / "
                     f"max |ref| per gradient (xf, xb, w_f, w_b, b_f, b_b) "
-                    + ", ".join(f"{e:.2e}" for e in errs)
+                    "against the plain version "
+                    + ", ".join(f"{e[0]:.2e}" for e in errs)
+                    + "; against autograd through the plain loop "
+                    + ", ".join(f"{e[1]:.2e}" for e in errs)
                     + f" (tol {GRAD_TOL[dtype]:.1e})")
-                if max(errs) > GRAD_TOL[dtype]:
-                    raise AssertionError("K6's backward disagrees with "
-                                         "autograd through the plain loop")
-                if h != h0:
+                if max(max(e) for e in errs) > GRAD_TOL[dtype]:
+                    raise AssertionError("K6's backward kernel disagrees "
+                                         "with its plain version or autograd "
+                                         "through the plain loop")
+                if (h, t, b) != GRU_BACKWARD_SHAPES[0]:
                     continue
                 bwd = lambda: torch.autograd.grad(  # noqa: E731
                     y, args, gout, retain_graph=True)
-                ms = cuda_ms(bwd, 3)
+                ms = cuda_ms(bwd, 20, warmup=2)
+                dev_ms = device_ms(bwd, 10, "K6 backward", per_call=1)
                 fwd_ms = cuda_ms(lambda: gru_bidir_cat(
-                    *args, matmul_dtype=mm), 3)
-                plain_ms = cuda_ms(lambda: torch.autograd.grad(
-                    torch.cat(gru_bidir_reference(*args, matmul_dtype=mm),
-                              -1), args, gout), 1, warmup=0)
+                    *args, matmul_dtype=mm), 10)
+                with torch.no_grad():
+                    plain_ms = cuda_ms(lambda: gru_bidir_backward(
+                        gout, *saved, mm), 3)
                 lib = torch.nn.GRU(2 * h, h, batch_first=True,
                                    bidirectional=True).to(device=device,
                                                           dtype=mm)
@@ -1453,15 +1501,68 @@ def phase_gru_backward(device):
                 g_lib = gout.to(mm)
                 lib_args = [x_lib] + list(lib.parameters())
                 lib_ms = cuda_ms(lambda: torch.autograd.grad(
-                    y_lib, lib_args, g_lib, retain_graph=True), 3)
+                    y_lib, lib_args, g_lib, retain_graph=True), 10)
+                flops, nbytes = gru_backward_work(t, h, b)
+                bnd, by = bound_ms(nbytes, flops, PEAK_FP32
+                                   if dtype == "float32" else PEAK_BF16)
                 log(f"  K6 backward {dtype} [{b}, {t}, {3 * h}]: "
-                    f"{ms:.3f} ms a launch ({ms / t * 1e3:.2f} us a step; "
-                    f"the forward under grad {fwd_ms:.3f} ms), autograd "
-                    f"through the plain loop {plain_ms:.1f} ms, nn.GRU's "
-                    f"backward {lib_ms:.3f} ms ({ms / lib_ms:.2f}x)")
-                res[dtype] = {"ms": ms, "library_ms": lib_ms,
-                              "err": max(errs)}
+                    f"{ms:.3f} ms a launch by events ({ms / t * 1e3:.2f} us "
+                    f"a step; the kernel alone {dev_ms:.3f} ms by device "
+                    f"time, {dev_ms / t * 1e3:.2f} us a step; the forward "
+                    f"under grad {fwd_ms:.3f} ms), the plain version "
+                    f"{plain_ms:.2f} ms, nn.GRU's backward {lib_ms:.3f} ms "
+                    f"({ms / lib_ms:.2f}x); bound {bnd:.4f} ms ({by})")
+                res[dtype] = {"ms": ms, "device_ms": dev_ms,
+                              "plain_ms": plain_ms, "library_ms": lib_ms,
+                              "err": abs_err, "bound_ms": bnd,
+                              "bound_by": by}
     return res
+
+
+def phase_long_input(vf, device):
+    """``restore_inmem`` of LONG_SEGMENTS segments of 30 s at full width in
+    production: more rows than one call takes (a call of 26 full-width
+    rows raises in the post-conv's 32-bit reflection pad), so the rows go
+    in equal calls of at most ``rows_per_call`` (one stft_mel launch a
+    call), and the output is held to the segments restored one call each:
+    the same length, finite, at an SNR of at least SNR_FLOOR_DB."""
+    import numpy as np
+    import torch
+    from voicefixer_tpu_torch import kernels
+    from voicefixer_tpu_torch.ops.precision import precision
+    from voicefixer_tpu_torch.parallel import inference
+    seg = vf.config.pipeline.seg_length
+    log(f"== a long input: restore_inmem of {LONG_SEGMENTS} segments of "
+        f"{seg / vf.config.pipeline.sample_rate:.0f} s, production")
+    wav = (0.1 * np.random.default_rng(SEED + 9).standard_normal(
+        LONG_SEGMENTS * seg)).astype(np.float32)
+    with precision("production"):
+        cap = inference.rows_per_call(vf, seg)
+        calls = math.ceil(LONG_SEGMENTS / cap)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = vf.restore_inmem(wav)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = kernels.launches["stft_mel"]
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        ref = np.concatenate([vf.restore_inmem(wav[i: i + seg])
+                              for i in range(0, len(wav), seg)])
+        one_by_one = time.perf_counter() - t0
+    if got.shape != ref.shape or not np.isfinite(got).all():
+        raise AssertionError(f"long input: shape {got.shape} / {ref.shape} "
+                             "or not finite")
+    snr = _snr_db(got, ref)
+    log(f"  {cap} rows a call, {launched} calls (want {calls}), "
+        f"{wall:.2f} s, peak allocated {peak / 2 ** 30:.1f} GiB; one "
+        f"segment a call {one_by_one:.2f} s; SNR against it {snr:.2f} dB "
+        f"(floor {SNR_FLOOR_DB}), max abs diff "
+        f"{float(np.abs(got - ref).max()):.3e}")
+    if launched != calls or cap >= LONG_SEGMENTS or snr < SNR_FLOOR_DB:
+        raise AssertionError("restore_inmem over the row cap")
 
 
 def phase_mode2_path(vf, wav, outs, device):
@@ -1537,8 +1638,8 @@ def phase_trainer(device):
     SEED, WAV pairs written to a temporary directory from a numpy seed and
     read by ``train.data.PairedDataset`` (batches of TRAIN_BATCH x
     TRAIN_SECONDS), ``reference_optimizer(warmup_steps=1)``. TRAIN_STEPS
-    steps through ``make_train_step``, each with gru_bidir launched 4 times
-    and nothing else; step 1's loss and gradients against the same step
+    steps through ``make_train_step``, each with gru_bidir and its backward
+    launched 4 times each and nothing else; step 1's loss and gradients against the same step
     with the GRU on its plain version; the first update (lr 0) leaves the
     parameters, the second moves them. Then TRAIN_TIMED steps timed by
     CUDA events, split into forward, backward and optimizer, and the peak
@@ -1587,7 +1688,7 @@ def phase_trainer(device):
     p0 = [p.detach().clone() for p in state.leaves()]
     gen = torch.Generator(device).manual_seed(SEED)
     want = dict.fromkeys(KERNELS, 0)
-    want["gru_bidir"] = 4
+    want["gru_bidir"] = want["gru_bidir_backward"] = 4
     prev = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
@@ -2096,6 +2197,7 @@ def _kernel_group(name: str) -> str:
     # (K3, K4's and K7's) of csrc/resstack_wgmma.cu in bfloat16 and of
     # csrc/resstack_f32.cu in float32
     for key, group in (("stft_mel", "K5 stft_mel"),
+                       ("gru_bidir_backward", "K6 backward"),
                        ("gru_bidir", "K6 gru_bidir"),
                        ("gru_seq", "K8 gru_seq"),
                        ("conv_block_", K9_GROUP),
@@ -3235,8 +3337,9 @@ def main() -> int:
     gru_bwd = phase_gru_backward(device)
     phase_mode2_path(vf, wav, outs, device)
     phase_vocoder_hook(vf, wav, device)
+    phase_long_input(vf, device)
     del vf, outs
-    phase_trainer(device)
+    train_counts, _ = phase_trainer(device)
     phase_process_group(device)
     phase_small_reference(device)
     phase_transforms(device)
@@ -3281,16 +3384,24 @@ def main() -> int:
                 record[-1]["device_ms"] = total("dev_ms")
                 if rs[0]["lib_dev_ms"] is not None:
                     record[-1]["library_device_ms"] = total("lib_dev_ms")
-            if name == "gru_bidir":  # per trainer step: 4 launches' backward
-                record[-1]["backward_ms"] = 4 * gru_bwd[dtype]["ms"]
-                record[-1]["library_backward_ms"] = \
-                    4 * gru_bwd[dtype]["library_ms"]
+    for dtype in ("float32", "bfloat16"):  # per trainer step: 4 launches
+        r = gru_bwd[dtype]
+        record.append({
+            "name": f"gru_bidir_backward:{dtype}", "route": "cuda",
+            "source": SOURCES["gru_bidir_backward"],
+            "replaces": REPLACES["gru_bidir_backward"],
+            "launches": train_counts["gru_bidir_backward"],
+            "max_abs_err": r["err"], "ms": 4 * r["ms"],
+            "plain_ms": 4 * r["plain_ms"], "bound_ms": 4 * r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": 4 * r["library_ms"],
+            "device_ms": 4 * r["device_ms"]})
     log(f"== done in {time.perf_counter() - t_start:.1f} s; times are per "
         "30 s chunk (B=1), summed over the launches that the kernel's path "
         "makes (the default path; res_stream: the sharded path; "
         "conv_block_res: the conv-block path; gru_seq: the GRU path); "
-        "gru_bidir's backward_ms and library_backward_ms per trainer step "
-        f"(4 launches at B={TRAIN_BATCH}, T={TRAIN_FRAMES})")
+        "gru_bidir_backward per trainer step (4 launches at "
+        f"B={TRAIN_BATCH}, T={TRAIN_FRAMES}; launches from the trainer's "
+        "step, device_ms the kernel alone)")
     print(json.dumps({"kernels": record}))
     print(card)
     print(json.dumps({"ok": True, "device": {

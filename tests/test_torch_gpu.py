@@ -773,18 +773,24 @@ def grad_error(got, ref):
 # loop reads the loop's own: their gradients differ by what the forward
 # states differ by (1e-5 in float32; in bfloat16 an ulp of h, 2^-8, now
 # and then), carried through the reverse recurrence. Held relative to the
-# gradient's largest element: 1e-4 in float32, 2^-6 in bfloat16.
+# gradient's largest element: 1e-4 in float32, 2^-6 in bfloat16. The same
+# budget holds the backward kernel to its plain version on the same
+# states, where only the order of float32 sums differs.
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 2 ** -6}
 
 
 @pytest.mark.parametrize("mm", ["float32", "bfloat16"])
-@pytest.mark.parametrize("hidden,t,b", [(256, 301, 2), (1, 5, 2)])
+@pytest.mark.parametrize("hidden,t,b", [(256, 301, 2), (1, 5, 2),
+                                        (16, 17, 9)])
 def test_gru_bidir_backward_kernel(cuda, hidden, t, b, mm):
-    """K6 under grad: one launch through ``GruBidir`` (the trainer's H and
-    3 s of frames, and H = 1), its gradients for the projections, W and b
-    of both directions against autograd through the plain loop on the
-    card."""
-    from voicefixer_tpu_torch.kernels.gru import gru_bidir_cat
+    """K6 under grad: one forward and one backward launch through
+    ``GruBidir`` (the trainer's H and 3 s of frames, H = 1, and H = 16 at
+    a batch that takes clusters of 8), its gradients for the projections,
+    W and b of both directions against the plain ``gru_bidir_backward`` on
+    the kernel's states and against autograd through the plain loop on
+    the card."""
+    from voicefixer_tpu_torch.kernels.gru import (gru_bidir_backward,
+                                                  gru_bidir_cat)
     gen = torch.Generator().manual_seed(13)
     g = 3 * hidden
     scales = (1.0, 1.0, 0.1, 0.1, 0.1, 0.1)
@@ -793,16 +799,24 @@ def test_gru_bidir_backward_kernel(cuda, hidden, t, b, mm):
             for s, c in zip(shapes, scales)]
     dt = getattr(torch, mm)
     n0 = kernels.launches["gru_bidir"]
+    nb = kernels.launches["gru_bidir_backward"]
     out = gru_bidir_cat(*args, matmul_dtype=dt)
     assert kernels.launches["gru_bidir"] == n0 + 1
     gout = _randn(gen, tuple(out.shape)).to(cuda)
     got = torch.autograd.grad(out, args, gout)
-    assert kernels.launches["gru_bidir"] == n0 + 1  # the backward: torch ops
+    torch.cuda.synchronize()
+    assert kernels.launches["gru_bidir"] == n0 + 1
+    assert kernels.launches["gru_bidir_backward"] == nb + 1
+    with torch.no_grad(), tf32_off():
+        plain = gru_bidir_backward(gout, *(a.detach() for a in args),
+                                   out.detach(), dt)
     ref = torch.autograd.grad(
         torch.cat(gru_bidir_reference(*args, matmul_dtype=dt), -1), args,
         gout)
-    for name, a, r in zip(("xf", "xb", "w_f", "w_b", "b_f", "b_b"), got, ref):
+    for name, a, p, r in zip(("xf", "xb", "w_f", "w_b", "b_f", "b_b"), got,
+                             plain, ref):
         assert a.shape == r.shape and bool(torch.isfinite(a).all()), name
+        assert grad_error(a, p) <= GRAD_TOL[mm], (name, grad_error(a, p))
         assert grad_error(a, r) <= GRAD_TOL[mm], (name, grad_error(a, r))
 
 

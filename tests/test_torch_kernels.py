@@ -463,6 +463,206 @@ def test_gru_cluster_model_matches_pallas(h, t, reverse, mm, cluster):
                                rtol=tol, atol=tol)
 
 
+def _packed_rows(w, mm, kmax):
+    """The rows of W (``w`` [H, 3H]) as the backward kernel's lanes hold
+    them, unpacked: [H, 3 * kmax], gate g's K values at g * kmax + k, zero
+    past H. Under bfloat16 the lanes keep K = 4 c + 2 p and + 1 in one
+    32-bit word (the even K in the low half), read back by a shift or a
+    mask, as ``Slice<__nv_bfloat16>::get``."""
+    h_dim = w.shape[0]
+    rows = torch.zeros((h_dim, 3, kmax))
+    rows[:, :, :h_dim] = w.view(h_dim, 3, h_dim)
+    if mm == torch.float32:
+        return rows.view(h_dim, -1)
+    bits = (rows.to(torch.bfloat16).view(torch.int16).numpy()
+            .astype(np.uint32) & 0xFFFF)
+    words = bits[..., 0::2] | (bits[..., 1::2] << 16)
+    out = np.empty(bits.shape, dtype=np.uint32)
+    out[..., 0::2] = (words << 16) & 0xFFFFFFFF
+    out[..., 1::2] = words & 0xFFFF0000
+    got = torch.from_numpy(out.view(np.float32))
+    assert torch.equal(got, rows.to(torch.bfloat16).float())
+    return got.reshape(h_dim, -1)
+
+
+def _gru_backward_cluster_model(x, w, bias, h, grad, reverse, mm, cluster):
+    """One direction of csrc/gru_bidir.cu's backward, replayed in plain
+    torch: x [B, T, 3H], w [H, 3H], the direction's states h and their
+    gradient grad [B, T, H] -> (dx, dW, db). hp = h_{t-1} W + b, dW and db
+    are the wrapper's float32 products on h and W rounded to ``mm``; the
+    walk is the kernel's: steps from the direction's last, units per block
+    as the forward's, each warp's three 16-byte pushes of dhp into the
+    [3][MAX_HIDDEN] buffers (their parities and transaction bytes), the
+    input ring's slots, lane ks of a unit summing dhp . W[u] at K = g H +
+    32 i + 4 ks + j over the packed rows, the lanes combined in the
+    shuffle order (xor 1, 2, 4). Runs none of the CUDA code; asserts the
+    schedule's invariants as it goes."""
+    k = _gru_cu_constants()
+    assert cluster in (k["CLUSTER_WIDE"], k["CLUSTER_NARROW"])
+    kmax, upw, bring, hbuf = k["MAX_HIDDEN"], k["UPW"], k["BRING"], k["HBUF"]
+    bsz, t_total, g = x.shape
+    h_dim = g // 3
+    per = -(-h_dim // cluster)
+    u_blk = -(-per // upw) * upw
+    assert u_blk <= kmax // cluster
+    # each warp that owns a unit pushes its UPW units' columns of each gate
+    # as 16 bytes to every block that owns one: every column once a step
+    slots = torch.zeros(3 * kmax, dtype=torch.int64)
+    pushes = []
+    for c in range(cluster):
+        nu = max(0, min(u_blk, h_dim - c * u_blk))
+        for wp in range(-(-u_blk // upw)):
+            if max(0, min(upw, nu - wp * upw)):
+                first = c * u_blk + wp * upw
+                for gate in range(3):
+                    at = gate * kmax + first
+                    assert at % 4 == 0 and first + upw <= kmax
+                    slots[at:at + upw] += 1
+                    pushes.append(at)
+    h_pad = -(-h_dim // upw) * upw
+    for gate in range(3):
+        assert slots[gate * kmax:gate * kmax + h_pad].eq(1).all()
+        assert slots[gate * kmax + h_pad:(gate + 1) * kmax].eq(0).all()
+    fill_bytes = 16 * len(pushes)
+    assert fill_bytes == 3 * h_pad * 4
+    ks_k = [[gate * kmax + 32 * i + 4 * ks + j for gate in range(3)
+             for i in range(kmax // 32) for j in range(4)] for ks in range(8)]
+    assert sorted(sum(ks_k, [])) == list(range(3 * kmax))
+    rows = _packed_rows(w, mm, kmax)
+
+    wq = w.to(mm).float()
+    zero = h.new_zeros((bsz, 1, h_dim))
+    h_prev = (torch.cat([h[:, 1:], zero], 1) if reverse
+              else torch.cat([zero, h[:, :-1]], 1))
+    hq = h_prev.to(mm).float()
+    hp = hq @ wq + bias
+
+    def coef(t):
+        xr, xz, xn = x[:, t].split(h_dim, -1)
+        hr, hz, hn = hp[:, t].split(h_dim, -1)
+        r, z = torch.sigmoid(xr + hr), torch.sigmoid(xz + hz)
+        n = torch.tanh(xn + r * hn)
+        c_n = (1 - z) * (1 - n * n)
+        return (c_n * hn * r * (1 - r), (h_prev[:, t] - n) * z * (1 - z),
+                c_n * r, c_n, z)
+
+    dx = x.new_zeros(x.shape)
+    dhp = x.new_zeros(x.shape)
+    ring = {d % bring: d for d in range(min(bring, t_total))}
+    fills = [0] * hbuf
+    step_t = [i if reverse else t_total - 1 - i for i in range(t_total)]
+    assert ring[0] == 0
+    cur = coef(step_t[0])
+    if bring < t_total:
+        ring[0] = bring
+    zdh = carry = 0.0
+    for i, t in enumerate(step_t):
+        cr, cz, cnr, cn, z = cur
+        dh = (grad[:, t] + zdh) + carry
+        q = torch.stack([dh * cr, dh * cz, dh * cnr], 1)    # [B, 3, H]
+        dx[:, t] = torch.cat([q[:, 0], q[:, 1], dh * cn], -1)
+        dhp[:, t] = q.reshape(bsz, g)
+        if i + 1 == t_total:
+            break
+        buf = torch.zeros((bsz, 3 * kmax))
+        qp = torch.zeros((bsz, 3, kmax))
+        qp[:, :, :h_dim] = q
+        for at in pushes:
+            buf[:, at:at + upw] = qp.view(bsz, -1)[:, at:at + upw]
+        assert fills[i % hbuf] == i // hbuf
+        fills[i % hbuf] += 1
+        assert ring[(i + 1) % bring] == i + 1
+        cur = coef(step_t[i + 1])
+        if i + 1 + bring < t_total:
+            ring[(i + 1) % bring] = i + 1 + bring
+        part = [buf[:, idx] @ rows[:, idx].T for idx in ks_k]
+        for off in (1, 2, 4):
+            part = [part[j] + part[j ^ off] for j in range(8)]
+        zdh, carry = dh * z, part[0]
+    assert sum(fills) == t_total - 1
+    dw = hq.reshape(-1, h_dim).T @ dhp.reshape(-1, g)
+    return dx, dw, dhp.sum(dim=(0, 1))
+
+
+def _jax_direction(x, w, bias, reverse, mm):
+    """One direction of the recurrence in JAX, [B, T, 3H] projections ->
+    [B, T, H]. float32: ``ops.gru.gru_single_direction`` of the JAX package
+    with an identity input projection (exact), so that its gradient for
+    x is the projections'. bfloat16: that function's scan step with h and
+    W entering the product rounded to bfloat16 and the rounding's gradient
+    the identity, the port's plain version's arithmetic (the JAX package's
+    scan has no bfloat16 product)."""
+    import jax
+    from jax import lax
+    from voicefixer_tpu.ops import gru as jax_gru
+    g = x.shape[-1]
+    if mm == "float32":
+        params = {"w_ih": jnp.eye(g, dtype=jnp.float32),
+                  "b_ih": jnp.zeros((g,), jnp.float32),
+                  "w_hh": w.T, "b_hh": bias}
+        return jax_gru.gru_single_direction(x, params, reverse=reverse)
+
+    def r16(v):
+        return v + lax.stop_gradient(
+            v.astype(jnp.bfloat16).astype(jnp.float32) - v)
+
+    wq = r16(w)
+
+    def step(h, xp):
+        hp = jnp.matmul(r16(h), wq) + bias
+        xr, xz, xn = jnp.split(xp, 3, axis=-1)
+        hr, hz, hn = jnp.split(hp, 3, axis=-1)
+        r = jax.nn.sigmoid(xr + hr)
+        z = jax.nn.sigmoid(xz + hz)
+        n = jnp.tanh(xn + r * hn)
+        h_new = (1.0 - z) * n + z * h
+        return h_new, h_new
+
+    h0 = jnp.zeros((x.shape[0], g // 3), jnp.float32)
+    _, ys = lax.scan(step, h0, jnp.swapaxes(x, 0, 1), reverse=reverse)
+    return jnp.swapaxes(ys, 0, 1)
+
+
+@pytest.mark.parametrize("h,t,mm,cluster", [
+    (h, t, mm, 16) for h in (1, 8, 32) for t in (1, 5, 17)
+    for mm in ("float32", "bfloat16")] + [
+    (32, 17, "float32", 8), (32, 17, "bfloat16", 8), (8, 5, "bfloat16", 8)])
+def test_gru_backward_cluster_model(h, t, mm, cluster):
+    """The backward kernel's layout and order (``_gru_backward_cluster_
+    model``) for both directions, on the states of the JAX forward, against
+    ``jax.vjp`` of the JAX recurrence (``_jax_direction``) and against the
+    plain ``gru_bidir_backward`` on the same states: the gradients of the
+    projections, W and b, rtol 1e-4, atol 1e-6 (float32 sums in another
+    order; in bfloat16 both sides round the same h and W)."""
+    import jax
+    from voicefixer_tpu_torch.kernels.gru import gru_bidir_backward
+    rng = np.random.default_rng(100 + h + t)
+    b = 2
+    xs = [_rand(rng, (b, t, 3 * h)) for _ in range(2)]
+    ws = [_rand(rng, (h, 3 * h), 0.5) for _ in range(2)]
+    bs = [_rand(rng, (3 * h,), 0.3) for _ in range(2)]
+    gs = [_rand(rng, (b, t, h)) for _ in range(2)]
+    dt = getattr(torch, mm)
+    outs, refs, got = [], [], []
+    for d in range(2):
+        out, vjp = jax.vjp(lambda *a, d=d: _jax_direction(*a, d == 1, mm),
+                           *map(jnp.asarray, (xs[d], ws[d], bs[d])))
+        outs.append(np.array(out))
+        refs.append([np.asarray(v) for v in vjp(jnp.asarray(gs[d]))])
+        got.append(_gru_backward_cluster_model(
+            *map(torch.from_numpy, (xs[d], ws[d], bs[d], outs[d], gs[d])),
+            d == 1, dt, cluster))
+    plain = gru_bidir_backward(
+        torch.from_numpy(np.concatenate(gs, -1)),
+        *map(torch.from_numpy, xs + ws + bs),
+        torch.from_numpy(np.concatenate(outs, -1)), dt)
+    for d in range(2):
+        for m, r, p in zip(got[d], refs[d], plain[d::2]):
+            np.testing.assert_allclose(m.numpy(), r, rtol=1e-4, atol=1e-6)
+            np.testing.assert_allclose(m.numpy(), p.numpy(), rtol=1e-4,
+                                       atol=1e-6)
+
+
 def _banks(params, conv):
     return [conv(np.stack([p[c][k] for p in params]))
             for c, k in (("c1", "w"), ("c1", "b"), ("c2", "w"), ("c2", "b"))]
@@ -2124,6 +2324,40 @@ def test_gru_bidir_launches_inside_its_function(monkeypatch):
         _Launched()))
     with pytest.raises(_Launched):
         _guard_cases()["gru_bidir"](lambda t: t.requires_grad_())
+
+
+def test_gru_bidir_backward_dispatch(monkeypatch):
+    """``GruBidir.backward`` takes the plain ``gru_bidir_backward`` for CPU
+    tensors (the same gradients) and, for CUDA ones (``on_cpu`` patched),
+    goes to the backward kernel's launch (the library load raises
+    ``_Launched``) without calling the plain version; there the wrapper
+    raises under grad mode (double backward), before the launch."""
+    from voicefixer_tpu_torch import kernels
+    from voicefixer_tpu_torch.kernels import build
+    from voicefixer_tpu_torch.kernels import gru as kgru
+    args = _gru_args(np.random.default_rng(5), 2, 4, 3)
+    out = kgru.gru_bidir_cat(*args)
+    g = torch.tensor(_rand(np.random.default_rng(6), tuple(out.shape)))
+    ctx = type("Ctx", (), {"saved_tensors": tuple(
+        a.detach() for a in (*args, out)), "matmul_dtype": torch.float32})
+    with torch.no_grad():
+        got = kgru.GruBidir.backward(ctx, g)
+        want = kgru.gru_bidir_backward(g, *ctx.saved_tensors)
+    assert got[-1] is None and len(got) == 7
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    monkeypatch.setattr(kernels, "on_cpu", lambda *a: False)
+    monkeypatch.setattr(build, "load", lambda *a: (_ for _ in ()).throw(
+        _Launched()))
+    monkeypatch.setattr(kgru, "gru_bidir_backward", lambda *a: (
+        _ for _ in ()).throw(AssertionError("the plain version ran")))
+    n0 = kernels.launches["gru_bidir_backward"]
+    with torch.no_grad(), pytest.raises(_Launched):
+        kgru.GruBidir.backward(ctx, g)
+    with pytest.raises(RuntimeError, match="^gru_bidir_backward: the CUDA "
+                       "kernel has no backward"):
+        kgru.GruBidir.backward(ctx, g.requires_grad_())
+    assert kernels.launches["gru_bidir_backward"] == n0
 
 
 def test_check_no_grad():

@@ -362,6 +362,53 @@ def test_restore_wavs_row_cap(tiny_vf, monkeypatch, max_batch, max_rows,
         np.testing.assert_allclose(g, w, rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("mode,overlap,n", [
+    (0, 0.0, 4 * SEG + SEG // 2), (1, 0.0, 4 * SEG + SEG // 2),
+    (0, 0.25, 4 * SEG)])
+def test_restore_inmem_row_cap(tiny_vf, monkeypatch, mode, overlap, n):
+    """``restore_inmem`` of five segments (the last padded) in mode 0 and
+    mode 1, and of five overlapping windows, with a card's cap of 2 rows a
+    call: every call takes at most 2 rows, in equal calls, and the output
+    is the one call's within 1e-6 (the CPU library blocks a product by
+    its row count, as in ``test_restore_wavs_row_cap``)."""
+    from voicefixer_tpu_torch.parallel import inference
+    wav = (0.1 * np.random.default_rng(1).standard_normal(n)).astype(
+        np.float32)
+    whole = tiny_vf.restore_inmem(wav, mode=mode,
+                                  chunk_overlap_seconds=overlap)
+    seen = []
+    run = tiny_vf._restore_batch_device
+
+    def counted(batch, *a, **k):
+        seen.append(batch.shape[0])
+        return run(batch, *a, **k)
+
+    monkeypatch.setattr(tiny_vf, "_restore_batch_device", counted)
+    monkeypatch.setattr(inference, "rows_per_call", lambda *a: 2)
+    got = tiny_vf.restore_inmem(wav, mode=mode,
+                                chunk_overlap_seconds=overlap)
+    assert sum(seen) == 5 and seen == [2, 2, 1]
+    assert got.shape == whole.shape
+    np.testing.assert_allclose(got, whole, rtol=0, atol=1e-6)
+
+
+def test_restore_inmem_row_cap_across_model_ranks(tmp_path):
+    """Two segments on a (1, 2) mesh (tensor parallel) whose ranks see caps
+    of 1 and 2 rows a call: both take the least, one row a call, so their
+    collectives stay paired (a rank taking 2 would leave the other waiting
+    for its second call), and the output is the one call's within 1e-6."""
+    ja, jv = jax_param_trees(3, jax_small_tp())
+    _save_params(tmp_path, ja, jv)
+    wav = (np.random.default_rng(2).standard_normal(SEG + 4410)
+           * 0.1).astype(np.float32)
+    np.savez(tmp_path / "wav.npz", wav=wav)
+    for out in run_ranks("tp_restore_inmem", 2, str(tmp_path), timeout=120):
+        assert list(out["calls"]) == [1, 1]
+        assert out["split"].shape == out["whole"].shape == wav.shape
+        np.testing.assert_allclose(out["split"], out["whole"], rtol=0,
+                                   atol=1e-6)
+
+
 def test_row_bytes_calibration(tiny_vf):
     """Full width: ROW_COPIES of the last activation is 1.42 GiB a 30 s
     row in parity and half that in production, above the 1.383 and 0.699

@@ -142,6 +142,32 @@ def case_tp_restore(d: str, argv: list) -> dict:
             "voc_shape": np.array(vf.vocoder_params["pre"]["w"].shape)}
 
 
+def case_tp_restore_inmem(d: str, argv: list) -> dict:
+    """restore_inmem on a (1, world) mesh at small_tp_config, in one call
+    (no cap on the CPU), then with ``rows_per_call`` patched to rank + 1
+    rows on each rank: the model group takes its least cap, so every rank
+    makes the same calls. Returns both outputs and the rows of each call
+    of the second."""
+    from voicefixer_tpu_torch.parallel import distributed, inference
+    from voicefixer_tpu_torch.parallel.mesh import make_mesh
+    vf = _vf(d, "small_tp", make_mesh(1, distributed.process_count()))
+    with np.load(os.path.join(d, "wav.npz")) as z:
+        wav = z["wav"]
+    whole = vf.restore_inmem(wav)
+    seen = []
+    run = vf._restore_batch_device
+
+    def counted(batch, *a, **k):
+        seen.append(batch.shape[0])
+        return run(batch, *a, **k)
+
+    vf._restore_batch_device = counted
+    rank = distributed.process_index()
+    inference.rows_per_call = lambda *a: rank + 1
+    return {"whole": whole, "split": vf.restore_inmem(wav),
+            "calls": np.array(seen)}
+
+
 def case_train(d: str, argv: list) -> dict:
     """Three steps of make_train_step on an (n_data, n_model) mesh at
     dropout 0, warm-up 1: the losses, and the averaged gradients and the
@@ -228,7 +254,8 @@ def case_bn_global(d: str, argv: list) -> dict:
 
 
 CASES = {"restore_wavs": case_restore_wavs, "sp": case_sp,
-         "tp_restore": case_tp_restore, "train": case_train,
+         "tp_restore": case_tp_restore,
+         "tp_restore_inmem": case_tp_restore_inmem, "train": case_train,
          "bn_global": case_bn_global}
 
 

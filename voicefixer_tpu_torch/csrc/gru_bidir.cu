@@ -42,6 +42,29 @@
 // vf_gru_bidir launches two clusters per batch row, one per direction
 // (blockIdx.z), writing both into one [B, T, 2H] output; vf_gru_seq launches
 // one, and is float32 only, as the TPU kernel is.
+//
+// vf_gru_bidir_backward is vf_gru_bidir's gradient, the serial part of
+// backpropagation through time (the plain version is kernels/gru.py::
+// gru_bidir_backward; the JAX package differentiates its lax.scan,
+// voicefixer_tpu/ops/gru.py, and has no kernel for it). Each direction walks
+// its forward steps from the last, with hp_t = h_{t-1} W + b from a matrix
+// product before the launch and h_{t-1} from the forward's output:
+//   c_n = (1 - z)(1 - n^2), c_r = c_n hp_n r (1 - r),
+//   c_z = (h_{t-1} - n) z (1 - z),
+//   dh_t = grad_t + dh_{t+1} z_{t+1} + dhp_{t+1} W^T   (K = 3H; dh_last = grad)
+//   dhp_t = dh_t [c_r, c_z, c_n r],  dx_t = dh_t [c_r, c_z, c_n].
+// dx_t and dhp_t go to memory; dW = H_prev^T dHP and db = sum dHP are
+// matrix products after the launch. Bound: a step's latency, as the
+// forward's, on the same clusters: block c owns U units; the 8 lanes of a
+// unit hold its row of W, K = g H + 32 i + 4 ks + j (the forward's slice
+// transposed, the same registers); each step every block needs dhp_t of all
+// 3H columns, so each warp gathers its UPW units' 3 UPW values and lane p
+// pushes them to block p as three 16-byte st.async onto its mbarrier: 3H
+// floats a step against the forward's H. Pushing dh_t (H floats) instead
+// would have every block read or recompute the coefficients of all H units
+// every step, 3H values from memory on the step's path. The gates and
+// coefficients of the next step are computed while the exchange is in
+// flight, from x, hp, h_{t-1} and grad copied BRING steps ahead by cp.async.
 
 #include <cooperative_groups.h>
 
@@ -63,6 +86,8 @@ constexpr int XRING = 32;       // steps of x projections copied ahead
 constexpr int MAX_HIDDEN = 256;
 constexpr int KI = MAX_HIDDEN / 32;   // float4 K chunks per lane and column
 constexpr int UPW = 4;                // units per warp, 8 lanes each
+constexpr int BRING = 16;       // backward: steps of inputs copied ahead
+constexpr int BCHAINS = 8;      // backward: accumulators of the K = 3H sum
 
 // a cluster of CL blocks: at most MAX_U units and THREADS threads a block
 template <int CL>
@@ -109,6 +134,22 @@ struct Slice<float> {
                            : 0.f;
         }
   }
+  // the backward's slice: row u of W at K = g H + 32 i + 4 ks + j
+  __device__ __forceinline__ void load_row(const float* src, int u, int ks,
+                                           int H, bool ok) {
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+#pragma unroll
+      for (int i = 0; i < KI; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int k = 32 * i + 4 * ks + j;
+          w[g][i][j] =
+              ok && k < H
+                  ? src[static_cast<long long>(u) * 3 * H + g * H + k]
+                  : 0.f;
+        }
+  }
   __device__ __forceinline__ float get(int g, int i, int j) const {
     return w[g][i][j];
   }
@@ -134,6 +175,26 @@ struct Slice<__nv_bfloat16> {
             if (ok && k < H)
               v |= static_cast<uint32_t>(__bfloat16_as_ushort(
                        src[static_cast<long long>(k) * 3 * H + col[g]]))
+                   << (16 * e);
+          }
+          w[g][i][p] = v;
+        }
+  }
+  __device__ __forceinline__ void load_row(const __nv_bfloat16* src, int u,
+                                           int ks, int H, bool ok) {
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+#pragma unroll
+      for (int i = 0; i < KI; ++i)
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          uint32_t v = 0;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int k = 32 * i + 4 * ks + 2 * p + e;
+            if (ok && k < H)
+              v |= static_cast<uint32_t>(__bfloat16_as_ushort(
+                       src[static_cast<long long>(u) * 3 * H + g * H + k]))
                    << (16 * e);
           }
           w[g][i][p] = v;
@@ -362,6 +423,235 @@ gru_seq_kernel(Dir d, int n_steps, int hidden) {
                            d.fwd != 0);
 }
 
+// ---------------------------------------------------------------- backward
+
+// this lane's partial sum of dhp . W[u, :] over its K values (the buffer
+// holds gate g's columns at g * MAX_HIDDEN)
+template <typename W>
+__device__ __forceinline__ float product_rows(const Slice<W>& ws,
+                                              const float* __restrict__ db,
+                                              int ks) {
+  float acc[BCHAINS];
+#pragma unroll
+  for (int c = 0; c < BCHAINS; ++c) acc[c] = 0.f;
+#pragma unroll
+  for (int g = 0; g < 3; ++g)
+#pragma unroll
+    for (int i = 0; i < KI; ++i) {
+      const float4 d4 = *reinterpret_cast<const float4*>(
+          db + g * MAX_HIDDEN + 32 * i + 4 * ks);
+      const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float& a = acc[(4 * (g * KI + i) + j) % BCHAINS];
+        a = fmaf(dv[j], ws.get(g, i, j), a);
+      }
+    }
+#pragma unroll
+  for (int w = BCHAINS / 2; w > 0; w /= 2)
+#pragma unroll
+    for (int c = 0; c < w; ++c) acc[c] += acc[c + w];
+  return acc[0];
+}
+
+// a unit's coefficients at one step, and the terms of its dh
+struct Coef {
+  float cr, cz, cnr, cn, z, grad;
+};
+
+// One direction of one batch row's gradient, run by the CL blocks of a
+// cluster. x, hp, dx, dhp: [n_steps, 3H]; w: [H, 3H]; hs (the forward's
+// states) and grad: row t at + t * stride.
+template <typename W, int CL>
+__device__ __forceinline__ void gru_direction_backward(
+    const float* __restrict__ x, const float* __restrict__ hp,
+    const W* __restrict__ w, const float* __restrict__ hs,
+    const float* __restrict__ grad, float* __restrict__ dx,
+    float* __restrict__ dhp, int stride, int n_steps, int hidden, bool fwd) {
+  // The dhp ring: buffer i % HBUF takes step i's pushes (step i handles
+  // t = T-1-i forward, t = i backward), gate g's columns at [g][...], the
+  // tail past `hidden` zero. Reuse and re-arming as the forward's h ring: a
+  // block pushes step i + HBUF only after it received all of step
+  // i + HBUF - 1, which every warp sends after its read of step i.
+  __shared__ __align__(16) float dbuf[HBUF][3][MAX_HIDDEN];
+  __shared__ __align__(8) uint64_t full[HBUF];
+  using L = Layout<CL>;
+  // step i's inputs of each local unit in slot i % BRING: x (3), hp (3),
+  // h_{t-1}, grad_t
+  __shared__ float ring[BRING][8][L::MAX_U];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int H = hidden, G = 3 * hidden;
+  const int U = L::units(H);
+  const int u0 = rank * U;
+  const int nu = max(0, min(U, H - u0));
+  const int n_fill = n_steps - 1;  // every step but the direction's first
+  const uint32_t bytes = 3 * ((H + UPW - 1) / UPW * UPW) * 4;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int ks = lane % 8;
+  const int lu = warp * UPW + lane / 8;
+  const int cw = max(0, min(UPW, nu - warp * UPW));
+  const bool ok = lane / 8 < cw;
+  const int u = u0 + lu;
+  const bool gate_lane = ok && ks == 0;
+
+  if (tid == 0) {
+    for (int b = 0; b < HBUF; ++b) hopper::mbar_init(&full[b], 1);
+    hopper::mbar_init_fence();
+    for (int j = 0; j < HBUF && j < n_fill; ++j)
+      hopper::mbar_arrive_expect_tx(&full[j], bytes);
+  }
+  for (int i = tid; i < HBUF * 3 * MAX_HIDDEN; i += blockDim.x)
+    (&dbuf[0][0][0])[i] = 0.f;
+
+  Slice<W> ws;
+  ws.load_row(w, u, ks, H, ok);
+
+  // the gate lane's copies of step i's inputs into its slot, one group
+  auto fetch = [&](int i) {
+    if (i < n_steps) {
+      const int t = fwd ? n_steps - 1 - i : i;
+      float* slot = &ring[i % BRING][0][lu];
+      const long long r = static_cast<long long>(t) * G + u;
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+        hopper::cp_async_4(slot + g * L::MAX_U, x + r + g * H);
+        hopper::cp_async_4(slot + (3 + g) * L::MAX_U, hp + r + g * H);
+      }
+      if (i + 1 < n_steps)  // h_{t-1}: the direction's previous state
+        hopper::cp_async_4(
+            slot + 6 * L::MAX_U,
+            hs + static_cast<long long>(fwd ? t - 1 : t + 1) * stride + u);
+      hopper::cp_async_4(slot + 7 * L::MAX_U,
+                         grad + static_cast<long long>(t) * stride + u);
+    }
+    hopper::cp_async_commit();
+  };
+  // step i's gates from its slot (in-flight groups: BRING - 1 at most)
+  auto coef = [&](int i) {
+    hopper::cp_async_wait_group<BRING - 1>();
+    const float* slot = &ring[i % BRING][0][lu];
+    const float hr = slot[3 * L::MAX_U], hz = slot[4 * L::MAX_U],
+                hn = slot[5 * L::MAX_U];
+    const float h_prev = i + 1 < n_steps ? slot[6 * L::MAX_U] : 0.f;
+    const float r = 1.f / (1.f + expf(-(slot[0] + hr)));
+    const float z = 1.f / (1.f + expf(-(slot[L::MAX_U] + hz)));
+    const float n = tanhf(slot[2 * L::MAX_U] + r * hn);
+    Coef c;
+    c.cn = (1.f - z) * (1.f - n * n);
+    c.cr = c.cn * hn * r * (1.f - r);
+    c.cz = (h_prev - n) * z * (1.f - z);
+    c.cnr = c.cn * r;
+    c.z = z;
+    c.grad = slot[7 * L::MAX_U];
+    return c;
+  };
+
+  if (gate_lane)
+    for (int d = 0; d < BRING; ++d) fetch(d);
+  // lane p pushes to block p; blocks that own no unit take no dhp
+  const bool pusher = lane < CL && H - lane * U > 0;
+  const uint32_t to = pusher ? lane : 0;
+  const uint32_t dst =
+      hopper::mapa_shared(&dbuf[0][0][warp * UPW], to) + u0 * 4;
+  const uint32_t dbar = hopper::mapa_shared(&full[0], to);
+  cluster.sync();  // barriers armed and buffers zero before any push
+
+  if (cw > 0) {
+    Coef cur = {};
+    if (gate_lane) {
+      cur = coef(0);
+      fetch(BRING);
+    }
+    float zdh = 0.f, carry = 0.f;  // dh_{t+1} z_{t+1}, dhp_{t+1} W^T
+    for (int i = 0; i < n_steps; ++i) {
+      const int t = fwd ? n_steps - 1 - i : i;
+      float dh = 0.f, q[3] = {0.f, 0.f, 0.f};
+      if (gate_lane) {
+        dh = (cur.grad + zdh) + carry;
+        q[0] = dh * cur.cr;
+        q[1] = dh * cur.cz;
+        q[2] = dh * cur.cnr;
+      }
+      const bool more = i + 1 < n_steps;
+      if (more) {
+        float qs[3][UPW];
+#pragma unroll
+        for (int g = 0; g < 3; ++g)
+#pragma unroll
+          for (int c = 0; c < UPW; ++c)
+            qs[g][c] = __shfl_sync(0xffffffffu, q[g], 8 * c);
+        if (pusher) {
+          const int nb = i % HBUF;
+#pragma unroll
+          for (int g = 0; g < 3; ++g)
+            hopper::st_async_v4_f32(
+                dst + (nb * 3 + g) * MAX_HIDDEN * 4, qs[g][0], qs[g][1],
+                qs[g][2], qs[g][3], dbar + nb * 8);
+        }
+      }
+      // off the exchange's path: the outputs, the next step's gates
+      Coef next = {};
+      if (gate_lane) {
+        const long long r = static_cast<long long>(t) * G + u;
+        dx[r] = q[0];
+        dx[r + H] = q[1];
+        dx[r + 2 * H] = dh * cur.cn;
+        dhp[r] = q[0];
+        dhp[r + H] = q[1];
+        dhp[r + 2 * H] = q[2];
+        if (more) {
+          next = coef(i + 1);
+          fetch(i + 1 + BRING);
+        }
+      }
+      if (more) {
+        hopper::mbar_wait_cluster(full + i % HBUF, (i / HBUF) & 1);
+        float p = product_rows<W>(ws, &dbuf[i % HBUF][0][0], ks);
+        p += __shfl_xor_sync(0xffffffffu, p, 1);
+        p += __shfl_xor_sync(0xffffffffu, p, 2);
+        p += __shfl_xor_sync(0xffffffffu, p, 4);
+        if (gate_lane) {
+          zdh = dh * cur.z;
+          carry = p;
+        }
+        if (tid == 0 && i + HBUF < n_fill)
+          hopper::mbar_arrive_expect_tx(full + i % HBUF, bytes);
+      }
+      cur = next;
+    }
+  }
+  cluster.sync();  // no block exits while a peer may still push into it
+}
+
+struct BDir {
+  const float* x;     // [batch, n_steps, 3H]
+  const float* hp;    // [batch, n_steps, 3H]: h_{t-1} W + b
+  const void* w;      // [H, 3H]
+  const float* h;     // state (b, t) at h + (b * n_steps + t) * stride
+  const float* grad;  // its gradient, the same layout
+  float* dx;          // [batch, n_steps, 3H]
+  float* dhp;         // [batch, n_steps, 3H]
+  int fwd;
+};
+
+template <typename W, int CL>
+__global__ void __launch_bounds__(Layout<CL>::THREADS, 1)
+gru_bidir_backward_kernel(BDir d0, BDir d1, int n_steps, int hidden,
+                          int stride) {
+  const BDir& d = blockIdx.z == 0 ? d0 : d1;
+  const long long row = static_cast<long long>(blockIdx.y) * n_steps;
+  const long long rg = row * 3 * hidden;
+  gru_direction_backward<W, CL>(d.x + rg, d.hp + rg,
+                                static_cast<const W*>(d.w),
+                                d.h + row * stride, d.grad + row * stride,
+                                d.dx + rg, d.dhp + rg, stride, n_steps,
+                                hidden, d.fwd != 0);
+}
+
 // clusters of CL blocks along x, clusters_y by clusters_z of them
 template <int CL>
 cudaLaunchConfig_t config(int clusters_y, int clusters_z, cudaStream_t stream,
@@ -448,6 +738,37 @@ extern "C" int vf_gru_bidir(const float* xf, const float* xb, const void* wf,
                 bwd, n_steps, hidden, 2 * hidden);
 }
 
+// The gradient of vf_gru_bidir's output, up to the products with W: xf, xb:
+// [batch, n_steps, 3H] float32; hp: [2, batch, n_steps, 3H] float32, each
+// direction's h_{t-1} W + b (h rounded to W's type, h_{-1} = 0); wf, wb:
+// [H, 3H] as vf_gru_bidir's; out: vf_gru_bidir's output [batch, n_steps, 2H];
+// grad: its gradient, float32, the same layout. Writes dxf, dxb: [batch,
+// n_steps, 3H], the gradients of xf and xb, and dhp: [2, batch, n_steps, 3H],
+// the gradient of hp. H <= 256.
+extern "C" int vf_gru_bidir_backward(const float* xf, const float* xb,
+                                     const float* hp, const void* wf,
+                                     const void* wb, const float* out,
+                                     const float* grad, float* dxf,
+                                     float* dxb, float* dhp, int batch,
+                                     int n_steps, int hidden, int w_bf16,
+                                     void* stream) {
+  if (hidden < 1 || hidden > MAX_HIDDEN || batch < 1 || n_steps < 1)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long plane = static_cast<long long>(batch) * n_steps * 3 * hidden;
+  const BDir fwd{xf, hp, wf, out, grad, dxf, dhp, 1},
+      bwd{xb, hp + plane, wb, out + hidden, grad + hidden, dxb, dhp + plane,
+          0};
+  using B = __nv_bfloat16;
+  if (w_bf16)
+    return launch(gru_bidir_backward_kernel<B, CLUSTER_WIDE>,
+                  gru_bidir_backward_kernel<B, CLUSTER_NARROW>, batch, 2, s,
+                  fwd, bwd, n_steps, hidden, 2 * hidden);
+  return launch(gru_bidir_backward_kernel<float, CLUSTER_WIDE>,
+                gru_bidir_backward_kernel<float, CLUSTER_NARROW>, batch, 2, s,
+                fwd, bwd, n_steps, hidden, 2 * hidden);
+}
+
 // x: [batch, n_steps, 3H] float32; w: [H, 3H] (W_hh^T) float32; bias: [3H];
 // out: [batch, n_steps, H]. reverse walks t from n_steps - 1 down to 0.
 // H <= 256.
@@ -468,4 +789,11 @@ extern "C" int vf_gru_seq(const float* x, const float* w, const float* bias,
 // size. A report for tools; the launches ask for themselves.
 extern "C" int vf_gru_wide_clusters() {
   return max_clusters<CLUSTER_WIDE>(gru_bidir_kernel<float, CLUSTER_WIDE>);
+}
+
+// The same for the float32 backward kernel: launches of at most that many
+// clusters (2 x batch) take the wide size.
+extern "C" int vf_gru_backward_wide_clusters() {
+  return max_clusters<CLUSTER_WIDE>(
+      gru_bidir_backward_kernel<float, CLUSTER_WIDE>);
 }

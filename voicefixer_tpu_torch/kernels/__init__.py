@@ -33,7 +33,8 @@ goes through ``check_no_grad``, which raises where autograd would want a
 gradient of the output. The bidirectional GRU is differentiable: its
 wrapper ``gru.gru_bidir_cat`` runs the kernel inside a
 ``torch.autograd.Function`` whose backward is the recurrence's exact
-backpropagation through time.
+backpropagation through time, on the card a kernel of its own
+(``gru_bidir_backward`` in ``launches``).
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ import torch
 
 launches = {"stft_mel": 0, "gru_bidir": 0, "upsample": 0, "res_chain": 0,
             "res_shift_single": 0, "up_res_stream": 0, "res_stream": 0,
-            "gru_seq": 0, "conv_block_res": 0}
+            "gru_seq": 0, "conv_block_res": 0, "gru_bidir_backward": 0}
 
 
 def reset_launches():

@@ -15,9 +15,12 @@ each block owning a slice of the hidden units; each step its warps push
 their new values of h into every block's shared memory, completing on that
 block's mbarrier (csrc/gru_bidir.cu).
 
-``gru_bidir_cat`` is differentiable (``GruBidir``): the JAX package's kernel
-has no backward, and this one's is written in PyTorch ops
-(``gru_bidir_backward``). ``gru_seq`` has none and raises under grad.
+``gru_bidir_cat`` is differentiable (``GruBidir``; the JAX package's kernel
+has none, its trainer differentiates the plain ``lax.scan``). On the card
+the backward's reverse-time recurrence is a kernel of its own
+(``vf_gru_bidir_backward``, the same clusters pushing dhp), between two
+float32 matrix products; ``gru_bidir_backward`` is its plain version, in
+PyTorch ops. ``gru_seq`` has no backward and raises under grad.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 
 from voicefixer_tpu_torch import kernels
 from voicefixer_tpu_torch.kernels import build
+from voicefixer_tpu_torch.ops.precision import tf32_off
 
 MAX_HIDDEN = 256  # csrc/gru_bidir.cu holds H/8 K-values per lane and column
 
@@ -93,7 +97,8 @@ def gru_bidir_cat(xf: torch.Tensor, xb: torch.Tensor, w_f: torch.Tensor,
     kernel writes it in place; the plain version concatenates. Where grad
     mode is on and an input requires grad, the call goes through
     ``GruBidir``, whose forward is the same kernel (or, on the CPU, the same
-    plain version) and whose backward is ``gru_bidir_backward``."""
+    plain version) and whose backward launches ``vf_gru_bidir_backward``
+    (on the CPU, its plain version ``gru_bidir_backward``)."""
     args = (xf, xb, w_f, w_b, b_f, b_b)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return GruBidir.apply(*args, matmul_dtype)
@@ -120,9 +125,10 @@ class GruBidir(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        grads = gru_bidir_backward(grad_out, *ctx.saved_tensors,
-                                   ctx.matmul_dtype)
-        return (*grads, None)
+        args = (grad_out, *ctx.saved_tensors, ctx.matmul_dtype)
+        if kernels.on_cpu(*args[:-1]):
+            return (*gru_bidir_backward(*args), None)
+        return (*_launch_backward(*args), None)
 
 
 def gru_bidir_backward(grad_out, xf, xb, w_f, w_b, b_f, b_b, out,
@@ -217,6 +223,60 @@ def _launch_bidir(xf, xb, w_f, w_b, b_f, b_b, matmul_dtype) -> torch.Tensor:
     return out
 
 
+def _launch_backward(grad_out, xf, xb, w_f, w_b, b_f, b_b, out,
+                     matmul_dtype):
+    """``gru_bidir_backward`` on the card: hp = h_{t-1} W + b and, after the
+    kernel's recurrence, dW = H_prev^T dHP and db = sum dHP, as float32
+    products of h and W rounded to matmul_dtype (the plain version's
+    arithmetic, TF32 off); the directions in their own time order, the
+    backward one's h_{t-1} being its state at t + 1."""
+    bsz, t_total, g = xf.shape
+    hidden = g // 3
+    if (g % 3 or hidden > MAX_HIDDEN or t_total < 1 or xb.shape != xf.shape
+            or w_f.shape != (hidden, g) or w_b.shape != (hidden, g)
+            or out.shape != (bsz, t_total, 2 * hidden)
+            or grad_out.shape != out.shape):
+        raise ValueError(f"gru_bidir_backward: unsupported shapes x "
+                         f"{tuple(xf.shape)}, w {tuple(w_f.shape)}, out "
+                         f"{tuple(out.shape)}")
+    if matmul_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"gru_bidir_backward: matmul_dtype {matmul_dtype}")
+    if xf.dtype != torch.float32 or xb.dtype != torch.float32 \
+            or out.dtype != torch.float32:
+        raise TypeError("gru_bidir_backward takes float32 projections and "
+                        "states")
+    kernels.check_no_grad("gru_bidir_backward", grad_out, xf, xb, w_f, w_b,
+                          b_f, b_b, out)
+    lib = _lib()
+    with tf32_off():
+        xf, xb, out = xf.contiguous(), xb.contiguous(), out.contiguous()
+        grad = grad_out.float().contiguous()
+        w = torch.stack([w_f, w_b]).to(matmul_dtype)       # [2, H, 3H]
+        wq = w.float()
+        b = torch.stack([b_f, b_b]).float()
+        h_prev = out.new_zeros((2, bsz, t_total, hidden))
+        h_prev[0, :, 1:] = out[:, :-1, :hidden]
+        h_prev[1, :, :-1] = out[:, 1:, hidden:]
+        hq = h_prev.to(matmul_dtype).float().view(2, -1, hidden)
+        hp = hq @ wq + b[:, None]                          # [2, B*T, 3H]
+        dx = torch.empty((2, bsz, t_total, g), dtype=torch.float32,
+                         device=xf.device)
+        dhp = torch.empty_like(dx)
+        rc = lib.vf_gru_bidir_backward(
+            xf.data_ptr(), xb.data_ptr(), hp.data_ptr(), w[0].data_ptr(),
+            w[1].data_ptr(), out.data_ptr(), grad.data_ptr(),
+            dx[0].data_ptr(), dx[1].data_ptr(), dhp.data_ptr(), bsz,
+            t_total, hidden, int(matmul_dtype == torch.bfloat16),
+            torch.cuda.current_stream(xf.device).cuda_stream)
+        build.check(lib, rc, "gru_bidir_backward")
+        kernels.launches["gru_bidir_backward"] += 1
+        dhp = dhp.view(2, -1, g)
+        dw = hq.transpose(1, 2) @ dhp
+        db = dhp.sum(dim=1)
+    return (dx[0], dx[1], dw[0].to(w_f.dtype), dw[1].to(w_b.dtype),
+            db[0].to(b_f.dtype), db[1].to(b_b.dtype))
+
+
 def gru_seq_reference(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
                       b_hh: torch.Tensor, reverse: bool = False):
     """Plain version of ``gru_seq``: a Python loop over the T steps."""
@@ -269,4 +329,6 @@ def _lib():
     lib.vf_gru_bidir.restype = i
     lib.vf_gru_seq.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.vf_gru_seq.restype = i
+    lib.vf_gru_bidir_backward.argtypes = [p] * 10 + [i, i, i, i, p]
+    lib.vf_gru_bidir_backward.restype = i
     return lib

@@ -13,6 +13,7 @@ the segments one by one, unpadded, as upstream does.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -27,7 +28,8 @@ from voicefixer_tpu_torch.ops import stft as vstft
 from voicefixer_tpu_torch.ops.precision import (conv_block_kernel, tf32_off,
                                                use_conv_block_kernel)
 from voicefixer_tpu_torch.parallel import distributed, tp
-from voicefixer_tpu_torch.parallel.mesh import axis_size, check_mesh
+from voicefixer_tpu_torch.parallel.mesh import (axis_group, axis_size,
+                                                check_mesh)
 from voicefixer_tpu_torch.parallel.sharding import shard_params
 from voicefixer_tpu_torch.pipeline import vocoder_facade
 from voicefixer_tpu_torch.utils.profiling import annotate
@@ -284,6 +286,28 @@ class VoiceFixer:
         outs, peaks = self._restore_batch_device(batch, training, generator)
         return outs.cpu().numpy(), peaks.cpu().numpy()
 
+    def _restore_rows(self, rows: np.ndarray):
+        """``_restore_batch`` of [B, N] equal-length eval rows in equal
+        calls of at most ``parallel.inference.rows_per_call`` rows, in
+        order (one call on the CPU, where there is no cap): on the card
+        one call of 26 full-width rows raises in the post-conv's 32-bit
+        reflection pad. With a "model" axis the group takes its least
+        cap, so that its ranks make the same calls."""
+        from voicefixer_tpu_torch.parallel.inference import rows_per_call
+        cap = rows_per_call(self, rows.shape[-1])
+        if cap is not None and axis_size(self.mesh, "model") > 1:
+            t = torch.tensor([cap], device=self.device)
+            torch.distributed.all_reduce(
+                t, op=torch.distributed.ReduceOp.MIN,
+                group=axis_group(self.mesh, "model"))
+            cap = int(t.item())
+        n_calls = 1 if cap is None else math.ceil(len(rows) / cap)
+        step = math.ceil(len(rows) / n_calls)
+        parts = [self._restore_batch(rows[i: i + step])
+                 for i in range(0, len(rows), step)]
+        return (np.concatenate([o for o, _ in parts]),
+                np.concatenate([p for _, p in parts]))
+
     def _denoised_mel(self, wav: np.ndarray, training: bool,
                       generator: torch.Generator | None) -> torch.Tensor:
         """The analysis stage of one segment: the denoised linear mel
@@ -345,7 +369,7 @@ class VoiceFixer:
             groups.setdefault(seg.shape[0], []).append(i)
         res: list = [None] * len(segments)
         for seg_len, idxs in groups.items():
-            outs, peaks = self._restore_batch(
+            outs, peaks = self._restore_rows(
                 np.stack([segments[i] for i in idxs]))
             for j, i in enumerate(idxs):
                 if peaks[j] > 1.0:
@@ -382,10 +406,10 @@ class VoiceFixer:
 
     def _restore_overlap(self, wav: np.ndarray, mode: int,
                          overlap_seconds: float) -> np.ndarray:
-        """Full-segment windows ``overlap_seconds`` apart at their seams, all
-        in one batch, stitched by ``overlap_add``. In mode 1 each window is
-        ``remove_higher_frequency``'d and padded back to a full segment (the
-        crossfade covers the sub-hop tail)."""
+        """Full-segment windows ``overlap_seconds`` apart at their seams,
+        batched by ``_restore_rows``, stitched by ``overlap_add``. In mode
+        1 each window is ``remove_higher_frequency``'d and padded back to a
+        full segment (the crossfade covers the sub-hop tail)."""
         seg = self.config.pipeline.seg_length
         n = wav.shape[0]
         ramp = min(int(overlap_seconds * self.config.pipeline.sample_rate),
@@ -397,7 +421,7 @@ class VoiceFixer:
         windows = [wav[pos: pos + seg] for pos in positions]
         if mode == 1:
             windows = [_fit_length(self._hf(w), seg) for w in windows]
-        outs, peaks = self._restore_batch(np.stack(windows))
+        outs, peaks = self._restore_rows(np.stack(windows))
         chunks = []
         for j in range(len(positions)):
             if peaks[j] > 1.0:
