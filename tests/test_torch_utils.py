@@ -1,10 +1,9 @@
 """The port's ``utils.flops``, ``utils.io``, ``utils.plotting`` and
 ``utils.profiling`` against the JAX package's: the FLOP counts integer-equal,
-the files the same, the timer's summary in the same format."""
+the files the same; ``profiling.trace`` names an annotated range."""
 
 import json
 import os
-import time
 
 import numpy as np
 import pytest
@@ -15,7 +14,6 @@ from voicefixer_tpu.config import tiny_test_config as jax_tiny
 from voicefixer_tpu.utils import flops as jax_flops
 from voicefixer_tpu.utils import io as jax_io
 from voicefixer_tpu.utils import plotting as jax_plotting
-from voicefixer_tpu.utils import profiling as jax_profiling
 
 from voicefixer_tpu_torch.config import DEFAULT_CONFIG, tiny_test_config
 from voicefixer_tpu_torch.utils import flops, io, plotting, profiling
@@ -102,27 +100,6 @@ def test_draw_and_save_rejects_negative_under_log(tmp_path):
     assert not (tmp_path / "bad.png").exists()
     plotting.draw_and_save(mel, str(tmp_path / "ok.png"), needlog=False)
     assert (tmp_path / "ok.png").exists()
-
-
-def test_timer_summary_matches_jax():
-    """The same totals give the same text: most time first."""
-    ours, theirs = profiling.Timer(), jax_profiling.Timer()
-    for timer in (ours, theirs):
-        for name in ("a", "b", "a"):
-            with timer.block(name):
-                time.sleep(0.002 if name == "b" else 0.001)
-    assert ours.counts == theirs.counts == {"a": 2, "b": 1}
-    ours.totals = {"a": 0.0022, "b": 0.005}
-    theirs.totals = dict(ours.totals)
-    assert ours.summary() == theirs.summary() == (
-        "b: 5.0 ms over 1 calls\na: 2.2 ms over 2 calls")
-
-
-def test_timer_block_on_cpu_device():
-    timer = profiling.Timer()
-    with timer.block("x", torch.device("cpu")):
-        pass
-    assert timer.counts == {"x": 1}
 
 
 def test_trace_names_annotated_region(tmp_path):

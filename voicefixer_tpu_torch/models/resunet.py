@@ -37,6 +37,7 @@ from voicefixer_tpu_torch.ops.conv import (avg_pool2d, batch_norm, conv2d,
 from voicefixer_tpu_torch.ops.precision import (activation_dtype,
                                                use_conv_block_kernel)
 from voicefixer_tpu_torch.parallel import tp
+from voicefixer_tpu_torch.utils.profiling import annotate
 from voicefixer_tpu_torch.utils.weights import tree_map, uniform
 
 
@@ -119,7 +120,8 @@ def apply(params: dict, x: torch.Tensor, cfg: ResUNetConfig,
     in_dtype = x.dtype
     adt = activation_dtype()
     if not training and adt != x.dtype:
-        params = _cast(params, adt)
+        with annotate("vf.cast"):
+            params = _cast(params, adt)
         x = x.to(adt)
     origin_t = x.shape[1]
     ratio = cfg.downsample_ratio

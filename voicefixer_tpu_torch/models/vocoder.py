@@ -30,6 +30,7 @@ from voicefixer_tpu_torch.kernels.upsample import upsample
 from voicefixer_tpu_torch.ops.conv import (conv1d, elu, leaky_relu,
                                           reflection_pad1d)
 from voicefixer_tpu_torch.ops.precision import activation_dtype
+from voicefixer_tpu_torch.utils.profiling import annotate
 from voicefixer_tpu_torch.utils.weights import tree_map, uniform
 
 
@@ -58,7 +59,8 @@ def apply(params: dict, mel: torch.Tensor, cfg: VocoderConfig) -> torch.Tensor:
     [B, T*441, 1] in [-1, 1], in mel's type."""
     adt = activation_dtype()
     if adt != mel.dtype:
-        params = tree_map(lambda t: t.to(adt), params)
+        with annotate("vf.cast"):
+            params = tree_map(lambda t: t.to(adt), params)
     x = mel.to(adt)
     for layer in params["condnet"]:
         x = elu(conv1d(x, layer["w"], layer["b"], padding=1))

@@ -27,6 +27,7 @@ from voicefixer_tpu_torch.parallel import distributed
 from voicefixer_tpu_torch.parallel.mesh import (axis_rank, axis_size,
                                                 global_batch, shard_batch)
 from voicefixer_tpu_torch.pipeline.restore import _trim_center
+from voicefixer_tpu_torch.utils.profiling import annotate
 
 # The peak device memory of one 30 s chunk row at full width, 1.383 GiB in
 # parity and 0.699 GiB in production (chip_smoke.py on an H100 80GB HBM3,
@@ -87,21 +88,26 @@ def _segments_of(vf, wav: np.ndarray, mode: int):
     segments, mode 1's ``remove_higher_frequency`` applied to each, and with
     ``pad_short_to_seg`` a short or tail segment zero-padded to the full
     segment; orig_lens[i] is its length before the pad, the restored head
-    kept after the centre trim."""
+    kept after the centre trim. Mode 1's pre-pass runs on the device,
+    outside the ``vf.plan`` spans."""
     seg_length = vf.config.pipeline.seg_length
-    wav = np.asarray(wav, dtype=np.float32).reshape(-1)
-    segs, orig_lens = [], {}
-    for s in range(0, wav.shape[0], seg_length):
-        seg = wav[s: s + seg_length]
-        if mode == 1:
-            seg = vf._hf(seg)
-        if vf.config.pipeline.pad_short_to_seg and seg.shape[0] < seg_length:
-            orig_lens[len(segs)] = seg.shape[0]
-            seg = np.pad(seg, (0, seg_length - seg.shape[0]))
-        segs.append(seg)
+    with annotate("vf.plan"):
+        wav = np.asarray(wav, dtype=np.float32).reshape(-1)
+        segs = [wav[s: s + seg_length]
+                for s in range(0, wav.shape[0], seg_length)]
+    if mode == 1:
+        segs = [vf._hf(seg) for seg in segs]
+    with annotate("vf.plan"):
+        orig_lens = {}
+        if vf.config.pipeline.pad_short_to_seg:
+            for i, seg in enumerate(segs):
+                if seg.shape[0] < seg_length:
+                    orig_lens[i] = seg.shape[0]
+                    segs[i] = np.pad(seg, (0, seg_length - seg.shape[0]))
     return segs, orig_lens
 
 
+@annotate("vf.request")
 def restore_wavs(vf, wavs, mode: int = 0, mesh=None,
                  max_batch: int = 64) -> list:
     """Restore a list of waveforms (1-D, 44.1 kHz) with chunk-level data
@@ -115,7 +121,8 @@ def restore_wavs(vf, wavs, mode: int = 0, mesh=None,
     rows are all-gathered. A ``VoiceFixer`` built on a mesh with a model
     axis restores each rank's rows tensor-parallel over it. A global
     batch whose share per rank exceeds ``rows_per_call`` is restored in
-    equal calls; the results do not change."""
+    equal calls; the results do not change. One ``vf.request`` span holds
+    the call (``utils.profiling``)."""
     if mode not in (0, 1):
         raise ValueError("data-parallel restore supports eval modes 0/1; "
                          "mode 2's per-chunk BN statistics are inherently "
@@ -127,40 +134,47 @@ def restore_wavs(vf, wavs, mode: int = 0, mesh=None,
     primary = axis_rank(mesh, "data") == 0 and distributed.is_primary()
 
     split = [_segments_of(vf, w, mode) for w in wavs]
-    orig_len = {(fi, si): n for fi, (_, lens) in enumerate(split)
-                for si, n in lens.items()}
-    groups: dict = {}
-    for fi, (segs, _) in enumerate(split):
-        for si, seg in enumerate(segs):
-            groups.setdefault(seg.shape[0], []).append((fi, si, seg))
+    with annotate("vf.plan"):
+        orig_len = {(fi, si): n for fi, (_, lens) in enumerate(split)
+                    for si, n in lens.items()}
+        groups: dict = {}
+        for fi, (segs, _) in enumerate(split):
+            for si, seg in enumerate(segs):
+                groups.setdefault(seg.shape[0], []).append((fi, si, seg))
 
     n_data = axis_size(mesh, "data")
     results: dict = {}
     for seg_len, items in groups.items():
-        cap = rows_per_call(vf, seg_len, mesh)
-        calls = []
-        for start in range(0, len(items), max_batch):
-            batch_items = items[start: start + max_batch]
-            n_calls = 1 if cap is None else math.ceil(
-                math.ceil(len(batch_items) / n_data) / cap)
-            step = math.ceil(len(batch_items) / n_calls)
-            calls += [batch_items[i: i + step]
-                      for i in range(0, len(batch_items), step)]
+        with annotate("vf.plan"):
+            cap = rows_per_call(vf, seg_len, mesh)
+            calls = []
+            for start in range(0, len(items), max_batch):
+                batch_items = items[start: start + max_batch]
+                n_calls = 1 if cap is None else math.ceil(
+                    math.ceil(len(batch_items) / n_data) / cap)
+                step = math.ceil(len(batch_items) / n_calls)
+                calls += [batch_items[i: i + step]
+                          for i in range(0, len(batch_items), step)]
         for chunk_items in calls:
             batch = len(chunk_items)
-            stacked = torch.from_numpy(np.stack([seg for _, _, seg
-                                                 in chunk_items]))
-            outs, peaks = vf._restore_batch_device(shard_batch(mesh, stacked))
-            outs = global_batch(mesh, outs, batch).cpu().numpy()
-            peaks = global_batch(mesh, peaks, batch).cpu().numpy()
-            for j, (fi, si, _) in enumerate(chunk_items):
-                if peaks[j] > 1.0 and primary:
-                    print("Warning: Exceed energy limit,", float(peaks[j]))
-                out = _trim_center(outs[j], seg_len)
-                n = orig_len.get((fi, si))
-                if n is not None and n < out.shape[-1]:
-                    out = out[..., :n]  # drop the synthesized padding tail
-                results[(fi, si)] = out
+            with annotate("vf.plan"):
+                rows = shard_batch(mesh, torch.from_numpy(
+                    np.stack([seg for _, _, seg in chunk_items])))
+            outs, peaks = vf._restore_batch_device(rows)
+            outs, peaks = vf._to_host(global_batch(mesh, outs, batch),
+                                      global_batch(mesh, peaks, batch))
+            with annotate("vf.stitch"):
+                for j, (fi, si, _) in enumerate(chunk_items):
+                    if peaks[j] > 1.0 and primary:
+                        print("Warning: Exceed energy limit,",
+                              float(peaks[j]))
+                    out = _trim_center(outs[j], seg_len)
+                    n = orig_len.get((fi, si))
+                    if n is not None and n < out.shape[-1]:
+                        out = out[..., :n]  # drop the synthesized padding tail
+                    results[(fi, si)] = out
 
-    return [np.concatenate([results[(fi, si)] for si in range(len(segs))],
-                           axis=-1) for fi, (segs, _) in enumerate(split)]
+    with annotate("vf.stitch"):
+        return [np.concatenate([results[(fi, si)]
+                                for si in range(len(segs))], axis=-1)
+                for fi, (segs, _) in enumerate(split)]

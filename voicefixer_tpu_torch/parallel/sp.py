@@ -50,6 +50,7 @@ from voicefixer_tpu_torch.ops.norm import vocoder_normalize_mel
 from voicefixer_tpu_torch.ops.precision import activation_dtype
 from voicefixer_tpu_torch.parallel.mesh import (axis_group, axis_rank,
                                                 axis_size)
+from voicefixer_tpu_torch.utils.profiling import annotate
 from voicefixer_tpu_torch.utils.weights import tree_map
 
 
@@ -196,7 +197,8 @@ def apply_sp(params, mel: torch.Tensor, cfg: VocoderConfig,
                    else [_on(params, d) for d in devices])
     adt = activation_dtype()
     if adt != mel.dtype:
-        per_dev = [tree_map(lambda t: t.to(adt), p) for p in per_dev]
+        with annotate("vf.cast"):
+            per_dev = [tree_map(lambda t: t.to(adt), p) for p in per_dev]
     p0 = _on(per_dev[0], mel.device)
     x = mel.to(adt)
     for layer in p0["condnet"]:

@@ -270,43 +270,54 @@ class VoiceFixer:
                               generator: torch.Generator | None = None):
         """restore_batch of [B, N] chunks (numpy or a tensor) -> (outs
         [B, S], peaks [B]), float32 on the instance's device."""
+        with annotate("vf.upload"):
+            wav = torch.as_tensor(batch).to(self.device)
         with conv_block_kernel(self.conv_block_kernel
                                or use_conv_block_kernel()):
             outs, peaks = restore_batch(
-                self.params, self.vocoder_params,
-                torch.as_tensor(batch).to(self.device), self.config,
+                self.params, self.vocoder_params, wav, self.config,
                 model_devices=self.model_devices, training=training,
                 generator=generator, mesh=self.mesh)
         return outs.float(), peaks.float()
+
+    def _to_host(self, *tensors) -> tuple:
+        """The tensors as numpy (``vf.download``: on a card the copies,
+        after the host has waited for the call's work)."""
+        with annotate("vf.download"):
+            return tuple(t.cpu().numpy() for t in tensors)
 
     def _restore_batch(self, batch: np.ndarray, training: bool = False,
                        generator: torch.Generator | None = None):
         """restore_batch of [B, N] chunks -> (outs [B, S], peaks [B]) as
         numpy."""
-        outs, peaks = self._restore_batch_device(batch, training, generator)
-        return outs.cpu().numpy(), peaks.cpu().numpy()
+        return self._to_host(
+            *self._restore_batch_device(batch, training, generator))
 
-    def _restore_rows(self, rows: np.ndarray):
-        """``_restore_batch`` of [B, N] equal-length eval rows in equal
-        calls of at most ``parallel.inference.rows_per_call`` rows, in
-        order (one call on the CPU, where there is no cap): on the card
+    def _restore_rows(self, segments: list):
+        """``_restore_batch`` of equal-length eval segments, stacked, in
+        equal calls of at most ``parallel.inference.rows_per_call`` rows,
+        in order (one call on the CPU, where there is no cap): on the card
         one call of 26 full-width rows raises in the post-conv's 32-bit
         reflection pad. With a "model" axis the group takes its least
-        cap, so that its ranks make the same calls."""
+        cap, so that its ranks make the same calls. -> (outs [B, S],
+        peaks [B])."""
         from voicefixer_tpu_torch.parallel.inference import rows_per_call
-        cap = rows_per_call(self, rows.shape[-1])
-        if cap is not None and axis_size(self.mesh, "model") > 1:
-            t = torch.tensor([cap], device=self.device)
-            torch.distributed.all_reduce(
-                t, op=torch.distributed.ReduceOp.MIN,
-                group=axis_group(self.mesh, "model"))
-            cap = int(t.item())
-        n_calls = 1 if cap is None else math.ceil(len(rows) / cap)
-        step = math.ceil(len(rows) / n_calls)
+        with annotate("vf.plan"):
+            cap = rows_per_call(self, segments[0].shape[-1])
+            if cap is not None and axis_size(self.mesh, "model") > 1:
+                t = torch.tensor([cap], device=self.device)
+                torch.distributed.all_reduce(
+                    t, op=torch.distributed.ReduceOp.MIN,
+                    group=axis_group(self.mesh, "model"))
+                cap = int(t.item())
+            n_calls = 1 if cap is None else math.ceil(len(segments) / cap)
+            step = math.ceil(len(segments) / n_calls)
+            rows = np.stack(segments)
         parts = [self._restore_batch(rows[i: i + step])
                  for i in range(0, len(rows), step)]
-        return (np.concatenate([o for o, _ in parts]),
-                np.concatenate([p for _, p in parts]))
+        with annotate("vf.stitch"):
+            return (np.concatenate([o for o, _ in parts]),
+                    np.concatenate([p for _, p in parts]))
 
     def _denoised_mel(self, wav: np.ndarray, training: bool,
                       generator: torch.Generator | None) -> torch.Tensor:
@@ -322,6 +333,7 @@ class VoiceFixer:
                 self.config, training=training, generator=generator)
             return from_log(mel)[:, None]
 
+    @annotate("vf.request")
     def restore_inmem(self, wav_10k: np.ndarray, cuda: bool = False,
                       mode: int = 0, your_vocoder_func=None, seed: int = 0,
                       chunk_overlap_seconds: float = 0.0) -> np.ndarray:
@@ -350,36 +362,42 @@ class VoiceFixer:
                 and wav_10k.shape[0] > seg_length):
             return self._restore_overlap(wav_10k, mode,
                                          chunk_overlap_seconds)
-        segments = [wav_10k[s: s + seg_length]
-                    for s in range(0, wav_10k.shape[0], seg_length)]
+        with annotate("vf.plan"):
+            segments = [wav_10k[s: s + seg_length]
+                        for s in range(0, wav_10k.shape[0], seg_length)]
         if mode == 1:
             # the trims below target the shorter post-ISTFT length
             segments = [self._hf(seg) for seg in segments]
         if training or your_vocoder_func is not None:
             return self._restore_sequential(segments, training, seed,
                                             your_vocoder_func)
-        orig_lens: dict = {}
-        if self.config.pipeline.pad_short_to_seg:
+        with annotate("vf.plan"):
+            orig_lens: dict = {}
+            if self.config.pipeline.pad_short_to_seg:
+                for i, seg in enumerate(segments):
+                    if seg.shape[0] < seg_length:
+                        orig_lens[i] = seg.shape[0]
+                        segments[i] = np.pad(
+                            seg, (0, seg_length - seg.shape[0]))
+            groups: dict = {}
             for i, seg in enumerate(segments):
-                if seg.shape[0] < seg_length:
-                    orig_lens[i] = seg.shape[0]
-                    segments[i] = np.pad(seg, (0, seg_length - seg.shape[0]))
-        groups: dict = {}
-        for i, seg in enumerate(segments):
-            groups.setdefault(seg.shape[0], []).append(i)
-        res: list = [None] * len(segments)
-        for seg_len, idxs in groups.items():
-            outs, peaks = self._restore_rows(
-                np.stack([segments[i] for i in idxs]))
-            for j, i in enumerate(idxs):
-                if peaks[j] > 1.0:
-                    print("Warning: Exceed energy limit,", float(peaks[j]))
-                out = _trim_center(outs[j], seg_len)
-                # a padded chunk's real audio is its head
-                if i in orig_lens:
-                    out = out[:orig_lens[i]]
-                res[i] = out
-        return np.concatenate(res, axis=-1)
+                groups.setdefault(seg.shape[0], []).append(i)
+        restored = [(seg_len, idxs,
+                     self._restore_rows([segments[i] for i in idxs]))
+                    for seg_len, idxs in groups.items()]
+        with annotate("vf.stitch"):
+            res: list = [None] * len(segments)
+            for seg_len, idxs, (outs, peaks) in restored:
+                for j, i in enumerate(idxs):
+                    if peaks[j] > 1.0:
+                        print("Warning: Exceed energy limit,",
+                              float(peaks[j]))
+                    out = _trim_center(outs[j], seg_len)
+                    # a padded chunk's real audio is its head
+                    if i in orig_lens:
+                        out = out[:orig_lens[i]]
+                    res[i] = out
+            return np.concatenate(res, axis=-1)
 
     def _restore_sequential(self, segments: list, training: bool, seed: int,
                             your_vocoder_func) -> np.ndarray:
@@ -402,7 +420,8 @@ class VoiceFixer:
                     out = out.detach().float().cpu()
                 out = np.asarray(out).reshape(-1)
             res.append(_trim_center(out, seg.shape[0]))
-        return np.concatenate(res, axis=-1)
+        with annotate("vf.stitch"):
+            return np.concatenate(res, axis=-1)
 
     def _restore_overlap(self, wav: np.ndarray, mode: int,
                          overlap_seconds: float) -> np.ndarray:
@@ -412,22 +431,24 @@ class VoiceFixer:
         full segment (the crossfade covers the sub-hop tail)."""
         seg = self.config.pipeline.seg_length
         n = wav.shape[0]
-        ramp = min(int(overlap_seconds * self.config.pipeline.sample_rate),
-                   seg // 2)
-        stride = seg - ramp
-        positions = list(range(0, max(n - seg, 0) + 1, stride))
-        if positions[-1] + seg < n:
-            positions.append(n - seg)
-        windows = [wav[pos: pos + seg] for pos in positions]
+        with annotate("vf.plan"):
+            ramp = min(int(overlap_seconds
+                           * self.config.pipeline.sample_rate), seg // 2)
+            stride = seg - ramp
+            positions = list(range(0, max(n - seg, 0) + 1, stride))
+            if positions[-1] + seg < n:
+                positions.append(n - seg)
+            windows = [wav[pos: pos + seg] for pos in positions]
         if mode == 1:
             windows = [_fit_length(self._hf(w), seg) for w in windows]
-        outs, peaks = self._restore_rows(np.stack(windows))
-        chunks = []
-        for j in range(len(positions)):
-            if peaks[j] > 1.0:
-                print("Warning: Exceed energy limit,", float(peaks[j]))
-            chunks.append(_fit_length(outs[j], seg))
-        return overlap_add(chunks, positions, n, ramp)
+        outs, peaks = self._restore_rows(windows)
+        with annotate("vf.stitch"):
+            chunks = []
+            for j in range(len(positions)):
+                if peaks[j] > 1.0:
+                    print("Warning: Exceed energy limit,", float(peaks[j]))
+                chunks.append(_fit_length(outs[j], seg))
+            return overlap_add(chunks, positions, n, ramp)
 
     def restore(self, input: str, output: str, cuda: bool = False,
                 mode: int = 0, your_vocoder_func=None, seed: int = 0,

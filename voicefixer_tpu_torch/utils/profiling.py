@@ -1,20 +1,34 @@
-"""Tracing and timing, as ``voicefixer_tpu/utils/profiling.py`` on
-``torch.profiler``:
+"""Tracing, as ``voicefixer_tpu/utils/profiling.py`` on ``torch.profiler``:
 
 - ``trace(log_dir)``: a profiler over the enclosed block, the host and,
   on a card, the device's kernels; on exit it writes a Chrome / Perfetto
   trace, ``log_dir/trace.json`` (chrome://tracing or ui.perfetto.dev).
-- ``annotate(name)``: a named range in that trace, and an NVTX range where
-  there is a card.
-- ``Timer``: accumulated wall-clock time per named block.
+- ``annotate(name)``: a named range in that trace, on the clock of the
+  device's events, and an NVTX range where there is a card.
+
+The port's spans, outermost first (a request's spans share its
+``vf.request``):
+
+- ``vf.request``: a whole call of ``VoiceFixer.restore_inmem`` or
+  ``parallel.inference.restore_wavs``;
+- ``vf.plan``: segmenting, padding, grouping by length, stacking rows,
+  ``rows_per_call`` and the split into calls;
+- ``vf.upload``: a call's rows copied to the device, one a call;
+- ``vf.stft_mel``, ``vf.denoiser``, ``vf.resunet``, ``vf.vocoder``: the
+  stages of ``pipeline.restore.restore_batch``, with ``vf.cast`` inside
+  the ResUNet's and the vocoder's where a call casts their weights to the
+  activation type;
+- ``vf.download``: a call's outputs copied to the host, after the host
+  has waited for the call's device work;
+- ``vf.stitch``: the trims and concatenations that make the answer.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import tempfile
-import time
 
 import torch
 
@@ -45,44 +59,27 @@ def trace(log_dir: str | None = None, device=None):
     prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
 
 
+@functools.cache
+def _nvtx() -> bool:
+    """Whether there is a card, asked once: a request enters about fifteen
+    spans, and ``torch.cuda.is_available`` is no free call."""
+    return torch.cuda.is_available()
+
+
 @contextlib.contextmanager
 def annotate(name: str):
-    """A named range inside profiler traces (and NVTX on a card)."""
-    nvtx = torch.cuda.is_available()
+    """A named range inside profiler traces (and NVTX on a card). Without
+    a running profiler no ``record_function`` is entered: it would record
+    nothing, and it costs 9–14 µs a span on an H100's host."""
+    nvtx = _nvtx()
     if nvtx:
         torch.cuda.nvtx.range_push(name)
     try:
-        with torch.profiler.record_function(name):
+        if torch.autograd.profiler._is_profiler_enabled:
+            with torch.profiler.record_function(name):
+                yield
+        else:
             yield
     finally:
         if nvtx:
             torch.cuda.nvtx.range_pop()
-
-
-class Timer:
-    """Accumulating wall-clock timer: ``with timer.block("x", device):``
-    around device work waits for ``device`` on exit, so the time covers
-    the work the block queued."""
-
-    def __init__(self):
-        self.totals: dict = {}
-        self.counts: dict = {}
-
-    @contextlib.contextmanager
-    def block(self, name: str, device=None):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if device is not None and torch.device(device).type == "cuda":
-                torch.cuda.synchronize(device)
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
-
-    def summary(self) -> str:
-        lines = [f"{name}: {self.totals[name] * 1000:.1f} ms over "
-                 f"{self.counts[name]} calls"
-                 for name in sorted(self.totals, key=self.totals.get,
-                                    reverse=True)]
-        return "\n".join(lines)
