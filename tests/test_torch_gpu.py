@@ -669,14 +669,15 @@ def test_conv_block_res_packed_operands(cuda, dtype):
     (``resunet.pack_conv_blocks``, as ``VoiceFixer(conv_block_kernel=True)``
     does) gives the result of the same block packed at the call."""
     from voicefixer_tpu_torch.models import resunet
+    from voicefixer_tpu_torch.utils.weights import cast_tree
     gen = torch.Generator().manual_seed(16)
     dt = getattr(torch, dtype)
     p = _conv_block_params(gen, 32, 64, cuda, torch.float32)
     x = _randn(gen, (2, 40, 31, 32), 0.5).to(cuda, dt)
     packed = resunet.pack_conv_blocks({"b": p})["b"]
     assert convblock.operands(packed, dt) is packed["packed"][dtype]
-    cast = resunet._cast(p, dt)
-    got = convblock.conv_block_res(x, resunet._cast(packed, dt), 0.01)
+    cast = cast_tree(p, dt)
+    got = convblock.conv_block_res(x, cast_tree(packed, dt), 0.01)
     want = convblock.conv_block_res(x, cast, 0.01)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
@@ -973,3 +974,31 @@ def test_transforms_card_against_cpu(cuda, name):
     assert got.device.type == "cuda" and got.shape == ref.shape
     err = float((got.cpu() - ref).abs().max())
     assert err <= 1e-5 * float(ref.abs().max()), err
+
+
+def test_instance_cast_once_matches_per_call_cast(cuda):
+    """At full width in production on the card, an instance's restores from
+    the trees it cast once equal ``restore_batch`` on its float32 trees,
+    cast on the call, bit for bit (cuDNN held deterministic)."""
+    import numpy as np
+    from voicefixer_tpu_torch.config import DEFAULT_CONFIG
+    from voicefixer_tpu_torch.ops.precision import precision
+    from voicefixer_tpu_torch.pipeline import restore
+    seg = DEFAULT_CONFIG.pipeline.seg_length
+    wav = (0.1 * np.random.default_rng(5).standard_normal(seg)
+           ).astype(np.float32)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with precision("production"):
+            vf = restore.VoiceFixer.random(0, DEFAULT_CONFIG, device=cuda)
+            got = [vf.restore_inmem(wav) for _ in range(2)]
+            want, _ = restore.restore_batch(
+                vf.params, vf.vocoder_params,
+                torch.from_numpy(wav[None]).to(cuda), DEFAULT_CONFIG)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    want = restore._trim_center(want[0].float().cpu().numpy(), seg)
+    assert (vf.weight_casts.misses, vf.weight_casts.hits) == (1, 1)
+    for out in got:
+        np.testing.assert_array_equal(out, want)

@@ -934,6 +934,7 @@ def test_conv_block_operands_packed_once_by_the_owner():
     from voicefixer_tpu_torch.ops.conv import fold_bn_eval
     from voicefixer_tpu_torch.ops.precision import (conv_block_kernel,
                                                     precision)
+    from voicefixer_tpu_torch.utils.weights import cast_tree
 
     cfg = tiny_test_config().unet
     tree = fold_bn_eval(resunet.init(cfg, torch.Generator().manual_seed(0)))
@@ -947,7 +948,7 @@ def test_conv_block_operands_packed_once_by_the_owner():
         for dt, key in convblock.DTYPE_KEYS.items():
             ops = convblock.operands(packed, dt)
             assert ops is packed["packed"][key]
-            cast = resunet._cast(block, dt)
+            cast = cast_tree(block, dt)
             want = convblock.pack_operands(cast, dt)
             fresh = convblock.operands(cast, dt)
             assert ops.keys() == want.keys() == fresh.keys()
@@ -957,7 +958,7 @@ def test_conv_block_operands_packed_once_by_the_owner():
             # the batch norms as production's cast rounds them, in float32
             assert ops["s1"].dtype == torch.float32
             assert torch.equal(ops["s1"], block["bn1"]["scale"].to(dt).float())
-        assert resunet._cast(packed, torch.bfloat16)["packed"] is \
+        assert cast_tree(packed, torch.bfloat16)["packed"] is \
             packed["packed"]
     assert "packed" not in done["dec1"] and "packed" not in done["after2"]
     x = torch.from_numpy(_rand(np.random.default_rng(44), (1, 20, 128, 2)))

@@ -194,6 +194,24 @@ def test_tp_restore_two_processes_match_jax(tmp_path):
                                    rtol=1e-5, atol=2e-5)
 
 
+def test_tp_restore_casts_the_sharded_tree_once(tmp_path):
+    """In production on a (1, 2) mesh each rank casts its shard of the
+    ResUNet once (its second restore and a later fetch of the trees are
+    served from it), and its restores equal ``restore_batch`` on the
+    float32 shards, cast on the call, bit for bit."""
+    ja, jv = jax_param_trees(3, jax_small_tp())
+    _save_params(tmp_path, ja, jv)
+    wav = np.random.default_rng(1).standard_normal((2, 2205)) * 0.1
+    np.savez(tmp_path / "wav.npz", wav=wav.astype(np.float32))
+    full = ja["unet"]["enc2"]["block1"]["conv1"]["w"].shape
+    for out in run_ranks("tp_cast_once", 2, str(tmp_path), timeout=90):
+        assert out["counts"].tolist() == [1, 2]
+        assert tuple(out["cast_shape"]) == full[:-1] + (full[-1] // 2,)
+        assert out["cast_bf16"]
+        for got in out["once"]:
+            np.testing.assert_array_equal(got, out["per_call"])
+
+
 def _dropout0(cfg):
     return dataclasses.replace(cfg, denoiser=dataclasses.replace(
         cfg.denoiser, dropout=0.0))

@@ -483,3 +483,119 @@ def test_restore_file_mode2(params, tmp_path):
     np.testing.assert_array_equal(
         np.round(data[:, 0] * 32768).astype(np.int32),
         (want * 2 ** 15).astype(np.int16).astype(np.int32))
+
+
+# ------------------------------------------ weight trees cast once an instance
+
+
+def _spy_casts(monkeypatch) -> list:
+    """Every ``cast_tree`` call, the instances' and the per-call ones."""
+    from voicefixer_tpu_torch.pipeline import vocoder_facade
+    from voicefixer_tpu_torch.utils import weights
+    calls = []
+    real = weights.cast_tree
+
+    def counted(tree, dtype):
+        calls.append(dtype)
+        return real(tree, dtype)
+    for mod in (weights, restore, vocoder_facade):
+        monkeypatch.setattr(mod, "cast_tree", counted)
+    return calls
+
+
+def _per_call_cast(vf, wav, mode=0, seed=0):
+    """``restore_inmem`` of one full segment, through ``restore_batch`` on
+    the instance's float32 trees, which it casts on the call."""
+    from voicefixer_tpu_torch.ops.precision import conv_block_kernel
+    gen = torch.Generator().manual_seed(seed) if mode == 2 else None
+    with conv_block_kernel(vf.conv_block_kernel):
+        out, _ = restore.restore_batch(
+            vf.params, vf.vocoder_params, torch.from_numpy(wav[None]), CFG,
+            model_devices=vf.model_devices, training=mode == 2,
+            generator=gen)
+    return restore._trim_center(out[0].numpy(), wav.shape[0])
+
+
+def _float32(tree) -> bool:
+    """Every leaf float32, the fused kernel's operands ("packed") aside."""
+    if isinstance(tree, dict):
+        return all(_float32(v) for k, v in tree.items() if k != "packed")
+    if isinstance(tree, (list, tuple)):
+        return all(_float32(v) for v in tree)
+    return tree.dtype == torch.float32
+
+
+@pytest.mark.parametrize("kwargs", [{}, {"model_devices": ("cpu", "cpu")},
+                                    {"conv_block_kernel": True}])
+def test_weights_cast_once_an_instance(params, monkeypatch, kwargs):
+    """In production an instance casts its ResUNet and vocoder trees on its
+    first call and serves later calls from them, bitwise the output of the
+    per-call cast; a parity call casts and caches nothing; a reassigned
+    tree is cast once more; mode 2 takes the float32 analysis tree and the
+    cast vocoder; the stored trees stay float32."""
+    from voicefixer_tpu_torch.ops.precision import precision
+    _, _, pa, pv = params
+    wav = _wav(CFG.pipeline.seg_length, 23)
+    with precision("production"):
+        vf = restore.VoiceFixer(pa, pv, config=CFG, device="cpu", **kwargs)
+        casts = vf.weight_casts
+        want = _per_call_cast(vf, wav)
+        spied = _spy_casts(monkeypatch)
+        for _ in range(3):
+            np.testing.assert_array_equal(vf.restore_inmem(wav), want)
+        assert (casts.misses, casts.hits) == (1, 2)
+        # the ResUNet's tree and the vocoder's (a shared copy cast once)
+        assert spied == [torch.bfloat16] * 2
+        (_, (unet, voc)), = casts._entries.values()
+        assert unet["unet"]["after2"]["w"].dtype == torch.bfloat16
+        assert unet["denoiser"] is vf.params["denoiser"]
+        if "model_devices" in kwargs:
+            assert len(voc) == 2 and voc[0] is voc[1]
+            assert voc[0]["post"]["w"].dtype == torch.bfloat16
+        if "conv_block_kernel" in kwargs:
+            block = vf.params["unet"]["enc1"]["block1"]
+            assert unet["unet"]["enc1"]["block1"]["packed"] is block["packed"]
+    with precision("parity"):
+        vf.restore_inmem(wav)
+    assert len(spied) == 2 and len(casts._entries) == 1
+    assert (casts.misses, casts.hits) == (1, 2)
+    with precision("production"):
+        np.testing.assert_array_equal(vf.restore_inmem(wav), want)
+        assert (casts.misses, casts.hits) == (1, 3)
+        got = vf.restore_inmem(wav, mode=2, seed=4)
+        assert (casts.misses, casts.hits) == (1, 4)
+        np.testing.assert_array_equal(got, _per_call_cast(vf, wav, 2, 4))
+        vf.params = dict(vf.params)
+        for _ in range(2):
+            np.testing.assert_array_equal(vf.restore_inmem(wav), want)
+        assert (casts.misses, casts.hits) == (2, 5)
+    assert _float32(vf.params) and _float32(vf.vocoder_params)
+
+
+def test_vocoder_facade_casts_once(params, monkeypatch):
+    """The ``Vocoder`` facade holds its tree as ``VoiceFixer`` does: cast
+    once in production, bitwise the per-call cast's output, nothing cast
+    in parity, again after ``params`` is reassigned."""
+    from voicefixer_tpu_torch.ops.precision import precision
+    from voicefixer_tpu_torch.pipeline import vocoder_facade
+    _, _, _, pv = params
+    voc = vocoder_facade.Vocoder(params=pv, config=CFG, device="cpu")
+    casts = voc.weight_casts
+    mel = np.abs(np.random.default_rng(24).standard_normal(
+        (1, 1, 23, 128))).astype(np.float32)
+    with precision("production"):
+        want = vocoder_facade.synthesize(
+            voc.params, torch.from_numpy(mel[:, 0]), CFG.vocoder)
+        want = want[..., 0].numpy()[:, None]
+        spied = _spy_casts(monkeypatch)
+        for _ in range(2):
+            np.testing.assert_array_equal(voc.forward(mel), want)
+        assert (casts.misses, casts.hits, len(spied)) == (1, 1, 1)
+    with precision("parity"):
+        voc.forward(mel)
+    assert (casts.misses, casts.hits, len(spied)) == (1, 1, 1)
+    with precision("production"):
+        voc.params = dict(voc.params)
+        np.testing.assert_array_equal(voc.forward(mel), want)
+        assert (casts.misses, casts.hits, len(spied)) == (2, 1, 2)
+    assert _float32(voc.params)

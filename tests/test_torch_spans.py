@@ -2,8 +2,9 @@
 path, as ``torch.profiler`` records them on the CPU at tiny_test_config:
 one ``vf.request`` a call holding the rest, one ``vf.upload`` a device
 call, the stages between ``vf.upload`` and ``vf.download``, ``vf.cast``
-only where a call
-casts a weight tree, and the new spans outside the four stage spans."""
+only where a weight tree is cast (inside its stage for a caller's float32
+tree, once an instance outside the stages), and the new spans outside the
+four stage spans."""
 
 import json
 
@@ -14,7 +15,7 @@ import torch
 from voicefixer_tpu_torch.config import tiny_test_config
 from voicefixer_tpu_torch.ops.precision import precision
 from voicefixer_tpu_torch.parallel import inference
-from voicefixer_tpu_torch.pipeline.restore import VoiceFixer
+from voicefixer_tpu_torch.pipeline.restore import VoiceFixer, restore_batch
 from voicefixer_tpu_torch.utils import profiling
 from tests.test_torch_weights import one_torch_thread  # noqa: F401
 
@@ -132,9 +133,14 @@ def test_new_spans_lie_outside_the_stages(vf, tmp_path):
 
 @pytest.mark.parametrize("prec", ["parity", "production"])
 def test_weight_casts_inside_their_stage_only_in_production(tmp_path, prec):
+    """A caller's float32 trees (``restore_batch`` as a library function)
+    are cast on every call, inside the ResUNet's and the vocoder's stage
+    spans, in production only."""
     with precision(prec):
         vf = VoiceFixer.random(7, config=CFG, device="cpu")
-        _, spans = _spans(tmp_path, lambda: vf.restore_inmem(_wav(1.5)))
+        rows = torch.from_numpy(np.stack([_wav(1.0), _wav(1.0, 1)]))
+        _, spans = _spans(tmp_path, lambda: restore_batch(
+            vf.params, vf.vocoder_params, rows, CFG))
     casts = _named(spans, "vf.cast")
     if prec == "parity":
         assert casts == []
@@ -144,6 +150,24 @@ def test_weight_casts_inside_their_stage_only_in_production(tmp_path, prec):
     owners = [[t[0] for t in spans if t[0] in STAGES and _inside(c, t)]
               for c in casts]
     assert sorted(owners) == [["vf.resunet"], ["vf.vocoder"]]
+
+
+def test_instance_casts_once_outside_the_stages(tmp_path):
+    """In production an instance casts its trees on its first request, in
+    one ``vf.cast`` span inside ``vf.request`` and outside the stages; a
+    later request enters no ``vf.cast`` span, and still ``vf.resunet`` and
+    ``vf.vocoder``: the benchmark's ``weight_cast_ms`` reads 0 there."""
+    with precision("production"):
+        vf = VoiceFixer.random(7, config=CFG, device="cpu")
+        _, first = _spans(tmp_path, lambda: vf.restore_inmem(_wav(1.5)))
+        _, later = _spans(tmp_path, lambda: vf.restore_inmem(_wav(1.5, 1)))
+    cast, = _named(first, "vf.cast")
+    assert _inside(cast, _named(first, "vf.request")[0])
+    assert not any(t[1] < cast[2] and cast[1] < t[2]
+                   for t in first if t[0] in STAGES)
+    assert _named(later, "vf.cast") == []
+    assert {"vf.resunet", "vf.vocoder"} <= {s[0] for s in later}
+    assert (vf.weight_casts.misses, vf.weight_casts.hits) == (1, 1)
 
 
 def test_restore_wavs_gives_restore_inmems_names(vf, tmp_path):

@@ -142,6 +142,33 @@ def case_tp_restore(d: str, argv: list) -> dict:
             "voc_shape": np.array(vf.vocoder_params["pre"]["w"].shape)}
 
 
+def case_tp_cast_once(d: str, argv: list) -> dict:
+    """Production restore on a (1, world) mesh at small_tp_config: two calls
+    from the trees the instance casts once (its shard of the ResUNet), and
+    ``restore_batch`` on its float32 trees, cast on the call; the counts of
+    casts and of calls served, and the cast shard's shape."""
+    import torch
+    from voicefixer_tpu_torch.ops.precision import precision
+    from voicefixer_tpu_torch.parallel import distributed
+    from voicefixer_tpu_torch.parallel.mesh import make_mesh
+    from voicefixer_tpu_torch.pipeline.restore import restore_batch
+    vf = _vf(d, "small_tp", make_mesh(1, distributed.process_count()))
+    with np.load(os.path.join(d, "wav.npz")) as z:
+        wav = z["wav"]
+    with precision("production"):
+        once = [vf._restore_batch(wav)[0] for _ in range(2)]
+        per_call = restore_batch(vf.params, vf.vocoder_params,
+                                 torch.from_numpy(wav), vf.config,
+                                 mesh=vf.mesh)[0]
+        unet = vf._weights()[0]["unet"]
+    w = unet["enc2"]["block1"]["conv1"]["w"]
+    return {"once": np.stack(once), "per_call": per_call.float().numpy(),
+            "counts": np.array([vf.weight_casts.misses,
+                                vf.weight_casts.hits]),
+            "cast_shape": np.array(w.shape),
+            "cast_bf16": np.array(w.dtype == torch.bfloat16)}
+
+
 def case_tp_restore_inmem(d: str, argv: list) -> dict:
     """restore_inmem on a (1, world) mesh at small_tp_config, in one call
     (no cap on the CPU), then with ``rows_per_call`` patched to rank + 1
@@ -255,7 +282,8 @@ def case_bn_global(d: str, argv: list) -> dict:
 
 CASES = {"restore_wavs": case_restore_wavs, "sp": case_sp,
          "tp_restore": case_tp_restore,
-         "tp_restore_inmem": case_tp_restore_inmem, "train": case_train,
+         "tp_restore_inmem": case_tp_restore_inmem,
+         "tp_cast_once": case_tp_cast_once, "train": case_train,
          "bn_global": case_bn_global}
 
 

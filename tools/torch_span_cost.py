@@ -5,10 +5,10 @@ a span, with the profiler off and under ``torch.profiler`` (CPU and CUDA
 activities), each over --n spans less the same loop around
 ``contextlib.nullcontext``, the median of --reps; its parts
 (``record_function``, the NVTX push and pop, ``torch.cuda.is_available``)
-each alone; and what a request's per-call weight casts (``vf.cast``) cost
-at full width with random weights in production: the ResUNet's tree
-(``resunet._cast``) and the vocoder's (``tree_map(.to)``), each the
-median of --casts, by the host's clock (the call's return) and by CUDA
+each alone; and what the weight casts (``vf.cast``) cost at full width
+with random weights in production: the ResUNet's tree and the vocoder's
+(``utils.weights.cast_tree``: on every call for a caller's float32 tree,
+once for an instance), each the median of --casts, by the host's clock (the call's return) and by CUDA
 events (its kernels' span on the card), with the profiler off and, by
 the host's clock, under it. With --requests it also restores one 12 s
 clip in both precisions and one 8.5 min recording in production (17
@@ -82,14 +82,16 @@ def _cast_ms(reps: int) -> dict:
     from voicefixer_tpu_torch.ops.precision import precision
     from voicefixer_tpu_torch.pipeline.restore import VoiceFixer
     from voicefixer_tpu_torch.utils.weights import tree_map
+    try:
+        from voicefixer_tpu_torch.utils.weights import cast_tree
+    except ImportError:  # a checkout from before cast_tree
+        cast_tree = resunet._cast
     bf16 = torch.bfloat16
     with precision("production"):
         vf = VoiceFixer.random(19, DEFAULT_CONFIG,
                                device=torch.device("cuda", 0))
-    trees = {"resunet": (vf.params["unet"],
-                         lambda t: resunet._cast(t, bf16)),
-             "vocoder": (vf.vocoder_params,
-                         lambda t: tree_map(lambda x: x.to(bf16), t))}
+    trees = {"resunet": (vf.params["unet"], lambda t: cast_tree(t, bf16)),
+             "vocoder": (vf.vocoder_params, lambda t: cast_tree(t, bf16))}
     out = {}
     for name, (tree, cast) in trees.items():
         host, dev, prof_host = [], [], []

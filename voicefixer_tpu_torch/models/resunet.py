@@ -37,8 +37,8 @@ from voicefixer_tpu_torch.ops.conv import (avg_pool2d, batch_norm, conv2d,
 from voicefixer_tpu_torch.ops.precision import (activation_dtype,
                                                use_conv_block_kernel)
 from voicefixer_tpu_torch.parallel import tp
-from voicefixer_tpu_torch.utils.profiling import annotate
-from voicefixer_tpu_torch.utils.weights import tree_map, uniform
+from voicefixer_tpu_torch.utils.weights import (cast_tree, ensure_dtype,
+                                               uniform)
 
 
 def _conv_block_res(p: dict, x: torch.Tensor, slope: float,
@@ -59,15 +59,6 @@ def _conv_block_res(p: dict, x: torch.Tensor, slope: float,
     return x + h
 
 
-def _cast(tree, dtype: torch.dtype):
-    """tree's tensors in dtype; the fused kernel's operands ("packed", one
-    set a type) as they are."""
-    if isinstance(tree, dict):
-        return {k: v if k == "packed" else _cast(v, dtype)
-                for k, v in tree.items()}
-    return tree_map(lambda t: t.to(dtype), tree)
-
-
 def pack_conv_blocks(params: dict) -> dict:
     """A copy of the tree in which every folded ConvBlockRes of 3x3
     convolutions and at most ``convblock.MAX_CHANNELS`` channels carries
@@ -84,7 +75,7 @@ def pack_conv_blocks(params: dict) -> dict:
             and "scale" in out.get("bn2", {})
             and tuple(w.shape[:2]) == (3, 3)
             and max(w.shape[2:]) <= convblock.MAX_CHANNELS):
-        out["packed"] = {key: convblock.pack_operands(_cast(out, dt), dt)
+        out["packed"] = {key: convblock.pack_operands(cast_tree(out, dt), dt)
                          for dt, key in convblock.DTYPE_KEYS.items()}
     return out
 
@@ -115,13 +106,14 @@ def apply(params: dict, x: torch.Tensor, cfg: ResUNetConfig,
     """x: [B, T, 128, 2] log-mel stack -> [B, T, 128, 1]. Pads T to a
     multiple of 2^levels with zeros, drops the last freq bin, runs the
     U-Net, zero-pads the freq bin back and crops T. Production precision
-    runs it in bfloat16, except in training."""
+    runs it in bfloat16, except in training: on params as given where
+    ``utils.weights.cast_tree`` made them in bfloat16 (``VoiceFixer``'s, cast
+    once an instance), else cast on this call."""
     slope = cfg.leaky_slope
     in_dtype = x.dtype
     adt = activation_dtype()
     if not training and adt != x.dtype:
-        with annotate("vf.cast"):
-            params = _cast(params, adt)
+        params = ensure_dtype(params, adt)
         x = x.to(adt)
     origin_t = x.shape[1]
     ratio = cfg.downsample_ratio

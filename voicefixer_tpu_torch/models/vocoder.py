@@ -30,8 +30,7 @@ from voicefixer_tpu_torch.kernels.upsample import upsample
 from voicefixer_tpu_torch.ops.conv import (conv1d, elu, leaky_relu,
                                           reflection_pad1d)
 from voicefixer_tpu_torch.ops.precision import activation_dtype
-from voicefixer_tpu_torch.utils.profiling import annotate
-from voicefixer_tpu_torch.utils.weights import tree_map, uniform
+from voicefixer_tpu_torch.utils.weights import ensure_dtype, uniform
 
 
 def _res_stack(params: list, x: torch.Tensor, kernel: int, slope: float,
@@ -56,11 +55,12 @@ def _post_conv(params: dict, x: torch.Tensor) -> torch.Tensor:
 
 def apply(params: dict, mel: torch.Tensor, cfg: VocoderConfig) -> torch.Tensor:
     """mel: [B, T, n_mels] (normalized, +-4, tail-padded) -> waveform
-    [B, T*441, 1] in [-1, 1], in mel's type."""
+    [B, T*441, 1] in [-1, 1], in mel's type. params are cast to the
+    activation type on this call unless ``utils.weights.cast_tree`` made
+    them in it (the instances' trees, cast once)."""
     adt = activation_dtype()
     if adt != mel.dtype:
-        with annotate("vf.cast"):
-            params = tree_map(lambda t: t.to(adt), params)
+        params = ensure_dtype(params, adt)
     x = mel.to(adt)
     for layer in params["condnet"]:
         x = elu(conv1d(x, layer["w"], layer["b"], padding=1))

@@ -50,8 +50,7 @@ from voicefixer_tpu_torch.ops.norm import vocoder_normalize_mel
 from voicefixer_tpu_torch.ops.precision import activation_dtype
 from voicefixer_tpu_torch.parallel.mesh import (axis_group, axis_rank,
                                                 axis_size)
-from voicefixer_tpu_torch.utils.profiling import annotate
-from voicefixer_tpu_torch.utils.weights import tree_map
+from voicefixer_tpu_torch.utils.weights import ensure_dtype, tree_map
 
 
 def exchange_halo(shards, h: int, mesh=None):
@@ -178,7 +177,9 @@ def apply_sp(params, mel: torch.Tensor, cfg: VocoderConfig,
     card, and every rank returns the whole waveform. ``devices``: every
     shard in this process, shard i on ``devices[i]``; ``params`` may be one
     tree (moved to each device as needed) or a list of per-device copies.
-    The condnet and the pre-conv run on mel's device."""
+    A copy that ``utils.weights.cast_tree`` made in the activation type is
+    taken as it is, any other cast on this call. The condnet and the
+    pre-conv run on mel's device."""
     from voicefixer_tpu_torch.models.vocoder import _res_stack
     if (devices is None) == (mesh is None):
         raise ValueError("apply_sp takes devices= or mesh=, one of them")
@@ -197,8 +198,7 @@ def apply_sp(params, mel: torch.Tensor, cfg: VocoderConfig,
                    else [_on(params, d) for d in devices])
     adt = activation_dtype()
     if adt != mel.dtype:
-        with annotate("vf.cast"):
-            per_dev = [tree_map(lambda t: t.to(adt), p) for p in per_dev]
+        per_dev = [ensure_dtype(p, adt) for p in per_dev]
     p0 = _on(per_dev[0], mel.device)
     x = mel.to(adt)
     for layer in p0["condnet"]:

@@ -25,7 +25,8 @@ from voicefixer_tpu_torch.models import vocoder as vocoder_model
 from voicefixer_tpu_torch.ops.conv import fold_bn_eval
 from voicefixer_tpu_torch.ops.norm import from_log
 from voicefixer_tpu_torch.ops import stft as vstft
-from voicefixer_tpu_torch.ops.precision import (conv_block_kernel, tf32_off,
+from voicefixer_tpu_torch.ops.precision import (activation_dtype,
+                                               conv_block_kernel, tf32_off,
                                                use_conv_block_kernel)
 from voicefixer_tpu_torch.parallel import distributed, tp
 from voicefixer_tpu_torch.parallel.mesh import (axis_group, axis_size,
@@ -33,7 +34,8 @@ from voicefixer_tpu_torch.parallel.mesh import (axis_group, axis_size,
 from voicefixer_tpu_torch.parallel.sharding import shard_params
 from voicefixer_tpu_torch.pipeline import vocoder_facade
 from voicefixer_tpu_torch.utils.profiling import annotate
-from voicefixer_tpu_torch.utils.weights import convert_tree, tree_map
+from voicefixer_tpu_torch.utils.weights import (CastCache, cast_tree,
+                                              convert_tree, tree_map)
 
 EPS = 1e-8
 
@@ -158,6 +160,18 @@ def restore_segment(analysis_params: dict, vocoder_params: dict,
     return out[0], peaks[0]
 
 
+def _cast_weights(params: dict, vocoder_params, dtype: torch.dtype):
+    """The trees ``restore_batch`` takes in ``dtype``: the analysis tree
+    with its ResUNet cast (the denoiser casts nothing), the vocoder tree or
+    each per-device copy, a copy shared by devices cast once."""
+    params = {**params, "unet": cast_tree(params["unet"], dtype)}
+    if isinstance(vocoder_params, list):
+        casts = {id(p): p for p in vocoder_params}
+        casts = {k: cast_tree(p, dtype) for k, p in casts.items()}
+        return params, [casts[id(p)] for p in vocoder_params]
+    return params, cast_tree(vocoder_params, dtype)
+
+
 def resolve_device(device) -> torch.device:
     """None means CUDA: in a process group (``parallel.distributed``) this
     process's device. A CUDA device without a card raises: the port never
@@ -205,7 +219,16 @@ class VoiceFixer:
     instead of the library convolutions, their operands packed once here
     (``resunet.pack_conv_blocks``). Off by default, as in the JAX
     package. Under a model axis the blocks take the sliced library path
-    all the same (the kernel needs every channel)."""
+    all the same (the kernel needs every channel).
+
+    ``params`` and ``vocoder_params`` stay float32. In production precision
+    the instance casts the ResUNet's tree and the vocoder's (each
+    per-device copy) to bfloat16 once, on the first call in that type
+    (``weight_casts``, a ``utils.weights.CastCache``: its ``misses`` count
+    the casts, its ``hits`` the calls served from them), and again only
+    after ``params`` or ``vocoder_params`` is reassigned: like the folded
+    batch norms and the packed operands, the cast copies do not follow
+    in-place edits of the trees or their weights."""
 
     def __init__(self, params: dict | None = None,
                  vocoder_params: dict | None = None,
@@ -247,6 +270,7 @@ class VoiceFixer:
         else:
             self.vocoder_params = tree_map(lambda t: t.to(self.device),
                                            vocoder_params)
+        self.weight_casts = CastCache()
 
     @classmethod
     def random(cls, seed: int = 0, config: VoiceFixerConfig = DEFAULT_CONFIG,
@@ -266,16 +290,30 @@ class VoiceFixer:
                 torch.from_numpy(wav).to(self.device), self.config)
         return out.cpu().numpy()
 
+    def _weights(self, training: bool = False) -> tuple:
+        """(analysis tree, vocoder tree) for a call in the current
+        precision: the stored float32 trees where the activation type is
+        float32; else the instance's cast copies (``weight_casts``), the
+        analysis tree float32 in training, where the ResUNet does not
+        cast."""
+        adt = activation_dtype()
+        if adt == torch.float32:
+            return self.params, self.vocoder_params
+        params, vocoder_params = self.weight_casts.get(
+            adt, (self.params, self.vocoder_params), _cast_weights)
+        return (self.params if training else params), vocoder_params
+
     def _restore_batch_device(self, batch, training: bool = False,
                               generator: torch.Generator | None = None):
         """restore_batch of [B, N] chunks (numpy or a tensor) -> (outs
         [B, S], peaks [B]), float32 on the instance's device."""
         with annotate("vf.upload"):
             wav = torch.as_tensor(batch).to(self.device)
+        params, vocoder_params = self._weights(training)
         with conv_block_kernel(self.conv_block_kernel
                                or use_conv_block_kernel()):
             outs, peaks = restore_batch(
-                self.params, self.vocoder_params, wav, self.config,
+                params, vocoder_params, wav, self.config,
                 model_devices=self.model_devices, training=training,
                 generator=generator, mesh=self.mesh)
         return outs.float(), peaks.float()
@@ -329,7 +367,8 @@ class VoiceFixer:
                 conv_block_kernel(self.conv_block_kernel
                                   or use_conv_block_kernel()):
             mel = analysis.restore_mel(
-                self.params, torch.from_numpy(wav[None]).to(self.device),
+                self._weights(training)[0],
+                torch.from_numpy(wav[None]).to(self.device),
                 self.config, training=training, generator=generator)
             return from_log(mel)[:, None]
 

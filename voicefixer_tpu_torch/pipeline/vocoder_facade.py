@@ -17,7 +17,8 @@ from voicefixer_tpu_torch.models import vocoder as vocoder_model
 from voicefixer_tpu_torch.ops import mel as vmel
 from voicefixer_tpu_torch.ops import stft as vstft
 from voicefixer_tpu_torch.ops.norm import vocoder_normalize_mel
-from voicefixer_tpu_torch.ops.precision import tf32_off
+from voicefixer_tpu_torch.ops.precision import activation_dtype, tf32_off
+from voicefixer_tpu_torch.utils.weights import CastCache, cast_tree
 
 
 def pad_tail(mel: torch.Tensor, pad_value: float) -> torch.Tensor:
@@ -48,7 +49,10 @@ class Vocoder:
     ckpt: a vocoder checkpoint (npz or torch), resolved as
     ``pipeline.checkpoints.load_vocoder_params`` does; params: the port's
     vocoder tree instead. device: None means CUDA, and raises without a
-    card; pass "cpu" for the plain versions."""
+    card; pass "cpu" for the plain versions.
+
+    ``params`` stays float32; production precision casts it to bfloat16
+    once an instance, as ``VoiceFixer`` does (``weight_casts``)."""
 
     def __init__(self, sample_rate: int = 44100, ckpt: str | None = None,
                  params: dict | None = None,
@@ -68,6 +72,7 @@ class Vocoder:
                 checkpoints.load_vocoder_params(ckpt, download=download),
                 "vocoder", self.device)
         self.params = tree_map(lambda t: t.to(self.device), params)
+        self.weight_casts = CastCache()
 
     @classmethod
     def random(cls, seed: int = 0, config: VoiceFixerConfig = DEFAULT_CONFIG,
@@ -80,9 +85,12 @@ class Vocoder:
                    config=config, device=device)
 
     def _synthesize(self, mel: torch.Tensor, divide_weight: bool):
+        adt = activation_dtype()
+        params = (self.params if adt == torch.float32 else
+                  self.weight_casts.get(adt, (self.params,), cast_tree))
         with tf32_off(), torch.inference_mode(), \
                 kernels.current_device(self.device):
-            wav = synthesize(self.params, mel, self.config.vocoder,
+            wav = synthesize(params, mel, self.config.vocoder,
                              divide_weight=divide_weight)
         return wav[..., 0].float().cpu().numpy()  # [B, S]
 

@@ -16,6 +16,8 @@ import re
 import numpy as np
 import torch
 
+from voicefixer_tpu_torch.utils.profiling import annotate
+
 # ------------------------------------------------ torch checkpoint -> tree
 #
 # An own copy of ``voicefixer_tpu/utils/weights.py``'s converters, numpy
@@ -197,6 +199,72 @@ def tree_map(fn, tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+# ---------------------------------------- weight trees in the activation type
+
+
+class CastTree(dict):
+    """A weight tree that ``cast_tree`` put in ``dtype``. The models' apply
+    functions take it as it is, on one check of this marker, where they
+    cast any other tree's hundreds of leaves on every call."""
+
+    def __init__(self, tree: dict, dtype: torch.dtype):
+        super().__init__(tree)
+        self.dtype = dtype
+
+
+def cast_tree(tree, dtype: torch.dtype):
+    """tree's tensors in dtype, a dict marked a ``CastTree``; the fused
+    kernel's operands ("packed", one set a type,
+    ``resunet.pack_conv_blocks``) as they are."""
+    def cast(t):
+        if isinstance(t, dict):
+            return {k: v if k == "packed" else cast(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(cast(v) for v in t)
+        return t.to(dtype)
+    out = cast(tree)
+    return CastTree(out, dtype) if isinstance(out, dict) else out
+
+
+def ensure_dtype(tree, dtype: torch.dtype):
+    """tree in dtype: itself where ``cast_tree`` made it in dtype, else a
+    new cast in a ``vf.cast`` span (a caller's float32 tree, cast on every
+    call)."""
+    if isinstance(tree, CastTree) and tree.dtype == dtype:
+        return tree
+    with annotate("vf.cast"):
+        return cast_tree(tree, dtype)
+
+
+class CastCache:
+    """An instance's weight trees in an activation type, cast once a type
+    and then reused: ``get`` builds the entry on the first call in that
+    type, in a ``vf.cast`` span, and serves later calls by a lookup while
+    the instance holds the same source trees (by identity: a reassigned
+    tree rebuilds the entry). Like ``fold_bn_eval``'s (scale, shift) and
+    ``pack_conv_blocks``' operands, an entry does not follow in-place edits
+    of the weights. ``misses`` counts the entries built, ``hits`` the calls
+    served from one."""
+
+    def __init__(self):
+        self._entries: dict = {}
+        self.misses = 0
+        self.hits = 0
+
+    def get(self, dtype: torch.dtype, sources: tuple, build):
+        """build(*sources, dtype), made once while ``sources`` stay."""
+        entry = self._entries.get(dtype)
+        if entry is not None and all(a is b for a, b in zip(entry[0],
+                                                            sources)):
+            self.hits += 1
+            return entry[1]
+        with annotate("vf.cast"):
+            trees = build(*sources, dtype)
+        self._entries[dtype] = (sources, trees)
+        self.misses += 1
+        return trees
 
 
 def uniform(shape, bound: float, generator: torch.Generator,
