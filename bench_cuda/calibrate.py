@@ -9,8 +9,9 @@ once):
 Each seed is one run of the cell (``harness.run_cell``) with the stand-in
 in the program's place: the program itself, the control (the reference
 one step below the configuration's precision, ``control.py``), or the
-program with a fault planted. It prints one JSON line a seed with the
-numbers compared. The benchmark's own runs never run this.
+program with a fault of its family's ``FAULTS`` planted. It prints one
+JSON line a seed with the numbers compared. The benchmark's own runs
+never run this.
 """
 
 import argparse
@@ -27,22 +28,22 @@ def main() -> int:
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seeds", type=int, nargs="+", required=True)
     ap.add_argument("--seconds", type=float, default=8.0)
-    from bench_cuda import control
     ap.add_argument("--stand-in", default="program",
-                    choices=("program", "control") + control.KINDS)
+                    help="program, control or a fault of the family")
     args = ap.parse_args()
     import torch
-    from bench_cuda import harness, spec
+    from bench_cuda import control, harness, spec
     if not torch.cuda.is_available():
         print("no CUDA card", file=sys.stderr)
         return 2
+    bench = spec.benchmark()
     if args.stand_in == "program":
         make = None
     elif args.stand_in == "control":
         make = control.ControlProgram
     else:
-        make = control.faulty(args.stand_in)
-    bench = spec.benchmark()
+        cfg = spec.config(spec.cell(bench, args.workload)["config"])
+        make = control.faulty(args.stand_in, spec.family(cfg["family"]))
     for seed in args.seeds:
         t0 = time.perf_counter()
         r = harness.run_cell(bench, args.workload, seed, args.seconds, False,

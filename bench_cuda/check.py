@@ -1,25 +1,16 @@
 """What decides ``correct``: the answers the timed window produced, held to
-the plain reference (``reference/model.py``) in float32 with TF32 off.
+the family's plain reference in float32 with TF32 off.
 
 From the window, ``Reservoir`` keeps a uniform sample of the answers,
 drawn from the seed. Once the window has closed and the program is freed,
-the reference restores the same inputs, with weights drawn again from the
-same seed, and these numbers are compared, each with its limit:
-
-- ``rel_err``: the worst over the sampled segments of
-  ||program - reference|| / ||reference||, each 30 s segment cut from the
-  program's whole answer at its own offset, so segmenting, padding, the
-  peak cap, the centre trim and the concatenation are compared with the
-  analysis stage and the vocoder. Of a long answer at most ``segments``
-  segments are compared, the last, padded one always among them.
-- ``wrong_length``: answers whose length is not the input's;
-  ``nonfinite``: samples that are NaN or infinite; ``failed``: requests
-  that raised. Each has the limit 0.
-- ``err_ratio`` (answers of a bfloat16 configuration): the
-  worst over the segments of ``rel_err`` over the same of the reference
-  computed in the configuration's own precision. A weight draw that
-  amplifies rounding moves the program's error and the control's alike,
-  so ``rel_err`` alone does not separate them; this ratio does.
+the reference answers the same inputs, with weights drawn again from the
+same seed, and the family's ``compare`` gives the numbers compared
+(``families/voicefixer.py``: ``rel_err`` over sampled 30 s segments and
+``err_ratio``). An entry point whose answer is not the reference's
+``restore`` brings its own ``expected``, and then whole answers are
+compared here. Besides, ``wrong_length``: answers whose length is not the
+input's (or that are missing); ``nonfinite``: samples that are NaN or
+infinite; ``failed``: requests that raised. Each of these has the limit 0.
 
 The configuration's file names the numbers compared and their limits
 (``limits``); the other readings are printed beside them.
@@ -28,11 +19,6 @@ The configuration's file names the numbers compared and their limits
 from __future__ import annotations
 
 import numpy as np
-import torch
-
-from bench_cuda.reference.model import pad_to
-
-BLOCK_ROWS = 8
 
 
 class Reservoir:
@@ -59,75 +45,48 @@ class Reservoir:
         return False
 
 
-def segments_to_compare(n_segments: int, k: int,
-                        rng: np.random.Generator) -> list:
-    """The last segment and up to k - 1 others drawn by rng, in order."""
-    others = list(range(n_segments - 1))
-    pick = rng.choice(others, size=min(k - 1, len(others)), replace=False) \
-        if k > 1 and others else []
-    return sorted(int(i) for i in pick) + [n_segments - 1]
-
-
-def _rel(p: np.ndarray, r: np.ndarray) -> float:
+def rel(p: np.ndarray, r: np.ndarray) -> float:
+    """||p - r|| / ||r|| in float64."""
     p, r = p.astype(np.float64), r.astype(np.float64)
     return float(np.linalg.norm(p - r) / max(np.linalg.norm(r), 1e-30))
 
 
-def readings(ref, kept: list, seg_per: int, rng, own=None,
-             expected=None) -> dict:
-    """kept: [(input waves, the program's answers)], a pair a request.
-    With ``own``, the reference in the configuration's own precision, also
-    ``err_ratio``: the worst over the segments of the program's
-    ``rel_err`` over the own-precision reference's, which takes out how
-    far a weight draw amplifies rounding, the same on both sides.
-    ``expected(reference, wave)``, an entry point's own reference answer,
-    replaces upstream's ``restore_inmem`` in mode 0, whole answers
-    compared."""
-    rel, ratio, wrong, nonfinite = 0.0, 0.0, 0, 0
-    pairs = []
-    for waves, answers in kept:
-        wrong += abs(len(waves) - len(answers))
-        pairs += [(w, np.asarray(a)) for w, a in zip(waves, answers)]
-    if expected is not None:
-        for wav, out in pairs:
-            want = expected(ref, wav)
-            if out.shape != want.shape:
-                wrong += 1
-                continue
-            nonfinite += int(np.count_nonzero(~np.isfinite(out)))
-            rel = max(rel, _rel(out, want))
-            if own:
-                ratio = max(ratio, _rel(out, want) / max(
-                    _rel(expected(own, wav), want), 1e-30))
-        return _readings(rel, ratio if own else None, wrong, nonfinite)
-    seg = ref.cfg.pipeline.seg_length
-    todo = []  # (answer slice, input row, cut)
-    for wav, out in pairs:
-        if out.shape != wav.shape:
+def pairs(kept: list) -> tuple:
+    """kept: [(inputs, the program's answers)], a pair a request ->
+    ([(input, answer as numpy)], answers missing or extra)."""
+    wrong, out = 0, []
+    for inputs, answers in kept:
+        wrong += abs(len(inputs) - len(answers))
+        out += [(x, np.asarray(a)) for x, a in zip(inputs, answers)]
+    return out, wrong
+
+
+def whole_answers(ref, kept: list, expected, own=None) -> dict:
+    """The numbers of ``correct`` for the kept (inputs, answers) pairs of
+    an entry point that brings ``expected(reference, input)``: every
+    answer held whole to it. ``own``, the reference in the
+    configuration's own precision, adds ``err_ratio``: the worst of the
+    program's ``rel_err`` over the own-precision reference's, which takes
+    out how far a weight draw amplifies rounding, the same on both
+    sides."""
+    err, ratio, nonfinite = 0.0, 0.0, 0
+    done, wrong = pairs(kept)
+    for x, out in done:
+        want = expected(ref, x)
+        if out.shape != want.shape:
             wrong += 1
             continue
         nonfinite += int(np.count_nonzero(~np.isfinite(out)))
-        n_seg = -(-wav.shape[0] // seg)
-        for s in segments_to_compare(n_seg, seg_per, rng):
-            n = min(seg, wav.shape[0] - s * seg)
-            todo.append((out[s * seg: s * seg + n],
-                         pad_to(wav[s * seg: (s + 1) * seg], seg), n))
-    for i in range(0, len(todo), BLOCK_ROWS):
-        block = todo[i: i + BLOCK_ROWS]
-        rows = torch.as_tensor(np.stack([r for _, r, _ in block]),
-                               device=ref.device)
-        res = ref.restore_rows(rows).cpu().numpy()
-        mine = own.restore_rows(rows).cpu().numpy() if own else res
-        for (got, _, n), want, near in zip(block, res, mine):
-            rel = max(rel, _rel(got, want[:n]))
-            if own:
-                ratio = max(ratio, _rel(got, want[:n])
-                            / max(_rel(near[:n], want[:n]), 1e-30))
-    return _readings(rel, ratio if own else None, wrong, nonfinite)
+        err = max(err, rel(out, want))
+        if own:
+            ratio = max(ratio, rel(out, want) / max(
+                rel(expected(own, x), want), 1e-30))
+    return as_readings(err, ratio if own else None, wrong, nonfinite)
 
 
-def _readings(rel, ratio, wrong, nonfinite) -> dict:
-    out = {"rel_err": rel}
+def as_readings(rel_err, ratio, wrong, nonfinite) -> dict:
+    """The readings in the order the result line gives them."""
+    out = {"rel_err": rel_err}
     if ratio is not None:
         out["err_ratio"] = ratio
     return out | {"wrong_length": wrong, "nonfinite": nonfinite}
@@ -140,11 +99,14 @@ def judge(readings: dict, failed: int, limits: dict) -> tuple:
     """(correct, checks, others): the numbers the configuration's
     ``limits`` name, and the counts, each with its limit; the readings it
     does not name are returned apart, to be printed. A run in which no
-    error number is compared is not correct."""
+    error number is compared, or that lacks a number the limits name
+    (its value None), is not correct."""
     readings = readings | {"failed": failed}
+    missing = {k: None for k in limits if k not in readings}
     checks = {k: {"value": v, "limit": limits.get(k, 0)}
-              for k, v in readings.items() if k in limits or k in COUNTS}
+              for k, v in (readings | missing).items()
+              if k in limits or k in COUNTS}
     others = {k: v for k, v in readings.items() if k not in checks}
-    correct = (len(checks) > len(COUNTS)
+    correct = (len(checks) > len(COUNTS) and not missing
                and all(c["value"] <= c["limit"] for c in checks.values()))
     return correct, checks, others

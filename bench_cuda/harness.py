@@ -1,11 +1,16 @@
 """One run of one cell: set-up, the measured window, the traced sample,
 the comparison that decides ``correct``, the result line.
 
+Everything specific to one architecture comes from the family that the
+cell's configuration names (``families/<family>.py``, whose docstring
+lists the hooks): the configuration's sizes, the weights, the program,
+the inputs, what a request counts, the reference and the comparison.
+
 Set-up (``setup_s``, from the process's start to the first timed
-request): the program's import, the recordings and the weights drawn on
-the device from the seed, the program's loader and ``VoiceFixer``, and
-``warmup`` requests of the cell's own traffic, which build the kernels on
-a checkout's first run and warm every shape the window uses.
+request): the program's import, the inputs and the weights drawn on the
+device from the seed, the family's program, and ``warmup`` requests of
+the cell's own traffic, which build the kernels on a checkout's first run
+and warm every shape the window uses.
 
 A request goes through the entry point the mix names
 (``entries/<entry>.py``) with the mix's ``kwargs``.
@@ -21,6 +26,7 @@ are read from the (unprofiled) window.
 from __future__ import annotations
 
 import bisect
+import functools
 import gc
 import sys
 import time
@@ -30,14 +36,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from bench_cuda import check, generator, model_config, spec, trace, weights
+from bench_cuda import check, generator, spec, trace
 from bench_cuda.frozen import work
-from bench_cuda.reference.model import Reference
+from bench_cuda.weights import to_host
 
 LOOK_BACK = 64  # events searched back for the one around a time
-# the reference's numerics for a configuration's own precision, where that
-# is below float32 (check.readings' err_ratio)
-OWN = {"parity": None, "production": "bf16"}
 
 
 @dataclass
@@ -52,10 +55,11 @@ class Request:
 
 @dataclass
 class Run:
-    """What the metric readers read: the configuration, the cell and its
-    mix, the window's requests (host clock), the traced sample's record
-    and the window's peak of allocated memory."""
-    cfg: object                 # model_config.namespace
+    """What the metric readers read: the family, the configuration, the
+    cell and its mix, the window's requests (host clock), the traced
+    sample's record and the window's peak of allocated memory."""
+    family: object              # the module families/<family>.py
+    cfg: object                 # family.namespace
     cell: dict
     mix: dict
     setup_s: float
@@ -68,7 +72,7 @@ class Run:
 
 class Entry:
     """The cell's entry point over the pool: ``__call__(items)`` sends the
-    recordings ``items`` as one request and returns the answers."""
+    inputs ``items`` as one request and returns the answers."""
 
     def __init__(self, mix: dict, pool: list, prog, base):
         self.pool, self.prog = pool, prog
@@ -87,14 +91,15 @@ def _sync(device):
 
 
 def closed_loop(entry: Entry, mix: dict, order, seconds: float,
-                reservoir, sample_rate: int, seg_length: int):
+                reservoir, units):
     """Requests back to back, cycling through ``order``, until ``seconds``
-    have passed. Returns ([Request], start, end)."""
+    have passed; ``units(input) -> (audio_s, segments)``. Returns
+    ([Request], start, end)."""
     out, told = [], False
     t0 = time.perf_counter()
     while not out or out[-1].end - t0 < seconds:
         items = generator.request(mix, order, len(out))
-        lens = [entry.pool[i].shape[0] for i in items]
+        counts = [units(entry.pool[i]) for i in items]
         start = time.perf_counter()
         try:
             answers = entry(items)
@@ -105,8 +110,8 @@ def closed_loop(entry: Entry, mix: dict, order, seconds: float,
                 told = True
             answers, ok = None, False
         end = time.perf_counter()
-        out.append(Request(items, start, end, sum(lens) / sample_rate,
-                           sum(-(-n // seg_length) for n in lens), ok))
+        out.append(Request(items, start, end, sum(a for a, _ in counts),
+                           sum(n for _, n in counts), ok))
         if ok and reservoir is not None:
             reservoir.offer(lambda: ([entry.pool[i] for i in items],
                                      answers))
@@ -114,7 +119,7 @@ def closed_loop(entry: Entry, mix: dict, order, seconds: float,
 
 
 def traced_sample(entry: Entry, mix: dict, order, first: int, n: int,
-                  sample_rate: int, seg_length: int, cuda: bool):
+                  units, cuda: bool):
     """n requests after the window under the profiler, each inside a
     "bench.request" range -> trace.Record."""
     reqs = [generator.request(mix, order, first + k) for k in range(n)]
@@ -124,10 +129,9 @@ def traced_sample(entry: Entry, mix: dict, order, first: int, n: int,
             with torch.profiler.record_function("bench.request"):
                 entry(items)
     _, events = trace.capture(sample, cuda=cuda)
-    lens = [[entry.pool[i].shape[0] for i in items] for items in reqs]
-    return trace.Record(events,
-                        [sum(-(-m // seg_length) for m in ls) for ls in lens],
-                        [sum(ls) / sample_rate for ls in lens])
+    counts = [[units(entry.pool[i]) for i in items] for items in reqs]
+    return trace.Record(events, [sum(n for _, n in c) for c in counts],
+                        [sum(a for a, _ in c) for c in counts])
 
 
 class _HostIndex:
@@ -174,21 +178,23 @@ def breakdown(record: trace.Record) -> dict:
 def run_cell(bench: dict, cell_name: str, seed: int, seconds: float,
              traced: bool, device, t_start: float, make_program=None,
              base=spec.HERE) -> dict:
-    """One run; returns the result line as a dict."""
-    if make_program is None:
-        from bench_cuda.program import Program as make_program
+    """One run; returns the result line as a dict. ``make_program(family,
+    cfg, state, device)``, where given, stands in for the family's
+    program (the control, a fault)."""
     cell = spec.cell(bench, cell_name)
     cfg_json = spec.config(cell["config"], base)
+    family = spec.family(cfg_json["family"], base)
     mix = spec.traffic(cell["traffic"], base)
     generator.validate(mix)
-    cfg = model_config.namespace(cfg_json)
-    sr, seg = cfg.pipeline.sample_rate, cfg.pipeline.seg_length
+    cfg = family.namespace(cfg_json)
     cuda = torch.device(device).type == "cuda"
 
-    pool = generator.recordings(mix, seed, sr, device)
+    units = functools.partial(family.units, cfg)
+    pool = family.inputs(mix, seed, cfg, device)
     order = generator.order(mix, seed)
-    host = weights.to_host(weights.draw(cfg, seed, device))
-    prog = make_program(cfg_json, *host, device)
+    host = to_host(family.draw(cfg, seed, device))
+    prog = (family.program(cfg_json, host, device) if make_program is None
+            else make_program(family, cfg_json, host, device))
     del host
     rng = np.random.default_rng([int(seed), 11])
     entry = Entry(mix, pool, prog, base)
@@ -199,12 +205,12 @@ def run_cell(bench: dict, cell_name: str, seed: int, seconds: float,
         torch.cuda.reset_peak_memory_stats(device)
     setup_s = time.perf_counter() - t_start
     keep = check.Reservoir(mix["check"]["requests"], rng)
-    window, w0, w1 = closed_loop(entry, mix, order, seconds, keep, sr, seg)
+    window, w0, w1 = closed_loop(entry, mix, order, seconds, keep, units)
     peak_window = torch.cuda.max_memory_allocated(device) if cuda else 0
     record = None
     if traced:
         record = traced_sample(entry, mix, order, len(window),
-                               mix["trace_requests"], sr, seg, cuda)
+                               mix["trace_requests"], units, cuda)
     memory_peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     prog.close()
     del prog, entry
@@ -212,20 +218,24 @@ def run_cell(bench: dict, cell_name: str, seed: int, seconds: float,
     if cuda:
         torch.cuda.empty_cache()
 
-    an, vo = weights.draw(cfg, seed, device)
-    ref = Reference(an, vo, cfg)
-    own = (Reference(an, vo, cfg, OWN[cfg.precision])
-           if OWN[cfg.precision] else None)
+    state = family.draw(cfg, seed, device)
+    ref = family.reference(state, cfg)
+    numerics = family.OWN[cfg_json["precision"]]
+    own = family.reference(state, cfg, numerics) if numerics else None
     judge = getattr(spec.entry(mix["entry"], base), "expected", None)
     kwargs = mix.get("kwargs", {})
-    readings = check.readings(
-        ref, keep.items, mix["check"]["segments"], rng, own,
-        None if judge is None else lambda r, w: judge(r, w, kwargs))
+    if judge is None:
+        readings = family.compare(ref, own, keep.items, rng,
+                                  mix["check"]["segments"])
+    else:
+        readings = check.whole_answers(
+            ref, keep.items, lambda r, x: judge(r, x, kwargs), own)
     failed = sum(not r.ok for r in window)
     correct, checks, others = check.judge(readings, failed,
                                           cfg_json["limits"])
 
-    run = Run(cfg, cell, mix, setup_s, window, w0, w1, peak_window, record)
+    run = Run(family, cfg, cell, mix, setup_s, window, w0, w1, peak_window,
+              record)
     metrics = {}
     for m in spec.metrics_of(bench, cell_name, traced):
         value = spec.reader(m["name"], base).read(run)

@@ -1,11 +1,12 @@
-"""mfu (model step: the whole restore), in %: the window's segments times
-the frozen analytic FLOPs of one segment (``frozen/flops.py``, the JAX
-package's formulation) over the window's wall time, as a share of one
-H100's peak for the configuration's precision (989 TFLOP/s dense bf16
-for production, 67 TFLOP/s float32 for parity; ``frozen/work.py``). Read
-from the window, which the profiler does not record."""
+"""mfu (model step: the whole request), in %: the window's segments times
+the FLOPs of one segment (the family's ``flops_per_segment``; VoiceFixer's
+is the frozen analytic count of ``frozen/flops.py``, the JAX package's
+formulation) over the window's wall time, as a share of one H100's peak
+for the configuration's precision (989 TFLOP/s dense bf16 for production,
+67 TFLOP/s float32 for parity; ``frozen/work.py``). Read from the window,
+which the profiler does not record."""
 
-from bench_cuda.frozen import flops, work
+from bench_cuda.frozen import work
 
 
 def read(run):
@@ -14,7 +15,6 @@ def read(run):
         return None
     peak = (work.PEAK_BF16 if run.cfg.precision == "production"
             else work.PEAK_FP32)
-    per_segment = flops.pipeline_flops(run.cfg,
-                                       run.cfg.pipeline.seg_length_seconds)
+    per_segment = run.family.flops_per_segment(run.cfg)
     rate = segments * per_segment / (run.window_end - run.window_start)
     return 100.0 * rate / peak

@@ -2,14 +2,16 @@
 
 - a cell: one entry of ``workloads`` in ``BENCHMARK.json``;
 - a configuration: ``configs/<config>.json``;
+- the model family a configuration names (its ``family`` key): a module
+  ``families/<family>.py`` with everything specific to one architecture;
 - a traffic mix: ``traffic/<traffic>.json``;
 - the program's entry point a mix names: ``entries/<entry>.py``;
 - a metric's reader: ``metrics/<name>.py``, else ``metrics/<base>.py``
   where ``<base>`` is the name before its first dot, so that
   ``mfu.rate`` and ``mfu.latency`` share ``metrics/mfu.py``.
 
-A later change adds a cell, a configuration, a mix or a metric by adding
-files and entries; no file here needs an edit.
+A later change adds a cell, a configuration, a model family, a mix or a
+metric by adding files and entries; no file here needs an edit.
 """
 
 from __future__ import annotations
@@ -73,9 +75,22 @@ def reader(metric: str, base: Path = HERE):
                             f"{base / 'metrics'}")
 
 
+def family(name: str, base: Path = HERE):
+    """The module of the model family ``name``: the hooks that
+    ``families/voicefixer.py`` documents, through which the harness, the
+    check, the control and the readers reach everything specific to one
+    architecture."""
+    mod = _module("families", name, base)
+    if mod is None:
+        raise FileNotFoundError(f"no family {name!r} under "
+                                f"{base / 'families'}")
+    return mod
+
+
 def entry(name: str, base: Path = HERE):
     """The module of the entry point ``name``; it defines
-    ``validate(kwargs)`` and ``call(vf, waves, kwargs) -> [answer]``."""
+    ``validate(kwargs)`` and ``call(system, inputs, kwargs) -> [answer]``,
+    ``system`` being what the family's program serves."""
     mod = _module("entries", name, base)
     if mod is None:
         raise FileNotFoundError(f"no entry {name!r} under "

@@ -1,8 +1,8 @@
 """The benchmark at narrow widths for the CPU tests: a copy of the
 benchmark's files in a temporary directory in which every configuration
-keeps upstream's structure (6 U-Net levels of 4 blocks, 4 vocoder stages
-of 8 blocks, which the program's loader needs) at small widths and 1 s
-segments, and every mix asks for short recordings."""
+goes through its family's ``narrow`` (VoiceFixer's keeps upstream's
+structure at small widths and 1 s segments; a family without ``narrow``
+keeps its file as it is), and every mix asks for short recordings."""
 
 from __future__ import annotations
 
@@ -18,28 +18,25 @@ SHORT = {"longform": {"dist": "uniform", "min": 3.2, "max": 3.6},
          "interactive": {"dist": "log_uniform", "min": 0.2, "max": 1.0}}
 
 
-def narrow_config(cfg: dict) -> dict:
-    cfg = copy.deepcopy(cfg)
-    cfg["denoiser"]["base_width"] = 8
-    cfg["unet"].update(encoder_channels=[2, 4, 4, 8, 8, 8],
-                       blocks_per_stage=4, center_channels=8)
-    cfg["vocoder"].update(cond_channels=16, channels=32)
-    cfg["pipeline"]["seg_length_seconds"] = 1
-    return cfg
+def narrow_config(cfg: dict, base: Path = spec.HERE) -> dict:
+    """``cfg`` through the ``narrow`` of its family under ``base``, or a
+    copy of it where the family has none."""
+    hook = getattr(spec.family(cfg["family"], base), "narrow", None)
+    return hook(cfg) if hook else copy.deepcopy(cfg)
 
 
-def make_base(tmp: Path) -> Path:
-    """The narrow copy of ``bench_cuda``'s configs, traffic, entries and
+def make_base(tmp: Path, src: Path = spec.HERE) -> Path:
+    """The narrow copy of ``src``'s configs, traffic, families, entries and
     metrics under ``tmp``."""
     base = tmp / "bench"
-    for d in ("metrics", "entries"):
-        shutil.copytree(spec.HERE / d, base / d)
+    for d in ("metrics", "entries", "families"):
+        shutil.copytree(src / d, base / d)
     (base / "configs").mkdir()
     (base / "traffic").mkdir()
-    for path in (spec.HERE / "configs").glob("*.json"):
-        cfg = narrow_config(json.loads(path.read_text()))
+    for path in (src / "configs").glob("*.json"):
+        cfg = narrow_config(json.loads(path.read_text()), base)
         (base / "configs" / path.name).write_text(json.dumps(cfg))
-    for path in (spec.HERE / "traffic").glob("*.json"):
+    for path in (src / "traffic").glob("*.json"):
         mix = json.loads(path.read_text())
         mix["seconds"] = SHORT.get(path.stem, SHORT["interactive"])
         mix["pool"] = min(mix["pool"], 4)

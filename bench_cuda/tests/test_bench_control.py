@@ -8,8 +8,9 @@ import pytest
 import torch
 
 from bench_cuda import control, spec
-from bench_cuda.program import Program
 from bench_cuda.tests import narrow
+
+FAMILY = spec.family("voicefixer")
 
 
 @pytest.fixture(scope="module")
@@ -37,13 +38,13 @@ def test_the_control_is_not_correct(base, cell):
     ("fp32-interactive", "post_bias_dropped"),
     ("fp32-interactive", "pre_bias_dropped")])
 def test_a_broken_timed_path_is_not_correct(base, cell, fault):
-    r = narrow.run(base, cell, make_program=control.faulty(fault))
+    r = narrow.run(base, cell, make_program=control.faulty(fault, FAMILY))
     assert not r["correct"], r["checks"]
 
 
 def test_an_unknown_fault_is_refused():
     with pytest.raises(KeyError):
-        control.faulty("slow")
+        control.faulty("slow", FAMILY)
 
 
 @pytest.mark.parametrize("cell", ["bf16-longform", "fp32-interactive"])
@@ -72,8 +73,8 @@ def test_a_cell_of_new_files_alone_runs_and_is_correct(base):
     bench["end_to_end"][0]["workloads"].append("fp32-dataset")
     made = []
 
-    def make(*a):
-        prog = Program(*a)
+    def make(family, *a):
+        prog = family.program(*a)
         made.append(prog.vf.conv_block_kernel)
         return prog
     r = narrow.run(base, "fp32-dataset", bench=bench, make_program=make)

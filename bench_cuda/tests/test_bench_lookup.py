@@ -1,6 +1,7 @@
 """BENCHMARK.json keeps to the benchmark's contract, and the harness finds
 every piece of a cell by name from files alone, so a later change adds a
-configuration, a mix, a metric or a cell with new files and entries."""
+configuration, a model family, a mix, a metric or a cell with new files
+and entries."""
 
 import dataclasses
 import json
@@ -37,7 +38,7 @@ def test_benchmark_json_keeps_to_the_contract():
     for w in b["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
         assert w["chips"] == 1 and 0 < len(w["why"]) <= 200
-        spec.config(w["config"])
+        spec.family(spec.config(w["config"])["family"])
         spec.traffic(w["traffic"])
     for m in metrics:
         assert UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
@@ -70,6 +71,7 @@ def test_configs_hold_upstreams_widths_as_the_program_runs_them(name):
     from voicefixer_tpu_torch.config import DEFAULT_CONFIG
     cfg = spec.config(name)
     assert program_config(cfg) == DEFAULT_CONFIG
+    assert cfg["family"] == "voicefixer"
     assert cfg["precision"] == ("production" if "bf16" in name
                                 else "parity")
     assert cfg["limits"]
@@ -81,7 +83,7 @@ def test_configs_hold_upstreams_widths_as_the_program_runs_them(name):
 
 def test_a_new_config_mix_metric_and_cell_are_found_by_name(tmp_path):
     base = tmp_path / "bench"
-    for d in ("configs", "traffic", "metrics", "entries"):
+    for d in ("configs", "traffic", "metrics", "entries", "families"):
         (base / d).mkdir(parents=True)
     (base / "configs" / "new-model.json").write_text(
         json.dumps({"precision": "parity"}))
@@ -102,6 +104,10 @@ def test_a_new_config_mix_metric_and_cell_are_found_by_name(tmp_path):
     assert spec.entry("stream", base).call(None, [1], {}) == [1]
     with pytest.raises(FileNotFoundError):
         spec.entry("absent", base)
+    (base / "families" / "tiny.py").write_text("SYMBOLS = ('tiny_kernel',)\n")
+    assert spec.family("tiny", base).SYMBOLS == ("tiny_kernel",)
+    with pytest.raises(FileNotFoundError):
+        spec.family("absent", base)
     bench = json.loads(json.dumps(BENCH))
     bench["workloads"].append({"name": "new-cell", "config": "new-model",
                                "traffic": "bursty", "chips": 1, "why": "x"})

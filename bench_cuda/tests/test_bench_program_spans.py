@@ -4,10 +4,11 @@ known values, and what ``harness.breakdown`` names by those spans."""
 
 import pytest
 
-from bench_cuda import harness, model_config, spec, trace
+from bench_cuda import harness, spec, trace
 from bench_cuda.tests.test_bench_metrics import _chrome as _no_program_spans
 
-CFG = model_config.namespace(spec.config("voicefixer-44k-bf16"))
+FAMILY = spec.family("voicefixer")
+CFG = FAMILY.namespace(spec.config("voicefixer-44k-bf16"))
 NEW = ("transfer_ms.rate", "transfer_ms.latency", "plan_stitch_ms.rate",
        "plan_stitch_ms.latency", "weight_cast_ms.latency",
        "rows_per_call.rate")
@@ -77,7 +78,7 @@ def _run(events, segments=(2, 1)):
     rec = trace.Record(trace.from_chrome(events), list(segments),
                        [30.0 * n for n in segments])
     window = [harness.Request([0], 0.0, 1.0, 60.0, 2, True)]
-    return harness.Run(CFG, {}, {}, 10.0, window, 0.0, 1.0, 0, rec)
+    return harness.Run(FAMILY, CFG, {}, {}, 10.0, window, 0.0, 1.0, 0, rec)
 
 
 def read(name, run):

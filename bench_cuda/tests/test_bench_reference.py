@@ -6,7 +6,7 @@ import pytest
 import torch
 
 from bench_cuda import model_config, program, spec, weights
-from bench_cuda.check import _rel
+from bench_cuda.check import rel
 from bench_cuda.frozen import ref_state_dict
 from bench_cuda.reference.model import Reference
 from bench_cuda.tests.narrow import narrow_config
@@ -36,7 +36,7 @@ def test_reference_matches_the_program_in_parity(setup):
     ns, sd, got = out["parity"]
     want = Reference(*sd, ns).restore(wav)
     assert got.shape == want.shape == wav.shape
-    assert _rel(got, want) < 1e-6
+    assert rel(got, want) < 1e-6
 
 
 def test_production_error_is_that_of_its_own_precision(setup):
@@ -44,7 +44,7 @@ def test_production_error_is_that_of_its_own_precision(setup):
     ns, sd, got = out["production"]
     want = Reference(*sd, ns).restore(wav)
     own = Reference(*sd, ns, "bf16").restore(wav)
-    ratio = _rel(got, want) / _rel(own, want)
+    ratio = rel(got, want) / rel(own, want)
     assert 0.5 < ratio < 2.0, ratio
 
 
