@@ -39,9 +39,14 @@ its best wall, as TFLOP/s and the share of the card's peak, printed as a
 trace must name a kernel of each counter and each stage span; the
 complex and subband spectrogram transforms and the PQMF (``ops.fdomain``,
 ``ops.pqmf``) at full length against the CPU and their round-trip floors;
-``restore_wavs`` over more chunk rows than fit one call; and the FLAC file
+``restore_wavs`` over more chunk rows than fit one call; the FLAC file
 run decoded by the native decoder (``utils.flac_native``, built from
-``csrc/flacdec.cpp`` with the kernels), timed against the Python one.
+``csrc/flacdec.cpp`` with the kernels), timed against the Python one; and
+BigVGAN-v2 (``models/bigvgan.py``): K10 ``snake_aa`` and K1 at its even
+rates without the pre-pass, at a 5 s clip's shapes against their plain
+versions and upstream's torch ops, then one ``BigVGAN.synthesize`` a
+precision with its launches (6 upsample, 109 snake_aa), printed as a
+``{"bigvgan_kernels": ...}`` line.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --cards N    # N >= 2 cards: the paths that need N
@@ -97,6 +102,9 @@ REPLACES = {
     # no TPU kernel: the gradient that the JAX trainer takes of this
     # lax.scan (voicefixer_tpu/train/step.py:74)
     "gru_bidir_backward": "voicefixer_tpu/ops/gru.py:59",
+    # no TPU kernel: the JAX package has no BigVGAN; upstream's
+    # alias_free_activation/torch/act.py::Activation1d(SnakeBeta)
+    "snake_aa": "none (BigVGAN's Activation1d)",
 }
 SOURCES = {
     "stft_mel": "voicefixer_tpu_torch/csrc/stft_mel.cu",
@@ -111,6 +119,7 @@ SOURCES = {
     "gru_seq": "voicefixer_tpu_torch/csrc/gru_bidir.cu",
     "conv_block_res": "voicefixer_tpu_torch/csrc/convblock.cu",
     "gru_bidir_backward": "voicefixer_tpu_torch/csrc/gru_bidir.cu",
+    "snake_aa": "voicefixer_tpu_torch/csrc/snake_aa.cu",
 }
 # a kernel whose bfloat16 path has a source of its own
 SOURCES_BF16 = {
@@ -286,6 +295,15 @@ def upsample_work(t: int, s: int, cin: int, cout: int, size: int):
     taps of Cin x Cout per output sample."""
     return (2 * t * s * 2 * cin * cout,
             size * (t * cin + 2 * s * cin * cout + cout + t * s * cout))
+
+
+def snake_aa_work(t: int, c: int, size: int):
+    """BigVGAN's anti-aliased SnakeBeta on [t, c]: per output element two
+    6-tap polyphase sums (24 FLOP), SnakeBeta on the two upsampled samples
+    (5 FLOP each: alpha u, sin, square, 1 / beta, + u) and a 12-tap sum
+    (24 FLOP), in float32; x read once, y written once, log alpha and
+    log beta read once."""
+    return 58 * t * c, size * (2 * t * c + 2 * c)
 
 
 def res_work(ch: int, t: int, n_blocks: int, size: int):
@@ -2307,6 +2325,191 @@ def phase_snr_vs_plain(vf, device):
                              "plain versions do")
 
 
+# BigVGAN-v2 (models/bigvgan.py) at its published widths on a 5 s clip:
+# K10 at each stage's activation shape, K1 at its even rates without the
+# pre-pass, and one synthesize call's launches
+BIGVGAN_FRAMES = 431
+BIGVGAN_LAUNCHES = {"upsample": 6, "snake_aa": 109}
+
+
+def _bigvgan_shapes():
+    """[(stage, rate, cin, cout, frames into the stage)] of a 5 s clip."""
+    from voicefixer_tpu_torch.config import BigVGANConfig
+    cfg = BigVGANConfig()
+    ch, t, out = cfg.channels, BIGVGAN_FRAMES, []
+    for i, u in enumerate(cfg.upsample_rates):
+        out.append((i, u, ch[i], ch[i + 1], t))
+        t *= u
+    return out
+
+
+def _snake_aa_case(gen, device, dtype, stage, c, t, per_clip):
+    """K10 on [1, t, c]; the library yardstick is upstream's torch
+    Activation1d on [1, c, t] (pad, grouped transposed conv, crop,
+    SnakeBeta, pad, grouped conv)."""
+    import torch
+    import torch.nn.functional as F
+    from voicefixer_tpu_torch.kernels.snake_aa import (FILTER, snake_aa,
+                                                       snake_aa_reference)
+    dt = getattr(torch, dtype)
+    x = torch.randn((1, t, c), generator=gen).to(device, dt)
+    la = (0.5 * torch.randn((c,), generator=gen)).to(device, dt)
+    lb = (0.5 * torch.randn((c,), generator=gen)).to(device, dt)
+    x_ncw = x.transpose(1, 2).contiguous()
+    f = FILTER.to(device, dt).view(1, 1, 12).expand(c, 1, 12)
+    alpha, beta = la.exp()[None, :, None], lb.exp()[None, :, None]
+
+    def library():
+        u = F.pad(x_ncw, (5, 5), mode="replicate")
+        u = 2 * F.conv_transpose1d(u, f, stride=2, groups=c)[..., 15:-15]
+        u = u + (1.0 / (beta + 1e-9)) * torch.sin(u * alpha) ** 2
+        return F.conv1d(F.pad(u, (5, 6), mode="replicate"), f, stride=2,
+                        groups=c)
+
+    flops, work_bytes = snake_aa_work(t, c, x.element_size())
+    return {"name": "snake_aa", "dtype": dtype,
+            "shape": f"stage {stage}: [1, {t}, {c}]",
+            "fn": lambda: snake_aa(x, la, lb),
+            "plain": lambda: snake_aa_reference(x, la, lb),
+            "library": library, "reps": 20,
+            "rtol": 1e-5 if dtype == "float32" else 2 ** -7,
+            "atol": 1e-5 if dtype == "float32" else 1e-3,
+            "per_clip": per_clip, "bytes": work_bytes, "flops": flops,
+            "peak": PEAK_FP32, "group": _kernel_group("snake_aa_kernel")}
+
+
+def _bigvgan_up_case(gen, device, dtype, stage, s, cin, cout, t):
+    """K1 without its pre-pass at BigVGAN's rate s."""
+    import torch
+    import torch.nn.functional as F
+    from voicefixer_tpu_torch.kernels import upsample
+    dt = getattr(torch, dtype)
+    x = torch.randn((1, t, cin), generator=gen).to(device, dt)
+    w = (0.01 * torch.randn((2 * s, cin, cout), generator=gen)).to(device,
+                                                                     dt)
+    b = (0.01 * torch.randn((cout,), generator=gen)).to(device, dt)
+    x_ncw = x.transpose(1, 2).contiguous()
+    w_t = w.permute(1, 2, 0).contiguous()
+    flops, work_bytes = upsample_work(t, s, cin, cout, x.element_size())
+    return {"name": "upsample", "dtype": dtype,
+            "shape": f"BigVGAN stage {stage}: [1, {t}, {cin}] -> "
+                     f"[1, {t * s}, {cout}], s {s}",
+            "fn": lambda: upsample.upsample(x, w, b, s, sin_residual=False),
+            "plain": lambda: upsample.upsample_reference(
+                x, w, b, s, sin_residual=False),
+            "library": lambda: F.conv_transpose1d(x_ncw, w_t, b, stride=s,
+                                                  padding=s // 2),
+            "reps": 20, "rtol": 1e-4 if dtype == "float32" else 2 ** -7,
+            "atol": 1e-4 if dtype == "float32" else 1e-3, "per_clip": 1,
+            "bytes": work_bytes, "flops": flops,
+            "peak": PEAK_FP32 if dtype == "float32" else PEAK_BF16,
+            "group": "K1 upsample"}
+
+
+def _clip_device_ms(calls: list, group: str | None, launches: int):
+    """Device ms of ``calls`` run once each under one profile, of the
+    kernels of ``group`` (all where None). A profile may drop events: with
+    ``launches`` it reads the mean of the launches seen times their count;
+    one that saw none is taken again, twice. None if all three saw none."""
+    for _ in range(3):
+        rows = [(t, n) for name, t, n in
+                _device_kernels(lambda: [fn() for fn in calls])
+                if group is None or _kernel_group(name) == group]
+        seen = sum(n for _, n in rows)
+        if seen:
+            ms = sum(t for t, _ in rows)
+            return ms / seen * launches if launches else ms
+    log(f"  three profiles saw no device time of {group or 'any kernel'}")
+    return None
+
+
+def phase_bigvgan(device):
+    """BigVGAN-v2's kernels at its path's shapes (a 5 s clip), each held to
+    its plain version and timed by CUDA events against its library
+    yardstick; a clip's launches of each kernel under one profile for its
+    device time; then one ``BigVGAN.synthesize`` in each precision, its
+    launches asserted. Returns the JSON record's rows, per clip."""
+    import torch
+    from voicefixer_tpu_torch import kernels
+    from voicefixer_tpu_torch.ops.precision import precision, tf32_off
+    from voicefixer_tpu_torch.pipeline.vocoder_facade import BigVGAN
+    log(f"== BigVGAN-v2: K10 and K1 (even rates, no pre-pass) on a "
+        f"{BIGVGAN_FRAMES}-frame clip")
+    gen = torch.Generator().manual_seed(SEED)
+    cases = []
+    for dtype in ("float32", "bfloat16"):
+        for i, s, cin, cout, t in _bigvgan_shapes():
+            cases.append(_bigvgan_up_case(gen, device, dtype, i, s, cin,
+                                          cout, t))
+            # 18 activations a stage at its output, one more at the last
+            cases.append(_snake_aa_case(gen, device, dtype, i, cout, t * s,
+                                        18 + (i == 5)))
+    rows = []
+    with tf32_off(), torch.inference_mode():
+        for c in cases:
+            err = compare(f"{c['name']} {c['dtype']} {c['shape']}",
+                          c["fn"](), c["plain"](), c["rtol"], c["atol"])
+            ms = cuda_ms(c["fn"], c["reps"])
+            plain_ms = cuda_ms(c["plain"], max(1, c["reps"] // 5), warmup=0)
+            lib_ms = cuda_ms(c["library"], c["reps"])
+            bms, by = bound_ms(c["bytes"], c["flops"], c["peak"])
+            log(f"  {c['name']} {c['dtype']} {c['shape']}: kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f}, library {lib_ms:.4f}, "
+                f"bound {bms:.4f} ms ({by})")
+            rows.append({**c, "err": err, "ms": ms, "plain_ms": plain_ms,
+                         "lib_ms": lib_ms, "bound_ms": bms})
+        record = []
+        for name in ("upsample", "snake_aa"):
+            for dtype in ("float32", "bfloat16"):
+                rs = [r for r in rows
+                      if r["name"] == name and r["dtype"] == dtype]
+                n = sum(r["per_clip"] for r in rs)
+                dev_ms = _clip_device_ms(
+                    [r["fn"] for r in rs for _ in range(r["per_clip"])],
+                    rs[0]["group"], n)
+                lib_dev_ms = _clip_device_ms(
+                    [r["library"] for r in rs for _ in range(r["per_clip"])],
+                    None, 0)
+                total = lambda key: sum(r["per_clip"] * r[key]  # noqa: E731
+                                        for r in rs)
+                record.append({
+                    "name": f"bigvgan {name}:{dtype}",
+                    "source": SOURCES[name], "replaces": REPLACES[name],
+                    "launches": n, "max_abs_err": max(r["err"] for r in rs),
+                    "ms": total("ms"), "device_ms": dev_ms,
+                    "plain_ms": total("plain_ms"),
+                    "library_ms": total("lib_ms"),
+                    "library_device_ms": lib_dev_ms,
+                    "bound_ms": total("bound_ms")})
+                log(f"  {name} {dtype}, a clip's {n} launches: events "
+                    f"{total('ms'):.3f} ms, device {dev_ms} ms, plain "
+                    f"{total('plain_ms'):.3f}, library {total('lib_ms'):.3f}"
+                    f" (device {lib_dev_ms}), bound {total('bound_ms'):.4f}")
+    vocoder = BigVGAN.random(SEED, device=device)
+    mel = torch.randn((BIGVGAN_FRAMES, 128), generator=gen) - 5.0
+    walls = {}
+    for mode in ("parity", "production"):
+        with precision(mode):
+            vocoder.synthesize(mel)
+            kernels.reset_launches()
+            out = vocoder.synthesize(mel)
+            counts = {k: v for k, v in kernels.launches.items() if v}
+            if counts != BIGVGAN_LAUNCHES:
+                raise AssertionError(f"BigVGAN {mode}: launches {counts} != "
+                                     f"{BIGVGAN_LAUNCHES}")
+            if out.shape != (1, BIGVGAN_FRAMES * 512) or not bool(
+                    torch.isfinite(torch.as_tensor(out)).all()):
+                raise AssertionError(f"BigVGAN {mode}: bad output")
+            t0 = time.perf_counter()
+            for _ in range(5):
+                vocoder.synthesize(mel)
+            walls[mode] = (time.perf_counter() - t0) / 5 * 1e3
+    log(f"  synthesize, {BIGVGAN_FRAMES} frames: launches {counts}; wall "
+        f"{walls['parity']:.2f} ms parity, {walls['production']:.2f} ms "
+        "production")
+    return record
+
+
 def phase_small_reference(device):
     """The port on the card against the port's plain versions on the CPU,
     same weights, tiny config, a 2.5-segment input with a padded tail; in
@@ -3327,6 +3530,7 @@ def main() -> int:
             "count": torch.cuda.device_count()}}))
         return 0
     rows = phase_kernels(device)
+    bigvgan_record = phase_bigvgan(device)
     vf, wav, outs, counts, walls = phase_main_path(device)
     log("== FLOPs of the main path (utils.flops)")
     phase_flops(walls, card)
@@ -3402,6 +3606,7 @@ def main() -> int:
         "gru_bidir_backward per trainer step (4 launches at "
         f"B={TRAIN_BATCH}, T={TRAIN_FRAMES}; launches from the trainer's "
         "step, device_ms the kernel alone)")
+    print(json.dumps({"bigvgan_kernels": bigvgan_record}))
     print(json.dumps({"kernels": record}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -32,6 +32,7 @@ from voicefixer_tpu_torch.kernels.resstream import (res_stream,
                                                     up_res_stream,
                                                     up_res_stream_reference)
 from voicefixer_tpu_torch.ops.conv import fold_bn_eval
+from voicefixer_tpu_torch.kernels.snake_aa import snake_aa, snake_aa_reference
 from voicefixer_tpu_torch.kernels.stft import stft_mel, stft_mel_reference
 from voicefixer_tpu_torch.kernels.upsample import (upsample,
                                                    upsample_reference)
@@ -82,6 +83,94 @@ def test_upsample_kernel(cuda, scale, cin, cout, t, b, dtype):
     tol = (1e-5, 1e-5) if dtype == "float32" else (2 ** -7, 1e-3)
     torch.testing.assert_close(got.float(), ref.float(), rtol=tol[0],
                                atol=tol[1])
+
+
+# BigVGAN-v2 at its published widths, one audio second (86 mel frames):
+# each stage's (C_in, rate) and the (C, T) after its upsample
+BIGVGAN_FRAMES = 86
+BIGVGAN_STAGES = [(1536 // 2 ** i, u) for i, u in enumerate((8, 4, 2, 2, 2, 2))]
+
+
+def _bigvgan_shape(stage):
+    cin, _ = BIGVGAN_STAGES[stage]
+    t = BIGVGAN_FRAMES
+    for _, u in BIGVGAN_STAGES[:stage + 1]:
+        t *= u
+    return cin, cin // 2, t
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("stage", range(6))
+def test_upsample_without_pre_pass_bigvgan(cuda, stage, dtype):
+    """K1 at BigVGAN's even rates (8, 4, 2) and published widths, no x +
+    sin x in front."""
+    gen = torch.Generator().manual_seed(stage)
+    cin, cout, t_out = _bigvgan_shape(stage)
+    s = BIGVGAN_STAGES[stage][1]
+    dt = getattr(torch, dtype)
+    x = _randn(gen, (1, t_out // s, cin)).to(cuda, dt)
+    w = _randn(gen, (2 * s, cin, cout), 0.01).to(cuda, dt)
+    bias = _randn(gen, (cout,), 0.05).to(cuda, dt)
+    n0 = dict(kernels.launches)
+    got = upsample(x, w, bias, s, sin_residual=False)
+    assert kernels.launches["upsample"] == n0["upsample"] + 1
+    ref = upsample_reference(x, w, bias, s, sin_residual=False)
+    assert got.shape == (1, t_out, cout)
+    tol = (1e-5, 1e-5) if dtype == "float32" else (2 ** -7, 1e-3)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=tol[0],
+                               atol=tol[1])
+
+
+# each stage's activation shape, the last one's (24 channels), and ragged
+# ones: T = 1, 2 and one past a tile of 32, odd channel counts, batch 3
+SNAKE_SHAPES = ([(1, _bigvgan_shape(i)[2], _bigvgan_shape(i)[1])
+                 for i in range(6)]
+                + [(1, 1, 8), (2, 2, 5), (3, 33, 7), (1, 65, 24),
+                   (2, 300, 40)])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,t,c", SNAKE_SHAPES)
+def test_snake_aa_kernel(cuda, b, t, c, dtype):
+    """K10 against its plain version: float32 to 1e-5 (sinf and sums in
+    another order), bfloat16 to one ulp of the output's single rounding."""
+    gen = torch.Generator().manual_seed(t)
+    dt = getattr(torch, dtype)
+    x = _randn(gen, (b, t, c)).to(cuda, dt)
+    la = _randn(gen, (c,), 0.5).to(cuda, dt)
+    lb = _randn(gen, (c,), 0.5).to(cuda, dt)
+    n0 = kernels.launches["snake_aa"]
+    got = snake_aa(x, la, lb)
+    assert kernels.launches["snake_aa"] == n0 + 1
+    ref = snake_aa_reference(x, la, lb)
+    assert got.shape == ref.shape == (b, t, c) and got.dtype == dt
+    tol = (1e-5, 1e-5) if dtype == "float32" else (2 ** -7, 1e-3)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=tol[0],
+                               atol=tol[1])
+
+
+@pytest.mark.parametrize("mode", ["parity", "production"])
+def test_bigvgan_synthesize_launches(cuda, mode):
+    """One ``BigVGAN.synthesize`` at the published widths: six upsample
+    launches (no pre-pass) and 109 snake_aa, nothing else of the port's;
+    production within bfloat16's rounding of parity on the same weights."""
+    from voicefixer_tpu_torch.ops.precision import precision
+    from voicefixer_tpu_torch.pipeline.vocoder_facade import BigVGAN
+    vocoder = BigVGAN.random(0, device=cuda)
+    mel = _randn(torch.Generator().manual_seed(0), (BIGVGAN_FRAMES, 128),
+                 2.0) - 5.0
+    with precision(mode):
+        kernels.reset_launches()
+        got = vocoder.synthesize(mel)
+        counts = {k: v for k, v in kernels.launches.items() if v}
+    assert counts == {"upsample": 6, "snake_aa": 109}
+    assert got.shape == (1, BIGVGAN_FRAMES * 512)
+    assert bool(torch.isfinite(torch.as_tensor(got)).all())
+    if mode == "production":
+        with precision("parity"):
+            want = torch.as_tensor(vocoder.synthesize(mel))
+        rel = (torch.as_tensor(got) - want).norm() / want.norm()
+        assert float(rel) < 0.05
 
 
 def test_upsample_first_launch_after_cold_build(cuda):
@@ -850,12 +939,14 @@ def _grad_guard_calls(cuda):
         "conv_block_res": lambda w: convblock.conv_block_res(
             w(r(1, 4, 4, c)), {**block, "conv2": {"w": r(3, 3, c, c)}},
             0.01),
+        "snake_aa": lambda w: snake_aa(w(r(1, 16, c)), r(c), r(c)),
     }
 
 
 @pytest.mark.parametrize("name", ["stft_mel", "upsample", "res_chain",
                                   "res_shift_single", "up_res_stream",
-                                  "res_stream", "gru_seq", "conv_block_res"])
+                                  "res_stream", "gru_seq", "conv_block_res",
+                                  "snake_aa"])
 def test_kernel_raises_under_grad(cuda, name):
     """Every kernel but K6 has no backward: with grad mode on and an input
     that requires grad its wrapper raises before it launches; under

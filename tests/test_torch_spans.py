@@ -215,3 +215,25 @@ def test_annotate_records_only_under_a_profiler(monkeypatch, tmp_path):
             pass
     _, spans = _spans(tmp_path, body)
     assert entered == ["vf.on"] and len(_named(spans, "vf.on")) == 1
+
+
+def test_bigvgan_synthesize_spans(tmp_path):
+    """One ``BigVGAN.synthesize``: ``vf.request`` holds ``vf.upload``, then
+    ``vf.vocoder`` with one ``vf.amp`` a stage inside, then
+    ``vf.download``."""
+    from voicefixer_tpu_torch.config import BigVGANConfig
+    from voicefixer_tpu_torch.pipeline.vocoder_facade import BigVGAN
+    cfg = BigVGANConfig(upsample_initial_channel=64)
+    vocoder = BigVGAN.random(2, cfg, device="cpu")
+    mel = np.random.default_rng(0).standard_normal((3, 128)) - 4.0
+    out, spans = _spans(tmp_path, lambda: vocoder.synthesize(mel))
+    assert out.shape == (1, 3 * cfg.hop_size)
+    (request,) = _named(spans, "vf.request")
+    (upload,) = _named(spans, "vf.upload")
+    (voc,) = _named(spans, "vf.vocoder")
+    (download,) = _named(spans, "vf.download")
+    amps = _named(spans, "vf.amp")
+    assert len(amps) == len(cfg.upsample_rates)
+    assert all(_inside(a, voc) for a in amps)
+    assert all(_inside(s, request) for s in spans)
+    assert upload[2] <= voc[1] and voc[2] <= download[1]

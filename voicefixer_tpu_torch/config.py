@@ -145,6 +145,57 @@ class VoiceFixerConfig:
 DEFAULT_CONFIG = VoiceFixerConfig()
 
 
+@dataclasses.dataclass(frozen=True)
+class BigVGANConfig:
+    """BigVGAN-v2's generator with anti-aliased SnakeBeta activations (Lee
+    et al., ICLR 2023, arXiv 2206.04658), at NVIDIA/BigVGAN's
+    ``configs/bigvgan_v2_44khz_128band_512x.json``: the fields that shape
+    the generator and its log-mel input (the discriminators' and the
+    trainer's are left out). The port runs ``resblock`` "1" (AMPBlock1) with
+    ``activation`` "snakebeta" and ``snake_logscale`` alone, as released."""
+
+    resblock: str = "1"
+    num_mels: int = 128
+    upsample_rates: Tuple[int, ...] = (8, 4, 2, 2, 2, 2)
+    upsample_kernel_sizes: Tuple[int, ...] = (16, 8, 4, 4, 4, 4)
+    upsample_initial_channel: int = 1536
+    resblock_kernel_sizes: Tuple[int, ...] = (3, 7, 11)
+    resblock_dilation_sizes: Tuple[Tuple[int, ...], ...] = (
+        (1, 3, 5), (1, 3, 5), (1, 3, 5))
+    activation: str = "snakebeta"
+    snake_logscale: bool = True
+    use_bias_at_final: bool = False
+    use_tanh_at_final: bool = False
+    sampling_rate: int = 44100
+    n_fft: int = 2048
+    hop_size: int = 512
+    win_size: int = 2048
+    fmin: float = 0.0
+    fmax: float | None = None
+
+    def __post_init__(self):
+        if (self.resblock, self.activation, self.snake_logscale,
+                self.use_bias_at_final, self.use_tanh_at_final) != (
+                "1", "snakebeta", True, False, False):
+            raise ValueError("BigVGANConfig: the port runs AMPBlock1 with "
+                             "log-scale SnakeBeta, no final bias and no "
+                             "final tanh")
+        if int(np.prod(self.upsample_rates)) != self.hop_size:
+            raise ValueError(f"upsample_rates {self.upsample_rates} do not "
+                             f"multiply to hop_size {self.hop_size}")
+        for u, k in zip(self.upsample_rates, self.upsample_kernel_sizes):
+            if k != 2 * u or u % 2:
+                raise ValueError(f"upsample kernel {k} at rate {u}: the "
+                                 "port's upsample takes kernel 2u at an "
+                                 "even rate u (upstream's padding u/2)")
+
+    @property
+    def channels(self) -> Tuple[int, ...]:
+        """Channels after conv_pre and after each upsample."""
+        c = self.upsample_initial_channel
+        return tuple(c // 2 ** i for i in range(len(self.upsample_rates) + 1))
+
+
 def small_tp_config() -> VoiceFixerConfig:
     """Small config whose channel widths are wide enough (>= 64) for the
     "model" axis to shard convolutions (``parallel.sharding``'s

@@ -1,5 +1,7 @@
 // One vocoder upsample stage: y = ConvTranspose1d(x + sin(x)), kernel 2s,
-// stride s, padding p = s//2 + s%2, output padding s%2.
+// stride s, padding p = s//2 + s%2, output padding s%2. Without the pre-pass
+// (residual = 0) the product reads x itself: BigVGAN's upsamples, kernel 2s
+// and padding s/2 at even s, the same geometry with no activation in front.
 //
 // Replaces voicefixer_tpu/kernels/upsample.py::upsample (Pallas, TPU).
 // With kernel 2s every output sample is the sum of two polyphase taps:
@@ -400,26 +402,33 @@ int launch_one(const float* a, const float* w, const float* bias, float* y,
 }  // namespace
 
 // x: [batch, n_in, cin]; w: [2*scale, cin, cout] in torch tap order;
-// bias: [cout]; a: scratch shaped like x; y: [batch, n_in*scale, cout]; all
-// float32 (bf16 = 0) or all bfloat16 (bf16 = 1, cin and cout multiples of 8).
+// bias: [cout]; a: scratch shaped like x, x + sin(x) when residual is 1 (else
+// unused: the product reads x); y: [batch, n_in*scale, cout]; all float32
+// (bf16 = 0) or all bfloat16 (bf16 = 1, cin and cout multiples of 8).
 extern "C" int vf_upsample(const void* x, const void* w, const void* bias,
                            void* a, void* y, int batch, int n_in, int cin,
-                           int cout, int scale, int bf16, void* stream_ptr) {
+                           int cout, int scale, int bf16, int residual,
+                           void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int pad = scale / 2 + scale % 2;
   const long long n_x = static_cast<long long>(batch) * n_in * cin;
   if (bf16) {
     using T = __nv_bfloat16;
     if (cin % 8 || cout % 8) return cudaErrorInvalidValue;
-    vf::launch_sin_residual(static_cast<const T*>(x), static_cast<T*>(a), n_x,
-                            stream);
-    return tc::launch(static_cast<const T*>(a), static_cast<const T*>(w),
+    const T* src = static_cast<const T*>(x);
+    if (residual) {
+      vf::launch_sin_residual(src, static_cast<T*>(a), n_x, stream);
+      src = static_cast<const T*>(a);
+    }
+    return tc::launch(src, static_cast<const T*>(w),
                       static_cast<const T*>(bias), static_cast<T*>(y), batch,
                       n_in, cin, cout, scale, pad, stream);
   }
-  const float* af = static_cast<float*>(a);
-  vf::launch_sin_residual(static_cast<const float*>(x),
-                          static_cast<float*>(a), n_x, stream);
+  const float* af = static_cast<const float*>(x);
+  if (residual) {
+    vf::launch_sin_residual(af, static_cast<float*>(a), n_x, stream);
+    af = static_cast<const float*>(a);
+  }
   auto fn = (cin % 4 == 0 && cout % 4 == 0) ? simt::launch_one<true>
                                             : simt::launch_one<false>;
   return fn(af, static_cast<const float*>(w), static_cast<const float*>(bias),

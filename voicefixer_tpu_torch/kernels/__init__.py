@@ -22,6 +22,9 @@ JAX package:
 - kernels.convblock -- a ResUNet ConvBlockRes: two folded-BN, LeakyReLU,
                        3x3-conv steps and the shortcut in one kernel
                        (voicefixer_tpu/kernels/convblock.py::conv_block_res)
+- kernels.snake_aa  -- BigVGAN's anti-aliased SnakeBeta activation: 2x
+                       upsample, SnakeBeta and 2x low-pass downsample in one
+                       pass (no TPU kernel: the JAX package has no BigVGAN)
 
 Every wrapper takes its plain PyTorch version for a tensor on the CPU, and
 for a CUDA tensor launches its kernel or raises; there is no switch that
@@ -45,7 +48,8 @@ import torch
 
 launches = {"stft_mel": 0, "gru_bidir": 0, "upsample": 0, "res_chain": 0,
             "res_shift_single": 0, "up_res_stream": 0, "res_stream": 0,
-            "gru_seq": 0, "conv_block_res": 0, "gru_bidir_backward": 0}
+            "gru_seq": 0, "conv_block_res": 0, "gru_bidir_backward": 0,
+            "snake_aa": 0}
 
 
 def reset_launches():

@@ -1,6 +1,7 @@
 """Synthesis stage: analysis-convention linear mel -> 44.1 kHz waveform, as
 ``voicefixer_tpu/pipeline/vocoder_facade.py`` (upstream Vocoder.forward and
-Vocoder.oracle)."""
+Vocoder.oracle); and ``BigVGAN``, a second vocoder beside it: BigVGAN-v2's
+log-mel -> 44.1 kHz waveform (``models/bigvgan.py``)."""
 
 from __future__ import annotations
 
@@ -11,14 +12,17 @@ import torch
 import torch.nn.functional as F
 
 from voicefixer_tpu_torch import kernels
-from voicefixer_tpu_torch.config import (DEFAULT_CONFIG, VocoderConfig,
-                                         VoiceFixerConfig, mel_weight_curve)
+from voicefixer_tpu_torch.config import (DEFAULT_CONFIG, BigVGANConfig,
+                                         VocoderConfig, VoiceFixerConfig,
+                                         mel_weight_curve)
+from voicefixer_tpu_torch.models import bigvgan as bigvgan_model
 from voicefixer_tpu_torch.models import vocoder as vocoder_model
 from voicefixer_tpu_torch.ops import mel as vmel
 from voicefixer_tpu_torch.ops import stft as vstft
 from voicefixer_tpu_torch.ops.norm import vocoder_normalize_mel
 from voicefixer_tpu_torch.ops.precision import activation_dtype, tf32_off
-from voicefixer_tpu_torch.utils.weights import CastCache, cast_tree
+from voicefixer_tpu_torch.utils.profiling import annotate
+from voicefixer_tpu_torch.utils.weights import CastCache, cast_tree, tree_map
 
 
 def pad_tail(mel: torch.Tensor, pad_value: float) -> torch.Tensor:
@@ -131,3 +135,58 @@ class Vocoder:
             audio_io.save_wave(out[0] * 2 ** 15, out_path,
                                sample_rate=self.rate)
         return out
+
+
+class BigVGAN:
+    """BigVGAN-v2's generator as a vocoder: log-mel (upstream's front end:
+    the Slaney mel of a Hann STFT's magnitude, n_fft 2048, hop 512, its log
+    clamped at 1e-5, as a TTS acoustic model predicts it) -> 44.1 kHz
+    wave.
+
+    params: the tree of ``models/bigvgan.py`` (tensors or numpy arrays;
+    ``utils.weights.convert_bigvgan`` makes it from upstream's state dict).
+    device: None means CUDA, and raises without a card; "cpu" runs the
+    plain versions. The tree is kept in float32; production precision
+    casts it to bfloat16 once an instance (``weight_casts``)."""
+
+    def __init__(self, params: dict, config: BigVGANConfig = BigVGANConfig(),
+                 device=None):
+        from voicefixer_tpu_torch.pipeline.restore import resolve_device
+        self.config = config
+        self.device = resolve_device(device)
+        self.params = tree_map(lambda t: torch.as_tensor(
+            t, dtype=torch.float32).to(self.device), params)
+        self.weight_casts = CastCache()
+
+    @classmethod
+    def random(cls, seed: int = 0, config: BigVGANConfig = BigVGANConfig(),
+               device=None) -> "BigVGAN":
+        """Upstream's initialisation (``models.bigvgan.init``), drawn from
+        ``seed`` on the CPU."""
+        from voicefixer_tpu_torch.pipeline.restore import resolve_device
+        device = resolve_device(device)
+        gen = torch.Generator().manual_seed(seed)
+        return cls(bigvgan_model.init(config, gen, device), config, device)
+
+    @annotate("vf.request")
+    def synthesize(self, mel) -> np.ndarray:
+        """mel: log-mel [T, num_mels] or [B, T, num_mels] (numpy or a
+        tensor). Returns the wave [B, T * hop], float32 numpy."""
+        mel = torch.as_tensor(mel, dtype=torch.float32)
+        if mel.ndim == 2:
+            mel = mel[None]
+        if mel.ndim != 3 or mel.shape[-1] != self.config.num_mels:
+            raise ValueError(f"expected a log-mel [B, T, "
+                             f"{self.config.num_mels}], got "
+                             f"{tuple(mel.shape)}")
+        adt = activation_dtype()
+        params = (self.params if adt == torch.float32 else
+                  self.weight_casts.get(adt, (self.params,), cast_tree))
+        with tf32_off(), torch.inference_mode(), \
+                kernels.current_device(self.device):
+            with annotate("vf.upload"):
+                mel = mel.to(self.device)
+            with annotate("vf.vocoder"):
+                wav = bigvgan_model.apply(params, mel, self.config)
+            with annotate("vf.download"):
+                return wav.cpu().numpy()

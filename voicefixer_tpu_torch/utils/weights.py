@@ -192,6 +192,74 @@ def convert_vocoder(sd: dict, prefix: str = "") -> dict:
     return params
 
 
+def convert_bigvgan(sd: dict, cfg=None) -> dict:
+    """BigVGAN-v2's generator state dict (NVIDIA/BigVGAN ``bigvgan.py``,
+    weight norm as weight_g / weight_v or parametrizations) -> the tree of
+    ``models/bigvgan.py``, numpy leaves: ``conv_pre``, ``ups.{i}.0``,
+    ``resblocks.{n}.convs1.{m}`` / ``convs2.{m}``,
+    ``resblocks.{n}.activations.{a}.act.alpha`` / ``beta`` and
+    ``activation_post.act.*``, ``conv_post`` (no bias). The resamplers'
+    filter buffers (``*.upsample.filter``, ``*.downsample.lowpass.filter``)
+    are held to the computed Kaiser filter and dropped. A key left over,
+    a missing one or a filter that differs raises. ``cfg``: a
+    ``BigVGANConfig`` (its default when None)."""
+    from voicefixer_tpu_torch.config import BigVGANConfig
+    from voicefixer_tpu_torch.kernels.snake_aa import FILTER
+    cfg = cfg or BigVGANConfig()
+    used: set = set()
+
+    def take(key):
+        used.add(key)
+        return sd[key]
+
+    def weight(prefix):
+        w = resolve_weight(sd, prefix)
+        used.update(k for k in (f"{prefix}.weight", f"{prefix}.weight_g",
+                                f"{prefix}.weight_v",
+                                f"{prefix}.parametrizations.weight.original0",
+                                f"{prefix}.parametrizations.weight.original1")
+                    if k in sd)
+        return w
+
+    def conv(prefix, bias=True):
+        p = {"w": weight(prefix).transpose(2, 1, 0)}
+        if bias:
+            p["b"] = take(f"{prefix}.bias")
+        return p
+
+    def act(prefix):
+        for f in (f"{prefix}.upsample.filter",
+                  f"{prefix}.downsample.lowpass.filter"):
+            if f in sd:
+                got = np.asarray(take(f), np.float32).reshape(-1)
+                if not np.allclose(got, FILTER.numpy(), rtol=0, atol=1e-6):
+                    raise ValueError(f"{f}: not the 12-tap Kaiser filter "
+                                     "the port computes")
+        return {"alpha": take(f"{prefix}.act.alpha"),
+                "beta": take(f"{prefix}.act.beta")}
+
+    n_k = len(cfg.resblock_kernel_sizes)
+    params = {"conv_pre": conv("conv_pre"), "ups": [], "resblocks": []}
+    for i in range(len(cfg.upsample_rates)):
+        w = weight(f"ups.{i}.0")
+        params["ups"].append({"w": w.transpose(2, 0, 1),
+                              "b": take(f"ups.{i}.0.bias")})
+        for j, dils in enumerate(cfg.resblock_dilation_sizes):
+            p = f"resblocks.{i * n_k + j}"
+            params["resblocks"].append({
+                "convs1": [conv(f"{p}.convs1.{m}") for m in range(len(dils))],
+                "convs2": [conv(f"{p}.convs2.{m}") for m in range(len(dils))],
+                "acts": [act(f"{p}.activations.{a}")
+                         for a in range(2 * len(dils))]})
+    params["act_post"] = act("activation_post")
+    params["conv_post"] = conv("conv_post", bias=False)
+    left = sorted(set(sd) - used)
+    if left:
+        raise KeyError(f"BigVGAN state dict: keys not consumed {left[:8]}"
+                       f"{' ...' if len(left) > 8 else ''}")
+    return params
+
+
 def tree_map(fn, tree):
     """fn applied to every leaf of a tree of dicts, lists and tuples."""
     if isinstance(tree, dict):
