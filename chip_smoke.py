@@ -44,9 +44,11 @@ run decoded by the native decoder (``utils.flac_native``, built from
 ``csrc/flacdec.cpp`` with the kernels), timed against the Python one; and
 BigVGAN-v2 (``models/bigvgan.py``): K10 ``snake_aa`` and K1 at its even
 rates without the pre-pass, at a 5 s clip's shapes against their plain
-versions and upstream's torch ops, then one ``BigVGAN.synthesize`` a
-precision with its launches (6 upsample, 109 snake_aa), printed as a
-``{"bigvgan_kernels": ...}`` line.
+versions and upstream's torch ops, K11 ``amp_conv`` at each stage's 18
+AMP convs against its plain version, cuDNN on the channels-last view and
+``F.conv1d`` on NCW copies, then one ``BigVGAN.synthesize`` a precision
+with its launches (6 upsample, 109 snake_aa; 108 amp_conv in bfloat16),
+printed as a ``{"bigvgan_kernels": ...}`` line.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --cards N    # N >= 2 cards: the paths that need N
@@ -105,6 +107,8 @@ REPLACES = {
     # no TPU kernel: the JAX package has no BigVGAN; upstream's
     # alias_free_activation/torch/act.py::Activation1d(SnakeBeta)
     "snake_aa": "none (BigVGAN's Activation1d)",
+    # no TPU kernel: upstream's AMPBlock1 convs are plain Conv1d
+    "amp_conv": "none (BigVGAN's AMPBlock1 Conv1d)",
 }
 SOURCES = {
     "stft_mel": "voicefixer_tpu_torch/csrc/stft_mel.cu",
@@ -120,6 +124,7 @@ SOURCES = {
     "conv_block_res": "voicefixer_tpu_torch/csrc/convblock.cu",
     "gru_bidir_backward": "voicefixer_tpu_torch/csrc/gru_bidir.cu",
     "snake_aa": "voicefixer_tpu_torch/csrc/snake_aa.cu",
+    "amp_conv": "voicefixer_tpu_torch/csrc/amp_conv.cu",
 }
 # a kernel whose bfloat16 path has a source of its own
 SOURCES_BF16 = {
@@ -304,6 +309,13 @@ def snake_aa_work(t: int, c: int, size: int):
     (24 FLOP), in float32; x read once, y written once, log alpha and
     log beta read once."""
     return 58 * t * c, size * (2 * t * c + 2 * c)
+
+
+def amp_conv_work(t: int, c: int, k: int, size: int, residual: bool):
+    """BigVGAN's AMP conv (K11) on [t, c], k taps of c x c: x, the
+    weights, the bias and y (and the residual) once each."""
+    return (2 * t * k * c * c,
+            size * ((3 if residual else 2) * t * c + k * c * c + c))
 
 
 def res_work(ch: int, t: int, n_blocks: int, size: int):
@@ -2327,9 +2339,12 @@ def phase_snr_vs_plain(vf, device):
 
 # BigVGAN-v2 (models/bigvgan.py) at its published widths on a 5 s clip:
 # K10 at each stage's activation shape, K1 at its even rates without the
-# pre-pass, and one synthesize call's launches
+# pre-pass, K11 at each stage's 18 AMP convs, and one synthesize call's
+# launches a precision (float32's AMP convs stay on cuDNN)
 BIGVGAN_FRAMES = 431
-BIGVGAN_LAUNCHES = {"upsample": 6, "snake_aa": 109}
+BIGVGAN_LAUNCHES = {"parity": {"upsample": 6, "snake_aa": 109},
+                    "production": {"upsample": 6, "snake_aa": 109,
+                                   "amp_conv": 108}}
 
 
 def _bigvgan_shapes():
@@ -2404,6 +2419,109 @@ def _bigvgan_up_case(gen, device, dtype, stage, s, cin, cout, t):
             "bytes": work_bytes, "flops": flops,
             "peak": PEAK_FP32 if dtype == "float32" else PEAK_BF16,
             "group": "K1 upsample"}
+
+
+def _amp_conv_case(gen, device, c, t):
+    """K11 at one stage of a 5 s clip: the stage's 18 AMP convs (kernels
+    3, 7, 11 at dilations 1, 3, 5, convs1 at d, convs2 at 1 with the
+    residual), each on inputs of its own. Yardsticks: ``ops.conv.conv1d``
+    (cuDNN on the channels-last view) with the residual added after, as
+    the port ran them before K11, and ``F.conv1d`` on NCW copies made
+    beforehand."""
+    import torch
+    import torch.nn.functional as F
+    from voicefixer_tpu_torch.kernels.amp_conv import (amp_conv,
+                                                       amp_conv_reference)
+    from voicefixer_tpu_torch.ops.conv import conv1d
+    bf = torch.bfloat16
+    convs = []
+    for k in (3, 7, 11):
+        for d in (1, 3, 5):
+            for dil, res in ((d, False), (1, True)):
+                x = torch.randn((1, t, c), generator=gen).to(device, bf)
+                w = (torch.randn((k, c, c), generator=gen)
+                     * (k * c) ** -0.5).to(device, bf)
+                b = (0.05 * torch.randn((c,), generator=gen)).to(device, bf)
+                r = (torch.randn((1, t, c), generator=gen).to(device, bf)
+                     if res else None)
+                convs.append((x, w, b, dil, r, x.transpose(1, 2).contiguous(),
+                              w.permute(2, 1, 0).contiguous()))
+    work = [amp_conv_work(t, c, w.shape[0], 2, r is not None)
+            for _, w, _, _, r, _, _ in convs]
+
+    def view():
+        for x, w, b, d, r, _, _ in convs:
+            y = conv1d(x, w, b, padding=d * (w.shape[0] - 1) // 2,
+                       dilation=d)
+            if r is not None:
+                y = r + y
+
+    def ncw():
+        for _, w, b, d, _, xn, wn in convs:
+            F.conv1d(xn, wn, b, padding=d * (w.shape[0] - 1) // 2,
+                     dilation=d)
+    return {"c": c, "t": t,
+            "fn": lambda: [amp_conv(x, w, b, d, r)
+                           for x, w, b, d, r, _, _ in convs],
+            "plain": lambda: [amp_conv_reference(x, w, b, d, r)
+                              for x, w, b, d, r, _, _ in convs],
+            "view": view, "ncw": ncw,
+            "flops": sum(f for f, _ in work),
+            "bound_ms": sum(bound_ms(n, f, PEAK_BF16)[0] for f, n in work)}
+
+
+def _bigvgan_amp_conv(gen, device):
+    """K11 at each stage of a 5 s clip (``_amp_conv_case``) held to its
+    plain version, timed by CUDA events and by device time against its
+    bound and both yardsticks. Returns the JSON record's row for a clip,
+    with its stages."""
+    import torch
+    stages = []
+    for i, s, _, cout, t in _bigvgan_shapes():
+        c = _amp_conv_case(gen, device, cout, t * s)
+        got, ref = c["fn"](), c["plain"]()
+        err = compare(f"amp_conv bfloat16 stage {i}: 18 convs of [1, "
+                      f"{c['t']}, {c['c']}]",
+                      torch.cat([g.flatten() for g in got]),
+                      torch.cat([r.flatten() for r in ref]), 2 ** -7, 1e-3)
+        del got, ref
+        row = {"stage": i, "c": c["c"], "t": c["t"], "err": err,
+               "bound_ms": c["bound_ms"],
+               "ms": cuda_ms(c["fn"], 10),
+               "device_ms": _clip_device_ms([c["fn"]], None, 0),
+               "plain_ms": cuda_ms(c["plain"], 1, warmup=0),
+               "library_ms": cuda_ms(c["view"], 2),
+               "library_device_ms": _clip_device_ms([c["view"]], None, 0),
+               "ncw_ms": cuda_ms(c["ncw"], 5),
+               "ncw_device_ms": _clip_device_ms([c["ncw"]], None, 0)}
+        row["tflops"] = (c["flops"] / row["device_ms"] / 1e9
+                         if row["device_ms"] else None)
+        log(f"  amp_conv stage {i} (C {c['c']}, T {c['t']}), 18 launches: "
+            f"events {row['ms']:.3f} ms, device {row['device_ms']} "
+            f"({row['tflops']} TFLOP/s), plain {row['plain_ms']:.3f}, "
+            f"cuDNN view {row['library_ms']:.3f} (device "
+            f"{row['library_device_ms']}), F.conv1d NCW "
+            f"{row['ncw_ms']:.3f} (device {row['ncw_device_ms']}), "
+            f"bound {row['bound_ms']:.4f}")
+        stages.append(row)
+        del c
+        torch.cuda.empty_cache()
+
+    def total(key):  # None where a profile saw none of a stage's kernels
+        vals = [r[key] for r in stages]
+        return None if None in vals else sum(vals)
+    out = {"name": "bigvgan amp_conv:bfloat16",
+           "source": SOURCES["amp_conv"], "replaces": REPLACES["amp_conv"],
+           "launches": 108, "max_abs_err": max(r["err"] for r in stages),
+           **{key: total(key) for key in (
+               "ms", "device_ms", "plain_ms", "library_ms",
+               "library_device_ms", "ncw_ms", "ncw_device_ms", "bound_ms")},
+           "stages": stages}
+    log(f"  amp_conv bfloat16, a clip's 108 launches: events "
+        f"{out['ms']:.3f} ms, device {out['device_ms']}, cuDNN view "
+        f"device {out['library_device_ms']}, F.conv1d NCW device "
+        f"{out['ncw_device_ms']}, bound {out['bound_ms']:.4f}")
+    return out
 
 
 def _clip_device_ms(calls: list, group: str | None, launches: int):
@@ -2485,6 +2603,7 @@ def phase_bigvgan(device):
                     f"{total('ms'):.3f} ms, device {dev_ms} ms, plain "
                     f"{total('plain_ms'):.3f}, library {total('lib_ms'):.3f}"
                     f" (device {lib_dev_ms}), bound {total('bound_ms'):.4f}")
+        record.append(_bigvgan_amp_conv(gen, device))
     vocoder = BigVGAN.random(SEED, device=device)
     mel = torch.randn((BIGVGAN_FRAMES, 128), generator=gen) - 5.0
     walls = {}
@@ -2494,9 +2613,9 @@ def phase_bigvgan(device):
             kernels.reset_launches()
             out = vocoder.synthesize(mel)
             counts = {k: v for k, v in kernels.launches.items() if v}
-            if counts != BIGVGAN_LAUNCHES:
+            if counts != BIGVGAN_LAUNCHES[mode]:
                 raise AssertionError(f"BigVGAN {mode}: launches {counts} != "
-                                     f"{BIGVGAN_LAUNCHES}")
+                                     f"{BIGVGAN_LAUNCHES[mode]}")
             if out.shape != (1, BIGVGAN_FRAMES * 512) or not bool(
                     torch.isfinite(torch.as_tensor(out)).all()):
                 raise AssertionError(f"BigVGAN {mode}: bad output")

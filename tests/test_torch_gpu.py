@@ -20,6 +20,8 @@ import torch
 
 from voicefixer_tpu_torch import kernels
 from voicefixer_tpu_torch.kernels import convblock
+from voicefixer_tpu_torch.kernels.amp_conv import (amp_conv,
+                                                   amp_conv_reference)
 from voicefixer_tpu_torch.kernels.gru import (gru_bidir, gru_bidir_reference,
                                               gru_seq, gru_seq_reference)
 from voicefixer_tpu_torch.kernels.resstack import (plan_stack, res_chain,
@@ -149,10 +151,68 @@ def test_snake_aa_kernel(cuda, b, t, c, dtype):
                                atol=tol[1])
 
 
+def _amp_operands(gen, b, t, c, k, cuda):
+    bf = torch.bfloat16
+    return (_randn(gen, (b, t, c)).to(cuda, bf),
+            _randn(gen, (k, c, c), (k * c) ** -0.5).to(cuda, bf),
+            _randn(gen, (c,), 0.05).to(cuda, bf),
+            _randn(gen, (b, t, c)).to(cuda, bf))
+
+
+@pytest.mark.parametrize("stage", range(6))
+def test_amp_conv_kernel_bigvgan(cuda, stage):
+    """K11 against its plain version at each BigVGAN stage's width, a
+    short T (300 rows: three tiles at most), every kernel size and
+    dilation, convs1 alone and convs2 with the residual, at K3's bfloat16
+    tolerances (one rounding of float32 sums taken in another order)."""
+    gen = torch.Generator().manual_seed(stage)
+    c = _bigvgan_shape(stage)[1]
+    for k in (3, 7, 11):
+        for d in (1, 3, 5):
+            x, w, bias, r = _amp_operands(gen, 1, 300, c, k, cuda)
+            for dil, res in ((d, None), (1, r)):
+                n0 = kernels.launches["amp_conv"]
+                got = amp_conv(x, w, bias, dil, res)
+                assert kernels.launches["amp_conv"] == n0 + 1
+                ref = amp_conv_reference(x, w, bias, dil, res)
+                assert got.shape == ref.shape and got.dtype == torch.bfloat16
+                torch.testing.assert_close(got.float(), ref.float(),
+                                           rtol=2 ** -7, atol=1e-3)
+
+
+@pytest.mark.parametrize("b,t,c,k,d,residual", [
+    (1, 1, 24, 11, 5, True),      # one row, every tap but the centre padding
+    (2, 5, 64, 11, 5, False),     # T under the halo, batch 2
+    (1, 20, 8, 7, 3, True),       # the narrowest width
+    (2, 1000, 24, 3, 1, True),    # C = 24 over many tiles
+    (1, 129, 768, 3, 1, False),   # one row past a 128-row tile
+    (3, 257, 384, 7, 3, True),    # batch 3, one row past two tiles
+    (2, 700, 264, 11, 5, True),   # C no multiple of 64: a ragged chunk
+    (1, 3000, 200, 3, 3, True),
+    (1, 100, 16, 3, 64, False),   # the largest halo the slab takes
+    # the wider tiles, which longer signals take (``amp_conv.tile``): 256
+    # columns one row past a tile, 128 columns, 64 columns by two tiles a
+    # warpgroup at batch 2
+    (1, 3449, 768, 11, 5, True),
+    (1, 13793, 384, 7, 3, False),
+    (2, 27585, 192, 11, 5, True),
+])
+def test_amp_conv_kernel_ragged(cuda, b, t, c, k, d, residual):
+    """K11 at ragged shapes and at each tile, against its plain version."""
+    gen = torch.Generator().manual_seed(t)
+    x, w, bias, r = _amp_operands(gen, b, t, c, k, cuda)
+    res = r if residual else None
+    got = amp_conv(x, w, bias, d, res)
+    ref = amp_conv_reference(x, w, bias, d, res)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=2 ** -7,
+                               atol=1e-3)
+
+
 @pytest.mark.parametrize("mode", ["parity", "production"])
 def test_bigvgan_synthesize_launches(cuda, mode):
     """One ``BigVGAN.synthesize`` at the published widths: six upsample
-    launches (no pre-pass) and 109 snake_aa, nothing else of the port's;
+    launches (no pre-pass), 109 snake_aa and, in bfloat16, 108 amp_conv
+    (float32's convs stay on cuDNN), nothing else of the port's;
     production within bfloat16's rounding of parity on the same weights."""
     from voicefixer_tpu_torch.ops.precision import precision
     from voicefixer_tpu_torch.pipeline.vocoder_facade import BigVGAN
@@ -163,7 +223,10 @@ def test_bigvgan_synthesize_launches(cuda, mode):
         kernels.reset_launches()
         got = vocoder.synthesize(mel)
         counts = {k: v for k, v in kernels.launches.items() if v}
-    assert counts == {"upsample": 6, "snake_aa": 109}
+    want = {"upsample": 6, "snake_aa": 109}
+    if mode == "production":
+        want["amp_conv"] = 108
+    assert counts == want
     assert got.shape == (1, BIGVGAN_FRAMES * 512)
     assert bool(torch.isfinite(torch.as_tensor(got)).all())
     if mode == "production":
@@ -940,13 +1003,16 @@ def _grad_guard_calls(cuda):
             w(r(1, 4, 4, c)), {**block, "conv2": {"w": r(3, 3, c, c)}},
             0.01),
         "snake_aa": lambda w: snake_aa(w(r(1, 16, c)), r(c), r(c)),
+        "amp_conv": lambda w: amp_conv(
+            w(r(1, 16, c).bfloat16()), r(3, c, c).bfloat16(),
+            r(c).bfloat16()),
     }
 
 
 @pytest.mark.parametrize("name", ["stft_mel", "upsample", "res_chain",
                                   "res_shift_single", "up_res_stream",
                                   "res_stream", "gru_seq", "conv_block_res",
-                                  "snake_aa"])
+                                  "snake_aa", "amp_conv"])
 def test_kernel_raises_under_grad(cuda, name):
     """Every kernel but K6 has no backward: with grad mode on and an input
     that requires grad its wrapper raises before it launches; under

@@ -2262,6 +2262,7 @@ def _guard_cases():
     from voicefixer_tpu_torch.config import DEFAULT_CONFIG
     from voicefixer_tpu_torch.kernels import gru as kgru
     from voicefixer_tpu_torch.kernels import resstream
+    from voicefixer_tpu_torch.kernels.amp_conv import amp_conv
     from voicefixer_tpu_torch.kernels.snake_aa import snake_aa
     from voicefixer_tpu_torch.models.analysis import mel_fbank
     r = lambda *s: torch.randn(s)  # noqa: E731
@@ -2293,13 +2294,16 @@ def _guard_cases():
         "gru_bidir": lambda w: kgru.gru_bidir_cat(
             w(r(1, 3, 6)), r(1, 3, 6), r(2, 6), r(2, 6), r(6), r(6)),
         "snake_aa": lambda w: snake_aa(w(r(1, 16, c)), r(c), r(c)),
+        "amp_conv": lambda w: amp_conv(w(r(1, 16, c).bfloat16()),
+                                       r(3, c, c).bfloat16(),
+                                       r(c).bfloat16()),
     }
 
 
 @pytest.mark.parametrize("name", ["stft_mel", "upsample", "res_chain",
                                   "res_shift_single", "up_res_stream",
                                   "res_stream", "gru_seq", "conv_block_res",
-                                  "snake_aa"])
+                                  "snake_aa", "amp_conv"])
 def test_kernel_launch_raises_under_grad(monkeypatch, name):
     """Every ctypes wrapper, taken to its launch (``on_cpu`` patched to
     say CUDA, the library load patched to raise ``_Launched``), raises

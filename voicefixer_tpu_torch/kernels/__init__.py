@@ -25,6 +25,10 @@ JAX package:
 - kernels.snake_aa  -- BigVGAN's anti-aliased SnakeBeta activation: 2x
                        upsample, SnakeBeta and 2x low-pass downsample in one
                        pass (no TPU kernel: the JAX package has no BigVGAN)
+- kernels.amp_conv  -- BigVGAN's dilated AMP convolutions in bfloat16: the
+                       tap product on wgmma, the block's residual in its
+                       epilogue (no TPU kernel: upstream's convs are plain
+                       Conv1d)
 
 Every wrapper takes its plain PyTorch version for a tensor on the CPU, and
 for a CUDA tensor launches its kernel or raises; there is no switch that
@@ -49,7 +53,7 @@ import torch
 launches = {"stft_mel": 0, "gru_bidir": 0, "upsample": 0, "res_chain": 0,
             "res_shift_single": 0, "up_res_stream": 0, "res_stream": 0,
             "gru_seq": 0, "conv_block_res": 0, "gru_bidir_backward": 0,
-            "snake_aa": 0}
+            "snake_aa": 0, "amp_conv": 0}
 
 
 def reset_launches():

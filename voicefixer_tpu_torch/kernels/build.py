@@ -29,7 +29,7 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
 SOURCES = ("stft_mel", "gru_bidir", "upsample", "resstack_f32",
-           "resstack_wgmma", "convblock", "snake_aa")
+           "resstack_wgmma", "convblock", "snake_aa", "amp_conv")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 HOST_SOURCES = ("flacdec",)

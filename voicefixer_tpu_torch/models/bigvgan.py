@@ -12,8 +12,11 @@ NVIDIA/BigVGAN ``bigvgan.py``, ``resblock`` "1") in the port's layout
 - the end: A, ``conv_post`` (k7, padding 3, no bias) in float32, then a
   clamp to [-1, 1] (no tanh).
 
-The dilated convolutions go to cuDNN (``ops.conv.conv1d``). Production
-precision stores activations and weights in bfloat16, as the vocoder does.
+Production precision stores activations and weights in bfloat16, as the
+vocoder does; there the AMP blocks' convolutions are K11
+(``kernels.amp_conv``: 108 launches a pass, each ``convs2`` with the
+block's residual). In float32 they go to cuDNN (``ops.conv.conv1d``), as
+``conv_pre`` and ``conv_post`` do in both.
 
 The tree, in upstream's order: {"conv_pre": {"w", "b"}, "ups": [{"w",
 "b"}] * 6 (transposed-conv weights [2u, Cin, Cout] in torch tap order),
@@ -29,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from voicefixer_tpu_torch.config import BigVGANConfig
+from voicefixer_tpu_torch.kernels.amp_conv import amp_conv
 from voicefixer_tpu_torch.kernels.snake_aa import snake_aa
 from voicefixer_tpu_torch.kernels.upsample import upsample
 from voicefixer_tpu_torch.ops.conv import conv1d
@@ -45,10 +49,17 @@ def activation(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 def amp_block(p: dict, x: torch.Tensor, kernel: int,
               dilations) -> torch.Tensor:
-    """One AMPBlock1."""
+    """One AMPBlock1. In bfloat16 both convs of a step are K11, the second
+    with the residual in its sum; in float32 they go to cuDNN and the
+    residual is added after."""
     for m, d in enumerate(dilations):
         c1, c2 = p["convs1"][m], p["convs2"][m]
         xt = activation(p["acts"][2 * m], x)
+        if x.dtype == torch.bfloat16:
+            xt = amp_conv(xt, c1["w"], c1["b"], dilation=d)
+            xt = activation(p["acts"][2 * m + 1], xt)
+            x = amp_conv(xt, c2["w"], c2["b"], residual=x)
+            continue
         xt = conv1d(xt, c1["w"], c1["b"], padding=d * (kernel - 1) // 2,
                     dilation=d)
         xt = activation(p["acts"][2 * m + 1], xt)
