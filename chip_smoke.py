@@ -1560,14 +1560,14 @@ def phase_long_input(vf, device):
     import torch
     from voicefixer_tpu_torch import kernels
     from voicefixer_tpu_torch.ops.precision import precision
-    from voicefixer_tpu_torch.parallel import inference
+    from voicefixer_tpu_torch.pipeline import plan
     seg = vf.config.pipeline.seg_length
     log(f"== a long input: restore_inmem of {LONG_SEGMENTS} segments of "
         f"{seg / vf.config.pipeline.sample_rate:.0f} s, production")
     wav = (0.1 * np.random.default_rng(SEED + 9).standard_normal(
         LONG_SEGMENTS * seg)).astype(np.float32)
     with precision("production"):
-        cap = inference.rows_per_call(vf, seg)
+        cap = plan.rows_per_call(vf, seg)
         calls = math.ceil(LONG_SEGMENTS / cap)
         torch.cuda.synchronize()
         kernels.reset_launches()
@@ -1883,9 +1883,9 @@ def phase_file_path(device, card: str, build_s: float):
     from voicefixer_tpu_torch.config import DEFAULT_CONFIG as C
     from voicefixer_tpu_torch.models import analysis
     from voicefixer_tpu_torch.ops.precision import tf32_off
-    from voicefixer_tpu_torch.pipeline import vocoder_facade
+    from voicefixer_tpu_torch.pipeline import plan, vocoder_facade
     from voicefixer_tpu_torch.pipeline.restore import (
-        VoiceFixer, _fit_length, overlap_add, remove_higher_frequency)
+        VoiceFixer, overlap_add, remove_higher_frequency)
     from voicefixer_tpu_torch.utils import audio_io, flac, flac_native
 
     t_phase = time.perf_counter()
@@ -1975,7 +1975,7 @@ def phase_file_path(device, card: str, build_s: float):
                                               for p in positions]))
         _hold_file(f"overlap file against overlap_add of {len(positions)} "
                    "restore_batch windows", os.path.join(d, "out_ov.flac"),
-                   overlap_add([_fit_length(o, seg) for o in outs],
+                   overlap_add([plan.fit_length(o, seg) for o in outs],
                                positions, n, ramp))
         _hold_file("mode 1 file against restore_inmem(mode=1)",
                    os.path.join(d, "out1.wav"), vf.restore_inmem(x, mode=1))
@@ -2787,8 +2787,9 @@ def _rows_over_cap(vf, chunk, mesh):
     import torch
     from voicefixer_tpu_torch import kernels
     from voicefixer_tpu_torch.parallel import inference
+    from voicefixer_tpu_torch.pipeline import plan
     seg = len(chunk)
-    cap = inference.rows_per_call(vf, seg, mesh)
+    cap = plan.rows_per_call(vf, seg, plan.cap_group(vf.mesh, mesh))
     max_batch = inspect.signature(inference.restore_wavs).parameters[
         "max_batch"].default
     rows = max(max_batch, cap + 1)
@@ -2803,8 +2804,7 @@ def _rows_over_cap(vf, chunk, mesh):
     wall = time.perf_counter() - t0
     launched = kernels.launches["stft_mel"]
     err = max(float(np.abs(g - ref).max()) for g in got)
-    by_index = inference.INDEX_LIMIT // inference.row_elements(vf.config,
-                                                               seg)
+    by_index = plan.INDEX_LIMIT // plan.row_elements(vf.config, seg)
     log(f"  parity restore_wavs over {rows} rows of one 30 s chunk "
         f"(default max_batch {max_batch}): {cap} rows per call (the "
         f"32-bit index limit allows {by_index}), "
@@ -2852,9 +2852,10 @@ def phase_process_group(device):
     from voicefixer_tpu_torch.config import DEFAULT_CONFIG as C
     from voicefixer_tpu_torch.models import analysis, vocoder
     from voicefixer_tpu_torch.ops.precision import precision
-    from voicefixer_tpu_torch.parallel import distributed, inference
+    from voicefixer_tpu_torch.parallel import distributed
     from voicefixer_tpu_torch.parallel.inference import restore_wavs
     from voicefixer_tpu_torch.parallel.mesh import make_mesh
+    from voicefixer_tpu_torch.pipeline import plan
     from voicefixer_tpu_torch.pipeline.restore import VoiceFixer
 
     t_phase = time.perf_counter()
@@ -2901,12 +2902,12 @@ def phase_process_group(device):
                 fixed, per_row = _peak_per_row(vf, wavs[2][:seg])
                 rows_fit = int((0.9 * torch.cuda.get_device_properties(
                     device).total_memory - fixed) // per_row)
-                est = inference.row_bytes(C, seg)
+                est = plan.row_bytes(C, seg)
                 log(f"  {mode} restore_wavs peak allocated memory: "
                     f"{per_row / 2 ** 30:.3f} GiB per 30 s chunk row "
                     f"+ {fixed / 2 ** 30:.3f} GiB fixed (batches of 1 and 5 "
                     f"rows); {rows_fit} rows fit 90 % of this card; "
-                    f"inference.row_bytes {est / 2 ** 30:.3f} GiB")
+                    f"plan.row_bytes {est / 2 ** 30:.3f} GiB")
                 if est < per_row:
                     raise AssertionError("row_bytes is below the measured "
                                          "peak per row")

@@ -1140,7 +1140,7 @@ def test_instance_cast_once_matches_per_call_cast(cuda):
     import numpy as np
     from voicefixer_tpu_torch.config import DEFAULT_CONFIG
     from voicefixer_tpu_torch.ops.precision import precision
-    from voicefixer_tpu_torch.pipeline import restore
+    from voicefixer_tpu_torch.pipeline import plan, restore
     seg = DEFAULT_CONFIG.pipeline.seg_length
     wav = (0.1 * np.random.default_rng(5).standard_normal(seg)
            ).astype(np.float32)
@@ -1155,7 +1155,7 @@ def test_instance_cast_once_matches_per_call_cast(cuda):
                 torch.from_numpy(wav[None]).to(cuda), DEFAULT_CONFIG)
     finally:
         torch.backends.cudnn.deterministic = deterministic
-    want = restore._trim_center(want[0].float().cpu().numpy(), seg)
+    want = plan.trim_center(want[0].float().cpu().numpy(), seg)
     assert (vf.weight_casts.misses, vf.weight_casts.hits) == (1, 1)
     for out in got:
         np.testing.assert_array_equal(out, want)

@@ -352,7 +352,7 @@ def tiny_vf():
     (4, 3, [2, 2, 2]), (4, None, [4, 2])])
 def test_restore_wavs_row_cap(tiny_vf, monkeypatch, max_batch, max_rows,
                               calls):
-    from voicefixer_tpu_torch.parallel import inference
+    from voicefixer_tpu_torch.pipeline import plan
     """Six chunks of one length (three waves, the short one padded): a cap
     on the rows of a call splits each batch of max_batch into equal calls,
     and every file comes out as the single batch's. Within 1e-6, not bit
@@ -372,7 +372,7 @@ def test_restore_wavs_row_cap(tiny_vf, monkeypatch, max_batch, max_rows,
 
     monkeypatch.setattr(tiny_vf, "_restore_batch_device", counted)
     # the rows a call may take on a card (the CPU takes no cap: None)
-    monkeypatch.setattr(inference, "rows_per_call", lambda *a: max_rows)
+    monkeypatch.setattr(plan, "rows_per_call", lambda *a: max_rows)
     got = restore_wavs(tiny_vf, wavs, 0, max_batch=max_batch)
     assert seen == calls
     for g, w in zip(got, whole):
@@ -389,7 +389,7 @@ def test_restore_inmem_row_cap(tiny_vf, monkeypatch, mode, overlap, n):
     call: every call takes at most 2 rows, in equal calls, and the output
     is the one call's within 1e-6 (the CPU library blocks a product by
     its row count, as in ``test_restore_wavs_row_cap``)."""
-    from voicefixer_tpu_torch.parallel import inference
+    from voicefixer_tpu_torch.pipeline import plan
     wav = (0.1 * np.random.default_rng(1).standard_normal(n)).astype(
         np.float32)
     whole = tiny_vf.restore_inmem(wav, mode=mode,
@@ -402,12 +402,38 @@ def test_restore_inmem_row_cap(tiny_vf, monkeypatch, mode, overlap, n):
         return run(batch, *a, **k)
 
     monkeypatch.setattr(tiny_vf, "_restore_batch_device", counted)
-    monkeypatch.setattr(inference, "rows_per_call", lambda *a: 2)
+    monkeypatch.setattr(plan, "rows_per_call", lambda *a: 2)
     got = tiny_vf.restore_inmem(wav, mode=mode,
                                 chunk_overlap_seconds=overlap)
     assert sum(seen) == 5 and seen == [2, 2, 1]
     assert got.shape == whole.shape
     np.testing.assert_allclose(got, whole, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("cap,calls", [(None, [5]), (2, [2, 2, 1])])
+@pytest.mark.parametrize("mode", [0, 1])
+def test_restore_inmem_is_restore_wavs(tiny_vf, monkeypatch, mode, cap,
+                                       calls):
+    """One request path: ``restore_inmem`` of five segments (the last
+    padded) is ``restore_wavs`` of the one wave bit for bit, in one call
+    and under a card's cap of 2 rows a call: the same segments in the same
+    calls give the same floats."""
+    from voicefixer_tpu_torch.pipeline import plan
+    wav = (0.1 * np.random.default_rng(4).standard_normal(
+        4 * SEG + SEG // 2)).astype(np.float32)
+    seen = []
+    run = tiny_vf._restore_batch_device
+
+    def counted(batch, *a, **k):
+        seen.append(batch.shape[0])
+        return run(batch, *a, **k)
+
+    monkeypatch.setattr(tiny_vf, "_restore_batch_device", counted)
+    monkeypatch.setattr(plan, "rows_per_call", lambda *a: cap)
+    alone = tiny_vf.restore_inmem(wav, mode=mode)
+    batched = restore_wavs(tiny_vf, [wav], mode)
+    assert seen == calls * 2
+    np.testing.assert_array_equal(alone, batched[0])
 
 
 def test_restore_inmem_row_cap_across_model_ranks(tmp_path):
@@ -434,13 +460,13 @@ def test_row_bytes_calibration(tiny_vf):
     CPU takes no cap."""
     from voicefixer_tpu_torch.config import DEFAULT_CONFIG
     from voicefixer_tpu_torch.ops.precision import precision
-    from voicefixer_tpu_torch.parallel import inference
+    from voicefixer_tpu_torch.pipeline import plan
     seg = DEFAULT_CONFIG.pipeline.seg_length
-    parity = inference.row_bytes(DEFAULT_CONFIG, seg) / 2 ** 30
+    parity = plan.row_bytes(DEFAULT_CONFIG, seg) / 2 ** 30
     with precision("production"):
-        production = inference.row_bytes(DEFAULT_CONFIG, seg) / 2 ** 30
+        production = plan.row_bytes(DEFAULT_CONFIG, seg) / 2 ** 30
     assert 1.383 < parity < 1.5 and 0.699 < production < 0.75
     # 25 full-width rows keep the last activation under 2^31 elements
-    assert inference.INDEX_LIMIT // inference.row_elements(
+    assert plan.INDEX_LIMIT // plan.row_elements(
         DEFAULT_CONFIG, seg) == 25
-    assert inference.rows_per_call(tiny_vf, SEG) is None
+    assert plan.rows_per_call(tiny_vf, SEG) is None

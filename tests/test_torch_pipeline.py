@@ -21,7 +21,7 @@ from voicefixer_tpu.pipeline import restore as jax_restore
 
 from voicefixer_tpu_torch.config import tiny_test_config
 from voicefixer_tpu_torch.ops.conv import fold_bn_eval
-from voicefixer_tpu_torch.pipeline import restore
+from voicefixer_tpu_torch.pipeline import plan, restore
 from voicefixer_tpu_torch.utils.weights import from_jax_params
 from tests.test_torch_weights import (jax_param_trees,  # noqa: F401
                                       one_torch_thread)
@@ -148,7 +148,7 @@ def test_restore_inmem_short_tail_unpadded(params):
                                              (7, 10), (11, 10)])
 def test_trim_center_matches_jax(est_len, ref_len):
     est = np.arange(est_len, dtype=np.float32)
-    np.testing.assert_array_equal(restore._trim_center(est, ref_len),
+    np.testing.assert_array_equal(plan.trim_center(est, ref_len),
                                   jax_restore._trim_center(est, ref_len))
 
 
@@ -260,7 +260,7 @@ def test_remove_higher_frequency_matches_jax(n, seed):
                                      (0, 4)])
 def test_fit_length_matches_jax(a_len, n):
     a = np.arange(2 * a_len, dtype=np.float32).reshape(2, a_len)
-    np.testing.assert_array_equal(restore._fit_length(a, n),
+    np.testing.assert_array_equal(plan.fit_length(a, n),
                                   jax_restore._fit_length(a, n))
 
 
@@ -513,7 +513,7 @@ def _per_call_cast(vf, wav, mode=0, seed=0):
             vf.params, vf.vocoder_params, torch.from_numpy(wav[None]), CFG,
             model_devices=vf.model_devices, training=mode == 2,
             generator=gen)
-    return restore._trim_center(out[0].numpy(), wav.shape[0])
+    return plan.trim_center(out[0].numpy(), wav.shape[0])
 
 
 def _float32(tree) -> bool:

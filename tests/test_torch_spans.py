@@ -15,6 +15,7 @@ import torch
 from voicefixer_tpu_torch.config import tiny_test_config
 from voicefixer_tpu_torch.ops.precision import precision
 from voicefixer_tpu_torch.parallel import inference
+from voicefixer_tpu_torch.pipeline import plan
 from voicefixer_tpu_torch.pipeline.restore import VoiceFixer, restore_batch
 from voicefixer_tpu_torch.utils import profiling
 from tests.test_torch_weights import one_torch_thread  # noqa: F401
@@ -58,8 +59,8 @@ def _inside(inner, outer):
 
 
 def _cap(monkeypatch, rows):
-    monkeypatch.setattr(inference, "rows_per_call",
-                        lambda vf, seg_len, mesh=None: rows)
+    monkeypatch.setattr(plan, "rows_per_call",
+                        lambda vf, seg_len, group=None: rows)
 
 
 CALLS = {
@@ -87,15 +88,15 @@ def test_one_request_span_holds_the_others(vf, tmp_path, call):
 def test_one_upload_a_call_under_a_cap(vf, tmp_path, monkeypatch, cap,
                                        calls):
     """Three segments (the tail padded) in ceil(3 / cap) calls: the count of
-    vf.upload is the count of calls that _restore_rows makes."""
+    vf.upload is the count of calls that _calls makes."""
     _cap(monkeypatch, cap)
     seen = []
-    batch = vf._restore_batch
+    batch = vf._restore_batch_device
 
     def counted(rows, *a, **k):
         seen.append(len(rows))
         return batch(rows, *a, **k)
-    monkeypatch.setattr(vf, "_restore_batch", counted)
+    monkeypatch.setattr(vf, "_restore_batch_device", counted)
     out, spans = _spans(tmp_path, lambda: vf.restore_inmem(_wav(2.5)))
     assert out.shape == (int(2.5 * SR),)
     assert len(seen) == calls and sum(seen) == 3

@@ -29,9 +29,7 @@ from voicefixer_tpu_torch.config import DEFAULT_CONFIG
 from voicefixer_tpu_torch.models import analysis, vocoder
 from voicefixer_tpu_torch.utils.weights import (count_leaves,
                                                from_jax_params,
-                                               load_pytree_npz, pack_bn,
-                                               pack_conv3x3, pack_shortcut,
-                                               res_bank)
+                                               load_pytree_npz, res_bank)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -238,29 +236,47 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
         VoiceFixer.random(0)
 
 
-@pytest.mark.parametrize("dtype,ci,ci_p", [(torch.float32, 2, 2),
-                                           (torch.bfloat16, 2, 8),
-                                           (torch.bfloat16, 16, 16)])
-def test_conv_block_packing(dtype, ci, ci_p):
-    """The layouts csrc/convblock.cu reads: [9*Ci_p, Co] tap-major with zero
-    rows up to a multiple of 8 in bfloat16, the shortcut's bias as its last
-    row, float32 (scale, shift)."""
+@pytest.mark.parametrize("dtype,ci", [(torch.float32, 2),
+                                      (torch.bfloat16, 2),
+                                      (torch.bfloat16, 24)])
+def test_conv_block_packing(dtype, ci):
+    """The layouts csrc/convblock.cu reads (``kernels.convblock.
+    pack_operands``): K rows, tap-major (dt, df) then channel, Ci and Co
+    rounded up to K_STEP, by the product's width, zero past Ci and Co; the
+    1x1 shortcut as w2's last K rows and its bias in dtype; bfloat16
+    transposed to [width, K], K contiguous; float32 (scale, shift)."""
+    from voicefixer_tpu_torch.kernels.convblock import (K_STEP,
+                                                        pack_operands,
+                                                        product_width)
     co = 8
+    cp1, cp2, width = (-(-ci // K_STEP) * K_STEP, -(-co // K_STEP) * K_STEP,
+                       product_width(co))
     g = torch.Generator().manual_seed(0)
-    w = torch.randn((3, 3, ci, co), generator=g)
-    packed = pack_conv3x3(w, dtype)
-    assert packed.shape == (9 * ci_p, co) and packed.dtype == dtype
-    assert packed.is_contiguous()
-    view = packed.reshape(3, 3, ci_p, co)
-    assert torch.equal(view[:, :, :ci], w.to(dtype))
-    assert float(view[:, :, ci:].float().abs().sum()) == 0.0
-    sc = {"w": torch.randn((1, 1, ci, co), generator=g),
-          "b": torch.randn((co,), generator=g)}
-    ps = pack_shortcut(sc, dtype)
-    assert ps.shape == (ci_p + 1, co) and ps.dtype == dtype
-    assert torch.equal(ps[:ci], sc["w"][0, 0].to(dtype))
-    assert torch.equal(ps[-1], sc["b"].to(dtype))
-    assert float(ps[ci:-1].float().abs().sum()) == 0.0
-    scale, shift = pack_bn({"scale": torch.ones(ci, dtype=dtype),
-                            "shift": torch.zeros(ci, dtype=dtype)})
-    assert scale.dtype == shift.dtype == torch.float32
+    params = {"conv1": {"w": torch.randn((3, 3, ci, co), generator=g)},
+              "conv2": {"w": torch.randn((3, 3, co, co), generator=g)},
+              "shortcut": {"w": torch.randn((1, 1, ci, co), generator=g),
+                           "b": torch.randn((co,), generator=g)},
+              "bn1": {"scale": torch.ones(ci, dtype=dtype),
+                      "shift": torch.zeros(ci, dtype=dtype)},
+              "bn2": {"scale": torch.ones(co, dtype=dtype),
+                      "shift": torch.zeros(co, dtype=dtype)}}
+    ops = pack_operands(params, dtype)
+    k1, k2 = 9 * cp1, 9 * cp2 + cp1
+    for key, k in (("w1", k1), ("w2", k2)):
+        want = (width, k) if dtype == torch.bfloat16 else (k, width)
+        assert ops[key].shape == want and ops[key].dtype == dtype
+        assert ops[key].is_contiguous()
+    w1, w2 = ((ops["w1"].t(), ops["w2"].t()) if dtype == torch.bfloat16
+              else (ops["w1"], ops["w2"]))
+    taps = [(w1.reshape(3, 3, cp1, width), params["conv1"]["w"], ci),
+            (w2[:9 * cp2].reshape(3, 3, cp2, width), params["conv2"]["w"],
+             co),
+            (w2[9 * cp2:].reshape(1, 1, cp1, width),
+             params["shortcut"]["w"], ci)]
+    for view, w, c in taps:
+        assert torch.equal(view[:, :, :c, :co], w.to(dtype))
+        assert float(view[:, :, c:].float().abs().sum()) == 0.0
+        assert float(view[..., co:].float().abs().sum()) == 0.0
+    assert torch.equal(ops["bsc"], params["shortcut"]["b"].to(dtype))
+    assert all(ops[k].dtype == torch.float32 for k in ("s1", "t1", "s2",
+                                                       "t2"))

@@ -171,12 +171,13 @@ def case_tp_cast_once(d: str, argv: list) -> dict:
 
 def case_tp_restore_inmem(d: str, argv: list) -> dict:
     """restore_inmem on a (1, world) mesh at small_tp_config, in one call
-    (no cap on the CPU), then with ``rows_per_call`` patched to rank + 1
-    rows on each rank: the model group takes its least cap, so every rank
-    makes the same calls. Returns both outputs and the rows of each call
-    of the second."""
-    from voicefixer_tpu_torch.parallel import distributed, inference
+    (no cap on the CPU), then with ``plan.free_rows`` patched to rank + 1
+    rows on each rank: ``plan.rows_per_call`` takes the model group's
+    least, so every rank makes the same calls. Returns both outputs and
+    the rows of each call of the second."""
+    from voicefixer_tpu_torch.parallel import distributed
     from voicefixer_tpu_torch.parallel.mesh import make_mesh
+    from voicefixer_tpu_torch.pipeline import plan
     vf = _vf(d, "small_tp", make_mesh(1, distributed.process_count()))
     with np.load(os.path.join(d, "wav.npz")) as z:
         wav = z["wav"]
@@ -190,7 +191,7 @@ def case_tp_restore_inmem(d: str, argv: list) -> dict:
 
     vf._restore_batch_device = counted
     rank = distributed.process_index()
-    inference.rows_per_call = lambda *a: rank + 1
+    plan.free_rows = lambda *a: rank + 1
     return {"whole": whole, "split": vf.restore_inmem(wav),
             "calls": np.array(seen)}
 

@@ -146,7 +146,7 @@ def _requests() -> dict:
 
     from voicefixer_tpu_torch.config import DEFAULT_CONFIG
     from voicefixer_tpu_torch.ops.precision import precision
-    from voicefixer_tpu_torch.parallel import inference
+    from voicefixer_tpu_torch.pipeline import plan
     from voicefixer_tpu_torch.pipeline.restore import VoiceFixer
     sr = DEFAULT_CONFIG.pipeline.sample_rate
     rng = np.random.default_rng(19)
@@ -163,14 +163,13 @@ def _requests() -> dict:
             out[f"{mode}.clip_12s"] = _spans_a_request(vf, clip)
             if mode == "production":
                 out["production.long_510s"] = _spans_a_request(vf, long)
-                cap = inference.rows_per_call
-                inference.rows_per_call = lambda *a, **k: min(cap(*a, **k),
-                                                              6)
+                cap = plan.rows_per_call
+                plan.rows_per_call = lambda *a, **k: min(cap(*a, **k), 6)
                 try:
                     out["production.long_510s_cap6"] = _spans_a_request(
                         vf, long)
                 finally:
-                    inference.rows_per_call = cap
+                    plan.rows_per_call = cap
             del vf
             torch.cuda.empty_cache()
     return out

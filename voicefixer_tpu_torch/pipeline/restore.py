@@ -13,7 +13,6 @@ the segments one by one, unpadded, as upstream does.
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import numpy as np
 import torch
@@ -28,11 +27,11 @@ from voicefixer_tpu_torch.ops import stft as vstft
 from voicefixer_tpu_torch.ops.precision import (activation_dtype,
                                                conv_block_kernel, tf32_off,
                                                use_conv_block_kernel)
-from voicefixer_tpu_torch.parallel import distributed, tp
-from voicefixer_tpu_torch.parallel.mesh import (axis_group, axis_size,
-                                                check_mesh)
+from voicefixer_tpu_torch.parallel import distributed, sp, tp
+from voicefixer_tpu_torch.parallel.mesh import (axis_size, check_mesh,
+                                                global_batch, shard_batch)
 from voicefixer_tpu_torch.parallel.sharding import shard_params
-from voicefixer_tpu_torch.pipeline import vocoder_facade
+from voicefixer_tpu_torch.pipeline import plan, vocoder_facade
 from voicefixer_tpu_torch.utils.profiling import annotate
 from voicefixer_tpu_torch.utils.weights import (CastCache, cast_tree,
                                               convert_tree, tree_map)
@@ -66,14 +65,6 @@ def remove_higher_frequency(wav: torch.Tensor, cfg: VoiceFixerConfig,
     return (out, int(cutoff)) if return_cutoff else out
 
 
-def _fit_length(a: np.ndarray, n: int) -> np.ndarray:
-    """Centre-trim to n if longer, zero-pad at the tail if shorter."""
-    a = _trim_center(a, n)
-    if a.shape[-1] < n:
-        a = np.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, n - a.shape[-1])])
-    return a
-
-
 def overlap_add(chunks: list, positions: list, total: int,
                 ramp: int) -> np.ndarray:
     """Weighted overlap-add: each chunk fades in and out linearly over
@@ -93,19 +84,6 @@ def overlap_add(chunks: list, positions: list, total: int,
         out[pos:pos + n] += w * chunk.astype(np.float64)
         wsum[pos:pos + n] += w
     return (out / np.maximum(wsum, 1e-12)).astype(np.float32)
-
-
-def _trim_center(est: np.ndarray, ref_len: int) -> np.ndarray:
-    """Centre-trim est's last axis to ref_len, the JAX package's rule:
-    an even excess loses half at each end; an odd excess keeps the head and
-    crops the tail (upstream would return an empty array there); a shorter
-    est is returned unchanged."""
-    diff = abs(est.shape[-1] - ref_len)
-    if est.shape[-1] > ref_len:
-        if diff // 2 > 0:
-            est = est[..., diff // 2: -(diff // 2)]
-        return est[..., :ref_len]
-    return est
 
 
 def restore_batch(analysis_params: dict, vocoder_params,
@@ -133,14 +111,13 @@ def restore_batch(analysis_params: dict, vocoder_params,
                              training=training, generator=generator)
         denoised_mel = from_log(out["mel"])
         with annotate("vf.vocoder"):
-            if tp.model_parallel():
-                from voicefixer_tpu_torch.parallel.sp import synthesize_sp
-                wav_out = synthesize_sp(vocoder_params, denoised_mel,
-                                        cfg.vocoder, mesh=mesh)[..., 0]
-            elif model_devices is not None and len(model_devices) > 1:
-                from voicefixer_tpu_torch.parallel.sp import synthesize_sp
-                wav_out = synthesize_sp(vocoder_params, denoised_mel,
-                                        cfg.vocoder, model_devices)[..., 0]
+            sharded = tp.model_parallel()
+            devices = (None if sharded or len(model_devices or ()) < 2
+                       else model_devices)
+            if sharded or devices is not None:
+                wav_out = sp.synthesize_sp(
+                    vocoder_params, denoised_mel, cfg.vocoder, devices,
+                    mesh if sharded else None)[..., 0]
             else:
                 wav_out = vocoder_facade.synthesize(
                     vocoder_params, denoised_mel, cfg.vocoder)[..., 0]
@@ -331,31 +308,57 @@ class VoiceFixer:
         return self._to_host(
             *self._restore_batch_device(batch, training, generator))
 
-    def _restore_rows(self, segments: list):
-        """``_restore_batch`` of equal-length eval segments, stacked, in
-        equal calls of at most ``parallel.inference.rows_per_call`` rows,
-        in order (one call on the CPU, where there is no cap): on the card
-        one call of 26 full-width rows raises in the post-conv's 32-bit
-        reflection pad. With a "model" axis the group takes its least
-        cap, so that its ranks make the same calls. -> (outs [B, S],
-        peaks [B])."""
-        from voicefixer_tpu_torch.parallel.inference import rows_per_call
+    def _calls(self, rows: list, data_mesh=None, max_batch=None):
+        """Equal-length eval rows through ``_restore_batch_device`` in the
+        calls that ``plan.split`` makes of them under ``plan.rows_per_call``
+        (on the card one call of 26 full-width rows raises in the
+        post-conv's 32-bit reflection pad): yields (the call's slice of
+        ``rows``, outs [n, S], peaks [n]) on the host, call by call. Each
+        call stacks its rows once. With a ``data_mesh`` every data rank
+        restores its share of each call and gets all of it back;
+        ``max_batch`` caps the rows of a global batch before the split."""
         with annotate("vf.plan"):
-            cap = rows_per_call(self, segments[0].shape[-1])
-            if cap is not None and axis_size(self.mesh, "model") > 1:
-                t = torch.tensor([cap], device=self.device)
-                torch.distributed.all_reduce(
-                    t, op=torch.distributed.ReduceOp.MIN,
-                    group=axis_group(self.mesh, "model"))
-                cap = int(t.item())
-            n_calls = 1 if cap is None else math.ceil(len(segments) / cap)
-            step = math.ceil(len(segments) / n_calls)
-            rows = np.stack(segments)
-        parts = [self._restore_batch(rows[i: i + step])
-                 for i in range(0, len(rows), step)]
+            cap = plan.rows_per_call(self, rows[0].shape[-1],
+                                     plan.cap_group(self.mesh, data_mesh))
+            calls = plan.split(len(rows), cap, axis_size(data_mesh, "data"),
+                               max_batch)
+        for call in calls:
+            n = call.stop - call.start
+            with annotate("vf.plan"):
+                batch = shard_batch(data_mesh,
+                                    torch.from_numpy(np.stack(rows[call])))
+            outs, peaks = self._restore_batch_device(batch)
+            # rebound to the host copies before the yield, so that the
+            # device outputs are freed before the next call runs
+            outs, peaks = self._to_host(global_batch(data_mesh, outs, n),
+                                        global_batch(data_mesh, peaks, n))
+            yield call, outs, peaks
+
+    def _restore_eval(self, wavs: list, mode: int, data_mesh=None,
+                      max_batch=None, warn: bool = True) -> list:
+        """Modes 0 and 1 of a list of waves: each cut into segments
+        (``plan.segments``), the segments of every wave grouped by length,
+        each group restored in ``_calls`` and each row finished
+        (``plan.finish``; ``warn``: print its peak warning); the restored
+        waves in order."""
+        pcfg = self.config.pipeline
+        cut = [plan.segments(w, pcfg.seg_length, pcfg.pad_short_to_seg,
+                             self._hf if mode == 1 else None) for w in wavs]
+        with annotate("vf.plan"):
+            groups: dict = {}
+            for wi, (segs, _) in enumerate(cut):
+                for si, seg in enumerate(segs):
+                    groups.setdefault(seg.shape[0], []).append((wi, si))
+        res = [[None] * len(segs) for segs, _ in cut]
+        for seg_len, keys in groups.items():
+            rows = [cut[wi][0][si] for wi, si in keys]
+            for call, outs, peaks in self._calls(rows, data_mesh, max_batch):
+                with annotate("vf.stitch"):
+                    for (wi, si), out, peak in zip(keys[call], outs, peaks):
+                        res[wi][si] = plan.finish(out, peak if warn else None,
+                                                  seg_len, cut[wi][1][si])
         with annotate("vf.stitch"):
-            return (np.concatenate([o for o, _ in parts]),
-                    np.concatenate([p for _, p in parts]))
+            return [np.concatenate(r, axis=-1) for r in res]
 
     def _denoised_mel(self, wav: np.ndarray, training: bool,
                       generator: torch.Generator | None) -> torch.Tensor:
@@ -394,80 +397,46 @@ class VoiceFixer:
         if mode not in (0, 1, 2):
             raise ValueError(f"mode must be 0, 1, or 2, got {mode}")
         wav_10k = np.asarray(wav_10k, dtype=np.float32).reshape(-1)
-        training = mode == 2
-        seg_length = self.config.pipeline.seg_length
-        if (chunk_overlap_seconds > 0 and not training
-                and your_vocoder_func is None
-                and wav_10k.shape[0] > seg_length):
+        if mode == 2 or your_vocoder_func is not None:
+            return self._restore_sequential(wav_10k, mode, seed,
+                                            your_vocoder_func)
+        if (chunk_overlap_seconds > 0
+                and wav_10k.shape[0] > self.config.pipeline.seg_length):
             return self._restore_overlap(wav_10k, mode,
                                          chunk_overlap_seconds)
-        with annotate("vf.plan"):
-            segments = [wav_10k[s: s + seg_length]
-                        for s in range(0, wav_10k.shape[0], seg_length)]
-        if mode == 1:
-            # the trims below target the shorter post-ISTFT length
-            segments = [self._hf(seg) for seg in segments]
-        if training or your_vocoder_func is not None:
-            return self._restore_sequential(segments, training, seed,
-                                            your_vocoder_func)
-        with annotate("vf.plan"):
-            orig_lens: dict = {}
-            if self.config.pipeline.pad_short_to_seg:
-                for i, seg in enumerate(segments):
-                    if seg.shape[0] < seg_length:
-                        orig_lens[i] = seg.shape[0]
-                        segments[i] = np.pad(
-                            seg, (0, seg_length - seg.shape[0]))
-            groups: dict = {}
-            for i, seg in enumerate(segments):
-                groups.setdefault(seg.shape[0], []).append(i)
-        restored = [(seg_len, idxs,
-                     self._restore_rows([segments[i] for i in idxs]))
-                    for seg_len, idxs in groups.items()]
-        with annotate("vf.stitch"):
-            res: list = [None] * len(segments)
-            for seg_len, idxs, (outs, peaks) in restored:
-                for j, i in enumerate(idxs):
-                    if peaks[j] > 1.0:
-                        print("Warning: Exceed energy limit,",
-                              float(peaks[j]))
-                    out = _trim_center(outs[j], seg_len)
-                    # a padded chunk's real audio is its head
-                    if i in orig_lens:
-                        out = out[:orig_lens[i]]
-                    res[i] = out
-            return np.concatenate(res, axis=-1)
+        return self._restore_eval([wav_10k], mode)[0]
 
-    def _restore_sequential(self, segments: list, training: bool, seed: int,
+    def _restore_sequential(self, wav: np.ndarray, mode: int, seed: int,
                             your_vocoder_func) -> np.ndarray:
         """Mode 2 and the custom vocoder: each segment alone, at its own
         length, trimmed to it."""
+        training = mode == 2
+        segs, _ = plan.segments(wav, self.config.pipeline.seg_length, False,
+                                self._hf if mode == 1 else None)
         generator = (torch.Generator(self.device).manual_seed(seed)
                      if training else None)
         res = []
-        for seg in segments:
+        for seg in segs:
             if your_vocoder_func is None:
                 outs, peaks = self._restore_batch(seg[None], training,
                                                   generator)
-                if peaks[0] > 1.0:
-                    print("Warning: Exceed energy limit,", float(peaks[0]))
-                out = outs[0]
+                out, peak = outs[0], peaks[0]
             else:
                 out = your_vocoder_func(
                     self._denoised_mel(seg, training, generator))
                 if isinstance(out, torch.Tensor):
                     out = out.detach().float().cpu()
-                out = np.asarray(out).reshape(-1)
-            res.append(_trim_center(out, seg.shape[0]))
+                out, peak = np.asarray(out).reshape(-1), None
+            res.append(plan.finish(out, peak, seg.shape[0]))
         with annotate("vf.stitch"):
             return np.concatenate(res, axis=-1)
 
     def _restore_overlap(self, wav: np.ndarray, mode: int,
                          overlap_seconds: float) -> np.ndarray:
         """Full-segment windows ``overlap_seconds`` apart at their seams,
-        batched by ``_restore_rows``, stitched by ``overlap_add``. In mode
-        1 each window is ``remove_higher_frequency``'d and padded back to a
-        full segment (the crossfade covers the sub-hop tail)."""
+        restored in ``_calls``, stitched by ``overlap_add``. In mode 1 each
+        window is ``remove_higher_frequency``'d and padded back to a full
+        segment (the crossfade covers the sub-hop tail)."""
         seg = self.config.pipeline.seg_length
         n = wav.shape[0]
         with annotate("vf.plan"):
@@ -479,14 +448,13 @@ class VoiceFixer:
                 positions.append(n - seg)
             windows = [wav[pos: pos + seg] for pos in positions]
         if mode == 1:
-            windows = [_fit_length(self._hf(w), seg) for w in windows]
-        outs, peaks = self._restore_rows(windows)
+            windows = [plan.fit_length(self._hf(w), seg) for w in windows]
+        chunks = [None] * len(windows)
+        for call, outs, peaks in self._calls(windows):
+            with annotate("vf.stitch"):
+                chunks[call] = [plan.fit_length(plan.finish(o, p, seg), seg)
+                                for o, p in zip(outs, peaks)]
         with annotate("vf.stitch"):
-            chunks = []
-            for j in range(len(positions)):
-                if peaks[j] > 1.0:
-                    print("Warning: Exceed energy limit,", float(peaks[j]))
-                chunks.append(_fit_length(outs[j], seg))
             return overlap_add(chunks, positions, n, ramp)
 
     def restore(self, input: str, output: str, cuda: bool = False,

@@ -361,30 +361,9 @@ def res_bank(params: list):
 
 # ------------------------------- layouts the ConvBlockRes kernel reads
 
-def _pad_rows8(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """[.., Ci, Co] cast to dtype; in bfloat16 Ci is padded with zero rows
-    to a multiple of 8 (the tensor-core product stages 8 channels at once)."""
-    w = w.to(dtype)
-    pad = -w.shape[-2] % 8 if dtype == torch.bfloat16 else 0
-    return torch.nn.functional.pad(w, (0, 0, 0, pad)) if pad else w
-
-
-def pack_conv3x3(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """[3, 3, Ci, Co] -> [9*Ci_p, Co], tap-major (dt, df), then channel."""
-    w = _pad_rows8(w, dtype)
-    return w.reshape(9 * w.shape[2], w.shape[3]).contiguous()
-
-
 def pack_bn(bn: dict):
     """A folded batch norm -> (scale, shift), float32 and contiguous."""
     return bn["scale"].float().contiguous(), bn["shift"].float().contiguous()
-
-
-def pack_shortcut(sc: dict, dtype: torch.dtype) -> torch.Tensor:
-    """{"w": [1, 1, Ci, Co], "b": [Co]} -> [Ci_p + 1, Co]: the 1x1 weights,
-    then the bias as the last row."""
-    w = _pad_rows8(sc["w"][0, 0], dtype)
-    return torch.cat([w, sc["b"].to(dtype)[None]]).contiguous()
 
 
 # ------------------------------------------------------------ the bridge
